@@ -1,0 +1,37 @@
+"""Device and dtype policy of the PyTorch port.
+
+The port computes in float64 throughout: Hopper has native f64, so the
+JAX package's double-float emulation (its f32/TPU path) has no counterpart
+here, and the reference it is held to is the JAX x64 path.
+
+The card is the default device. ``resolve_device(None)`` is ``cuda``; with
+no card present it raises instead of falling back to the CPU. The CPU runs
+only when the caller asks for it (``device="cpu"``), as the tests do.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+DTYPE = torch.float64
+EPS = float(torch.finfo(DTYPE).eps)
+
+# Build outputs (the native AMG helper, the CUDA kernels) go to
+# <checkout>/build/mgbtpu_torch, which .gitignore lists.
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "build", "mgbtpu_torch")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> cuda; ``"cpu"``/``"cuda"``/a ``torch.device`` as given.
+    Raises when CUDA is asked for (or defaulted to) and no card is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "mgbtpu_torch: no CUDA device is available; pass device='cpu' "
+            "to run the plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"mgbtpu_torch: unsupported device {dev}")
+    return dev

@@ -1,0 +1,43 @@
+"""The hand-written CUDA kernels of the port (CUDA C++ for sm_90a).
+
+=====  ===================  ==============================================
+K1     ``panel_fwd``        Dz = Dz0 + G s (replaces ``fwd_dd``)
+K2     ``power_cone_eval``  per-node power-cone barrier (``node_eval``)
+K3     ``panel_adj``        G'y scattered into n_J (``adj_contrib``)
+K4     ``gram_matvec``      P' L L' P v, fused (``ymv_contrib``)
+K5a    ``front_factor``     ND front partial Cholesky (``panel_chol_inv``)
+K5b    ``front_solve``      ND front triangular solves (``panel_chol_inv``)
+=====  ===================  ==============================================
+
+Each wrapper runs its plain PyTorch version when its inputs lie on the CPU
+and launches its kernel when they lie on a CUDA device; it never falls back.
+Each counts its launches in the integer attribute ``launches``.
+"""
+from ._build import build_all
+from .front_factor import cholesky_nan, front_factor, front_factor_plain
+from .front_solve import front_solve, front_solve_plain
+from .gram_matvec import gram_matvec, gram_matvec_plain
+from .panel_adj import panel_adj, panel_adj_plain
+from .panel_fwd import panel_fwd, panel_fwd_plain
+from .power_cone import power_cone_eval, power_cone_plain
+
+WRAPPERS = {"panel_fwd": panel_fwd, "power_cone": power_cone_eval,
+            "panel_adj": panel_adj, "gram_matvec": gram_matvec,
+            "front_factor": front_factor, "front_solve": front_solve}
+
+
+def reset_launches():
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+__all__ = ["WRAPPERS", "build_all", "cholesky_nan", "front_factor",
+           "front_factor_plain", "front_solve", "front_solve_plain",
+           "gram_matvec", "gram_matvec_plain",
+           "launches", "panel_adj", "panel_adj_plain", "panel_fwd",
+           "panel_fwd_plain", "power_cone_eval", "power_cone_plain",
+           "reset_launches"]

@@ -1,0 +1,23 @@
+// panel_adj: adjoint panel product scattered into n_J, f64.
+//
+//   out[j] = sum_{(e, c): cols[e, c] = j} sum_q sum_k panels[k, e, q, c] * Y[e*p + q, k]
+//
+// Replaces the Pallas kernel adj_contrib (mgbtpu/ops/pallas_dd.py:228),
+// which produced the (C, N) per-slot contributions in double-float and left
+// the scatter into n_J to XLA. Here the scatter is fused and runs in gather
+// form (adjoint.cuh): one thread per column walks its slots in a fixed
+// order, so the result has the same bits on every run.
+// Bound on an H100: bytes (panels read once, 2 flops per 8 bytes).
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "adjoint.cuh"
+
+extern "C" int panel_adj_launch(const void* panels, const void* inv,
+                                const void* Y, void* out, int nD, int N,
+                                int p, int C, int n_J, int K, void* stream) {
+    adjoint_gather((const double*)panels, (const int64_t*)inv,
+                   (const double*)Y, (double*)out, nD, N, p, C, n_J, K,
+                   (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+}

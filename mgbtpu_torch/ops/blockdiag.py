@@ -1,0 +1,48 @@
+"""Host-side structured block operators.
+
+The reference's ``BlockDiag`` (``src/BlockMatrices.jl:11-29``) stores a broken
+FEM operator as one dense p-by-q block per element, here an ``(N, p, q)``
+dense array whose matvec is one batched einsum.
+
+This module holds the *host* (numpy/scipy) representation used during setup;
+the device form lives in ``solver/levelops.py``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+
+
+class BlockDiagHost:
+    """Element-block-diagonal operator: data[e] is the p-by-q block of element e."""
+
+    def __init__(self, data: np.ndarray):
+        data = np.asarray(data)
+        if data.ndim != 3:
+            raise ValueError("BlockDiagHost data must be (N, p, q)")
+        self.data = data
+
+    @property
+    def shape(self):
+        N, p, q = self.data.shape
+        return (N * p, N * q)
+
+    def to_sparse(self) -> sp.csr_matrix:
+        N, p, q = self.data.shape
+        return sp.block_diag([self.data[e] for e in range(N)], format="csr") \
+            if N > 1 else sp.csr_matrix(self.data[0])
+
+    def matvec(self, v: np.ndarray) -> np.ndarray:
+        N, p, q = self.data.shape
+        return np.einsum("epq,eq->ep", self.data, v.reshape(N, q)).reshape(-1)
+
+
+def block_column_sparse(op, active: int, nu: int) -> sp.csr_matrix:
+    """Sparse form of ``[0 ... op ... 0]`` with ``op`` in column-block ``active``
+    of ``nu`` equal blocks — the shape of every fine operator row D_fine[k]
+    (reference ``BlockColumn``, ``src/BlockMatrices.jl:32-46``)."""
+    A = op.to_sparse() if isinstance(op, BlockDiagHost) else sp.csr_matrix(op)
+    n_r, n_c = A.shape
+    blocks = [sp.csr_matrix((n_r, n_c)) for _ in range(nu)]
+    blocks[active] = A
+    return sp.hstack(blocks, format="csr")

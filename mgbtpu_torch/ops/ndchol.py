@@ -1,0 +1,447 @@
+"""Nested-dissection multifrontal Cholesky (torch port of the float64
+parts of ``mgbtpu/ops/ndchol.py``).
+
+The deep-t barrier Hessian has hundreds of near-null equilibrated
+eigenvalues that no smoother/coarse-space combination represents, while a
+direct factorization with a shift below lambda_min handles the same systems
+(the reference leans on cuDSS sparse Cholesky for the same reason). The
+factor is built from the FEM element structure:
+
+- SYMBOLIC (host numpy, once per hierarchy level, copied from the
+  reference): recursive coordinate bisection of the ELEMENTS into a complete
+  binary tree; each dof goes to the LCA tree node of the leaves whose
+  elements touch it. All index plans are precomputed.
+- NUMERIC (device, per refresh): bottom-up over tree levels, each level one
+  BATCH of dense partial factorizations: batched Cholesky of the eliminated
+  block, batched triangular solve for the coupling, batched product for the
+  Schur complement, all three in one launch of the front kernel K5a
+  (``kernels.front_factor``) per tree level.
+- SOLVE: forward/backward sweeps over the same structure, the triangular
+  solves in the front kernel K5b (``kernels.front_solve``).
+
+Padded slots carry unit diagonal and zero coupling so they factor trivially
+and contribute nothing. Index plans are int64 (int32 in the reference).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..kernels import front_factor, front_solve
+from .scatter import scatter_add
+
+ND_LEAF_ELEMS = 8
+
+
+# ---------------------------------------------------------------------------
+# symbolic phase (host)
+# ---------------------------------------------------------------------------
+
+def _bisect_order(xy: np.ndarray, depth: int) -> np.ndarray:
+    """Leaf id (0..2^depth-1) per element by recursive median bisection of
+    the widest coordinate axis."""
+    N = xy.shape[0]
+    leaf = np.zeros(N, dtype=np.int64)
+    stack = [(np.arange(N), 0, 0)]
+    while stack:
+        idx, d, base = stack.pop()
+        if d == depth or len(idx) == 0:
+            leaf[idx] = base
+            continue
+        spans = xy[idx].max(axis=0) - xy[idx].min(axis=0) if len(idx) else 0
+        ax = int(np.argmax(spans))
+        order = idx[np.argsort(xy[idx, ax], kind="stable")]
+        h = len(order) // 2
+        stack.append((order[:h], d + 1, base << 1))
+        stack.append((order[h:], d + 1, (base << 1) | 1))
+    return leaf
+
+
+class NDPlan:
+    """Host-side symbolic factorization plan (see module docstring)."""
+
+    def __init__(self, cols: np.ndarray, n_J: int, elem_xy: np.ndarray,
+                 leaf_elems: int = 8):
+        cols = np.asarray(cols, dtype=np.int64)
+        N, C = cols.shape
+        depth = max(0, int(np.ceil(np.log2(max(N, 1) / leaf_elems))))
+        leaf = _bisect_order(np.asarray(elem_xy, np.float64), depth)
+        self.n_J = n_J
+        self.depth = depth
+
+        # dof -> (lmin, lmax) over touching leaves -> LCA node
+        lmin = np.full(n_J, 1 << 62, dtype=np.int64)
+        lmax = np.full(n_J, -1, dtype=np.int64)
+        lf = np.repeat(leaf, C)
+        cf = cols.reshape(-1)
+        np.minimum.at(lmin, cf, lf)
+        np.maximum.at(lmax, cf, lf)
+        touched = lmax >= 0
+        # level of LCA: depth - (highest differing bit position + 1); equal
+        # -> leaf level (= depth)
+        diff = lmin ^ lmax
+        hb = np.zeros(n_J, dtype=np.int64)
+        nz = diff > 0
+        hb[nz] = np.floor(np.log2(diff[nz].astype(np.float64))).astype(np.int64) + 1
+        lev = depth - hb                     # tree level of the LCA node
+        node_idx = lmin >> hb                # index within that level
+        lev[~touched] = depth                # untouched dofs: park at leaf 0
+        node_idx[~touched] = 0
+
+        # per-node assigned dofs, sorted by global id (deterministic)
+        self.levels = []
+        # front membership: dof d belongs to front of node v iff v is on
+        # the tree path from any touching leaf to d's LCA node. Compute
+        # per-level front lists bottom-up.
+        # region-touched dofs per node at each level:
+        # node (k, i) covers leaves [i<<(depth-k), (i+1)<<(depth-k))
+        # dof touched by node (k, i) iff [lmin, lmax] intersects that range
+        # and front-member iff additionally its LCA level <= k (assigned at
+        # or above this level).
+        self.assign_lev = lev
+        self.assign_idx = node_idx
+        self.lmin, self.lmax = lmin, lmax
+        self.leaf_of_elem = leaf
+        self.cols = cols
+
+
+    def front_dofs(self, k, i):
+        """Front of node (k, i): dofs assigned at (k, i) first, then
+        boundary dofs (EXACTLY touched by the node's elements, assigned to
+        a proper ancestor), each sorted by global id."""
+        s = self.depth - k
+        in_node = (self.leaf_of_elem >> s) == i
+        touched = np.zeros(self.n_J, dtype=bool)
+        touched[np.unique(self.cols[in_node])] = True
+        assigned_here = touched & (self.assign_lev == k) \
+            & (self.assign_idx == i)
+        anc = touched & (self.assign_lev < k)
+        a = np.flatnonzero(assigned_here)
+        b = np.flatnonzero(anc)
+        return a, b
+
+
+
+def _row_searchsorted(A, v):
+    """Per-row searchsorted: position of v[i] in sorted row A[i]."""
+    n, m = A.shape
+    lo = np.zeros(len(v), dtype=np.int64)
+    hi = np.full(len(v), m, dtype=np.int64)
+    while True:
+        active = lo < hi
+        if not active.any():
+            break
+        mid = (lo + hi) // 2
+        val = A[np.arange(len(v)), np.minimum(mid, m - 1)]
+        go_right = active & (val < v)
+        lo = np.where(go_right, mid + 1, lo)
+        hi = np.where(active & ~go_right, mid, hi)
+    return lo
+
+
+
+class NDDevicePlan:
+    """Per-level static index arrays for the batched factorization.
+
+    Front layout per node at level k: slots [0, amax_k) hold the node's
+    assigned (eliminated) dofs (padded with unit-diagonal dummies), slots
+    [amax_k, amax_k + bmax_k) the boundary dofs; one trailing dump slot
+    absorbs padded scatters. All dof-id arrays use n_J as the dump id
+    (rhs/solution vectors are padded to n_J + 1).
+
+    The symbolic build is fully vectorized (the per-node membership at
+    level k is the contiguous leaf-id interval [lmin>>s, lmax>>s], a
+    conservative superset for non-contiguous touch sets — extra boundary
+    members only enlarge fronts, never break the Schur closure)."""
+
+    def __init__(self, plan: NDPlan):
+        depth = plan.depth
+        n = plan.n_J
+        self.depth = depth
+        self.n_J = n
+        alev = plan.assign_lev
+        self.levels = []
+        # EXACT per-level membership from the (dof, leaf) incidence: a dof
+        # belongs to the fronts of exactly the nodes whose regions contain
+        # one of its touching leaves (the [lmin, lmax] hull overestimates
+        # catastrophically for dofs near cut corners — measured 247-wide
+        # leaf fronts where the true boundary is ~25).
+        pair_dof = plan.cols.reshape(-1)
+        pair_leaf = np.repeat(plan.leaf_of_elem, plan.cols.shape[1])
+        node_front = []        # per level: (node_of_member, dof, is_bnd)
+        for k in range(depth, -1, -1):
+            s = depth - k
+            nk = 1 << k
+            key = pair_dof * nk + (pair_leaf >> s)
+            uniq = np.unique(key)
+            rep_dof = uniq // nk
+            rep_node = uniq % nk
+            keep = alev[rep_dof] <= k
+            rep_dof, rep_node = rep_dof[keep], rep_node[keep]
+            is_bnd = ~((alev[rep_dof] == k)
+                       & (plan.assign_idx[rep_dof] == rep_node))
+            order = np.lexsort((rep_dof, is_bnd, rep_node))
+            node_front.append((rep_node[order], rep_dof[order],
+                               is_bnd[order]))
+            a_cnt = np.bincount(rep_node[~is_bnd], minlength=nk)
+            b_cnt = np.bincount(rep_node[is_bnd], minlength=nk)
+            amax = max(int(a_cnt.max()) if nk else 0, 1)
+            bmax = max(int(b_cnt.max()) if nk else 0, 1)
+            adofs = np.full((nk, amax), n, dtype=np.int64)
+            bdofs = np.full((nk, bmax), n, dtype=np.int64)
+            nd_s, dof_s, bnd_s = node_front[-1]
+            # slot index within (node, is_bnd) group
+            grp = nd_s * 2 + bnd_s
+            start = np.zeros(2 * nk + 1, dtype=np.int64)
+            np.cumsum(np.bincount(grp, minlength=2 * nk), out=start[1:])
+            slot = np.arange(len(grp)) - start[grp]
+            am = ~bnd_s
+            adofs[nd_s[am], slot[am]] = dof_s[am]
+            bdofs[nd_s[~am], slot[~am]] = dof_s[~am]
+            self.levels.append(dict(k=k, nk=nk, amax=amax, bmax=bmax,
+                                    adofs=adofs, bdofs=bdofs))
+
+        def slot_of(level_idx, nodes, dofs):
+            """Front-local slot of (node, dof) pairs at a level via
+            searchsorted in the node's sorted assigned/boundary lists."""
+            L = self.levels[level_idx]
+            adofs, bdofs = L["adofs"], L["bdofs"]
+            amax = L["amax"]
+            ja = _row_searchsorted(adofs[nodes], dofs)
+            hit_a = (ja < adofs.shape[1]) & \
+                (adofs[nodes, np.minimum(ja, adofs.shape[1] - 1)] == dofs)
+            jb = _row_searchsorted(bdofs[nodes], dofs)
+            hit_b = (jb < bdofs.shape[1]) & \
+                (bdofs[nodes, np.minimum(jb, bdofs.shape[1] - 1)] == dofs)
+            out = np.where(hit_a, ja, amax + jb)
+            out[~(hit_a | hit_b)] = amax + bdofs.shape[1]   # dump
+            return out
+
+        # leaf element assembly map
+        N, C = plan.cols.shape
+        le = plan.leaf_of_elem
+        flat_nodes = np.repeat(le, C)
+        flat_dofs = plan.cols.reshape(-1)
+        self.leaf_loc = slot_of(0, flat_nodes, flat_dofs).reshape(N, C)
+        self.leaf_of_elem = le
+        # child-boundary -> parent-front maps, BOTH directions: cmap for
+        # reference/tests, inverse (gather) maps for the device assembly
+        self.child_maps = []
+        self.parent_gather = []   # per internal level: (invL, invR)
+        for li in range(1, depth + 1):
+            Lc = self.levels[li - 1]
+            Lp = self.levels[li]
+            nk_c, bmax_c = Lc["nk"], Lc["bmax"]
+            nk_p = Lp["nk"]
+            fp = Lp["amax"] + Lp["bmax"]
+            bd = Lc["bdofs"]
+            nodes = np.repeat(np.arange(nk_c) // 2, bmax_c)
+            dofs = bd.reshape(-1)
+            cmap = slot_of(li, nodes, dofs)
+            cmap[dofs >= n] = fp
+            cmap = cmap.reshape(nk_c, bmax_c)
+            self.child_maps.append(cmap)
+            # inverse: parent slot -> child b-slot (miss -> bmax_c)
+            invs = []
+            for side in (0, 1):
+                ip = np.full((nk_p, fp + 1), bmax_c, dtype=np.int64)
+                ci = 2 * np.arange(nk_p) + side
+                rows = np.repeat(ci, bmax_c)
+                pslots = cmap[ci].reshape(-1)
+                keep = pslots < fp
+                ip[rows[keep] // 2, pslots[keep]] = \
+                    np.tile(np.arange(bmax_c), nk_p)[keep]
+                invs.append(ip)
+            self.parent_gather.append(tuple(invs))
+
+    def to_device(self, device) -> "NDDev":
+        """The device-side plan: the index arrays as int64 tensors."""
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+        levels = tuple(
+            NDLevel(adofs=t(L["adofs"]), bdofs=t(L["bdofs"]),
+                    k=L["k"], nk=L["nk"], amax=L["amax"], bmax=L["bmax"])
+            for L in self.levels)
+        return NDDev(levels=levels, leaf_of_elem=t(self.leaf_of_elem),
+                     leaf_loc=t(self.leaf_loc),
+                     parent_gather=tuple((t(a), t(b))
+                                         for a, b in self.parent_gather),
+                     depth=self.depth, n_J=self.n_J)
+
+
+@dataclass
+class NDLevel:
+    adofs: torch.Tensor    # (nk, amax) assigned dof ids (n_J = pad)
+    bdofs: torch.Tensor    # (nk, bmax) boundary dof ids
+    k: int
+    nk: int
+    amax: int
+    bmax: int
+
+
+@dataclass
+class NDDev:
+    """Device-side nested-dissection plan."""
+    levels: tuple          # of NDLevel, leaf..root
+    leaf_of_elem: torch.Tensor
+    leaf_loc: torch.Tensor
+    parent_gather: tuple   # per internal level: (invL, invR) parent-slot ->
+                           # child-b-slot maps (miss -> bmax_child)
+    depth: int
+    n_J: int
+
+
+# ---------------------------------------------------------------------------
+# numeric phase (device)
+# ---------------------------------------------------------------------------
+
+def nd_factor(dp: NDDev, He, diag_shift, factor=front_factor):
+    """Batched multifrontal factorization of sum-of-element-blocks + shift.
+
+    ``He`` (N, C, C) element blocks (already equilibrated if desired),
+    ``diag_shift`` a scalar added to every assigned diagonal. ``factor``
+    factors one tree level's fronts (the kernel K5a; a comparison passes
+    another). Returns the per-level factors ((L, U), ...) leaf..root."""
+    fact = []
+    S_prev = None
+    dtype, device = He.dtype, He.device
+    for li, L in enumerate(dp.levels):
+        amax, bmax, nk = L.amax, L.bmax, L.nk
+        f = amax + bmax
+        if li == 0:
+            # leaf assembly: one scatter-add of the (N, C, C) element blocks
+            flat = ((dp.leaf_of_elem[:, None, None] * (f + 1)
+                     + dp.leaf_loc[:, :, None]) * (f + 1)
+                    + dp.leaf_loc[:, None, :])
+            F = torch.zeros((nk * (f + 1) * (f + 1),), dtype=dtype,
+                            device=device)
+            F = scatter_add(F, flat.reshape(-1), He.reshape(-1)
+                            ).reshape(nk, f + 1, f + 1)
+        else:
+            invL, invR = dp.parent_gather[li - 1]
+            Sp = torch.nn.functional.pad(S_prev, (0, 1, 0, 1))
+            SL, SR = Sp[0::2], Sp[1::2]
+            ar = torch.arange(nk, device=device)[:, None, None]
+            F = SL[ar, invL[:, :, None], invL[:, None, :]] + \
+                SR[ar, invR[:, :, None], invR[:, None, :]]
+        # unit diagonal on padded/dummy slots; shift on real assigned slots
+        apad = L.adofs >= dp.n_J
+        bpad = L.bdofs >= dp.n_J
+        one = torch.ones((), dtype=dtype, device=device)
+        zero = torch.zeros((), dtype=dtype, device=device)
+        diag_a = torch.where(apad, one,
+                             torch.full(L.adofs.shape, float(diag_shift),
+                                        dtype=dtype, device=device))
+        ii = torch.arange(amax, device=device)
+        F[:, ii, ii] += diag_a
+        jjb = amax + torch.arange(bmax, device=device)
+        F[:, jjb, jjb] += torch.where(bpad, one, zero)
+        Lf, U, S_prev = factor(F, amax, bmax)
+        fact.append((Lf, U))
+    return tuple(fact)
+
+
+def nd_finite(fact) -> bool:
+    """All factor entries finite (the factorization's PD certificate).
+    One host sync."""
+    flags = torch.stack([torch.isfinite(Lf).all() & torch.isfinite(U).all()
+                         for Lf, U in fact])
+    return bool(flags.all())
+
+
+def nd_solve(dp: NDDev, fact, rhs):
+    """Solve H x = rhs with the factors from nd_factor (one rhs)."""
+    r = torch.cat([rhs, rhs.new_zeros(1)])
+    ys = []
+    for li, L in enumerate(dp.levels):
+        Lf, U = fact[li]
+        rA = r[L.adofs]
+        y = front_solve(Lf, rA)
+        ys.append(y)
+        upd = torch.einsum("nba,na->nb", U, y)
+        r = scatter_add(r.clone(), L.bdofs.reshape(-1), -upd.reshape(-1))
+    x = torch.zeros_like(r)
+    for li in range(len(dp.levels) - 1, -1, -1):
+        L = dp.levels[li]
+        Lf, U = fact[li]
+        xB = x[L.bdofs]
+        t = ys[li] - torch.einsum("nba,nb->na", U, xB)
+        xA = front_solve(Lf, t, transpose=True)
+        xA = torch.where(L.adofs < dp.n_J, xA, torch.zeros_like(xA))
+        x[L.adofs.reshape(-1)] = xA.reshape(-1)
+    return x[:-1]
+
+
+# ---------------------------------------------------------------------------
+# numpy reference numeric (correctness oracle for the tests)
+# ---------------------------------------------------------------------------
+
+def nd_factor_ref(plan: NDPlan, He: np.ndarray, jitter: float = 0.0):
+    """Reference multifrontal factorization in numpy float64: returns the
+    per-node dict {(k, i): (A_dofs, B_dofs, L_A, U)} bottom-up."""
+    depth = plan.depth
+    He = np.asarray(He, np.float64)
+    fronts = {}   # (k, i) -> (dofs array, dense front)
+    fact = {}
+    # leaf assembly
+    for i in range(1 << depth):
+        a, b = plan.front_dofs(depth, i)
+        dofs = np.concatenate([a, b])
+        loc = {d: j for j, d in enumerate(dofs)}
+        F = np.zeros((len(dofs), len(dofs)))
+        for e in np.flatnonzero(plan.leaf_of_elem == i):
+            ll = np.array([loc[d] for d in plan.cols[e]])
+            np.add.at(F, (ll[:, None], ll[None, :]), He[e])
+        F[np.arange(len(a)), np.arange(len(a))] += jitter
+        fronts[(depth, i)] = (dofs, F)
+    for k in range(depth, -1, -1):
+        for i in range(1 << k):
+            if (k, i) not in fronts:      # internal: gather children schur
+                a, b = plan.front_dofs(k, i)
+                dofs = np.concatenate([a, b])
+                loc = {d: j for j, d in enumerate(dofs)}
+                F = np.zeros((len(dofs), len(dofs)))
+                for ch in ((k + 1, 2 * i), (k + 1, 2 * i + 1)):
+                    bd, S = fronts.pop(("S",) + ch)
+                    ll = np.array([loc[d] for d in bd], dtype=np.int64)
+                    if len(ll):
+                        np.add.at(F, (ll[:, None], ll[None, :]), S)
+                F[np.arange(len(a)), np.arange(len(a))] += jitter
+                fronts[(k, i)] = (dofs, F)
+            dofs, F = fronts.pop((k, i))
+            a_n = len(plan.front_dofs(k, i)[0])
+            A = F[:a_n, :a_n]
+            Bc = F[a_n:, :a_n]
+            Cc = F[a_n:, a_n:]
+            L_A = np.linalg.cholesky(A) if a_n else np.zeros((0, 0))
+            U = np.linalg.solve(L_A, Bc.T).T if a_n else \
+                np.zeros((len(dofs), 0))
+            S = Cc - U @ U.T
+            fact[(k, i)] = (dofs[:a_n], dofs[a_n:], L_A, U)
+            if k > 0:
+                fronts[("S", k, i)] = (dofs[a_n:], S)
+    return fact
+
+
+def nd_solve_ref(plan: NDPlan, fact, rhs: np.ndarray):
+    depth = plan.depth
+    r = np.asarray(rhs, np.float64).copy()
+    ys = {}
+    for k in range(depth, -1, -1):
+        for i in range(1 << k):
+            A_d, B_d, L_A, U = fact[(k, i)]
+            y = np.linalg.solve(L_A, r[A_d]) if len(A_d) else np.zeros(0)
+            ys[(k, i)] = y
+            if len(B_d):
+                r[B_d] -= U @ y
+    x = np.zeros_like(r)
+    for k in range(0, depth + 1):
+        for i in range(1 << k):
+            A_d, B_d, L_A, U = fact[(k, i)]
+            if len(A_d):
+                t = ys[(k, i)] - U.T @ x[B_d]
+                x[A_d] = np.linalg.solve(L_A.T, t)
+    return x

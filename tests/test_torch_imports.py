@@ -1,0 +1,41 @@
+"""The PyTorch port stands alone: no module of ``mgbtpu_torch`` and not
+``chip_smoke.py`` imports ``jax`` or the JAX package ``mgbtpu`` (an AST
+scan, so imports inside functions count too)."""
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "mgbtpu")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "mgbtpu_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_scan_covers_the_port():
+    files = _port_files()
+    assert len(files) > 20
+    assert any(f.endswith(os.path.join("kernels", "power_cone.py"))
+               for f in files)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_import(path):
+    bad = sorted({r for r in _imported_roots(path) if r in FORBIDDEN})
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
