@@ -1,25 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (mgbtpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py                 # the check: L=5, kernels + solve
+    python3 chip_smoke.py                 # the check: kernels + solves
     python3 chip_smoke.py --level 7       # also solve fem2d_P2 L=7 once
     python3 chip_smoke.py --profile       # also profile one L=5 solve
 
-In order: prints the card's name and power limit; builds the six CUDA
+In order: prints the card's name and power limit; builds the seven CUDA
 kernels from ``mgbtpu_torch/kernels/csrc`` (one nvcc per source, in
 parallel); holds each kernel against its plain PyTorch version on the card
 at the fem2d_P2 L=5 top-level shapes (seeded inputs; the front kernels on
-every tree level of that level's nested dissection; max relative error
-<= 1e-12, identical non-finite patterns) and times kernel,
-plain version and, where one exists, a single PyTorch library call (device
-time per call, the host hidden behind a spin kernel); solves
-fem2d_P2, p=1, L=5 twice through ``assemble``/``mgb_solve`` on the card,
-counting kernel launches over the second solve (every kernel must launch);
-holds the solution and the Newton iterations against the stored JAX x64
-reference (``mgbtpu_torch/data/ref_fem2d_p2_L5.npz``: relative 2-norm
-error <= 1e-6, total iterations within 5%). Prints one JSON line of
-kernel records, then ``{"ok": true, "device": {...}}`` as the last line.
-Exits non-zero, before that line, on any failure or without a card.
+every tree level of that level's nested dissection; K1, K3 and K4 also at
+the 9 and 11 rows of the phase-I systems; K6 on the piece tables of
+two_sided_obstacle, rof, p_harmonic and parabolic_solve in modes 0/1/2 and
+in the phase-I cobarrier form, with ~1 % infeasible nodes and a select
+mask that switches a piece off where it is infinite; max relative error
+<= 1e-12, identical non-finite patterns) and times kernel, plain version
+and, where one exists, a single PyTorch library call (device time per
+call, the host hidden behind a spin kernel). Then the solves, each through
+the entry points a user calls, with the launch counters set to 0 just
+before and read just after: fem2d_P2, p=1, L=5 twice (K1-K5 must launch;
+the second solve bitwise equal to the first); zoo.two_sided_obstacle and
+parabolic_solve (p=1, h=0.5, 2 implicit steps, each a phase I and a main
+ramp) at L=5; the six zoo problems at L=3 and p_harmonic at L=3 from an
+infeasible start (phase I over 11 rows). K6 must launch in every solve of
+a piece table, in the cobarrier form in every phase I. Each solution and
+its Newton iterations are held against the stored JAX x64 run
+(``mgbtpu_torch/data/*.npz``): relative 2-norm error <= 1e-6; Newton
+iterations within 5 % (for the zoo and parabolic solves: the main ramp's
+steps but the last within 5 %, the last, an exact-stopping polish decided
+at the objective's roundoff floor, within +-4; phase I within 5 %); and
+the zoo's behavioural checks (obstacles respected, |grad u| <= smax,
+s^2 >= |grad u|^2 + 1). Prints one JSON line of kernel records, then
+``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, before
+that line, on any failure or without a card.
 """
 from __future__ import annotations
 
@@ -34,11 +47,16 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F64_FLOPS = 34e12             # H100 SXM FP64, non-tensor (NVIDIA data sheet)
-REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                   "mgbtpu_torch", "data", "ref_fem2d_p2_L5.npz")
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                    "mgbtpu_torch", "data")
+REF = os.path.join(DATA, "ref_fem2d_p2_L5.npz")
 TOL_KERNEL = 1e-12
 TOL_Z = 1e-6
 TOL_ITS = 0.05
+FLOOR_ITS = 4     # the exact-stopping polish at the roundoff floor
+ZOO = ("p_harmonic", "norton_hoff", "rof", "two_sided_obstacle",
+       "elastoplastic_torsion", "minimal_surface")
+LONE_CONE = ("p_harmonic", "norton_hoff", "minimal_surface")   # K2, not K6
 
 
 def wall_ms(fn, reps=200, warm=5):
@@ -347,17 +365,200 @@ def front_phases(prob, ops, torch, K, rng):
     return records
 
 
+def wide_panel_phases(systems, torch, K):
+    """K1, K3 and K4 against their plain versions on the top level of the
+    phase-I systems (9 rows: parabolic_solve; 11 rows: p_harmonic), the
+    widest row counts the solves give them."""
+    from mgbtpu_torch.solver.levelops import build_panel_ops
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4321)
+    errs = {"panel_fwd": [], "panel_adj": [], "gram_matvec": []}
+    for tag, M in systems:
+        ops = build_panel_ops(M.D_fine, M.nu, M.R_fine[-1],
+                              M.geometry.x.shape[0], dev)
+        nD, N, p, C = ops.panels.shape
+        n_J, m = ops.n_J, ops.N * ops.p
+        print(f"[shapes] {tag} phase-I top level: nD={nD} N={N} p={p} "
+              f"C={C} n_J={n_J}")
+
+        def t(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+        s, dz0 = t(rng.standard_normal(n_J)), t(rng.standard_normal((m, nD)))
+        Y = t(rng.standard_normal((m, nD)))
+        Ln = t(np.tril(rng.standard_normal((m, nD, nD))))
+        errs["panel_fwd"].append(compare(
+            f"panel_fwd nD={nD}", K.panel_fwd(ops.panels, ops.cols, s, dz0),
+            K.panel_fwd_plain(ops.panels, ops.cols, s, dz0)))
+        errs["panel_adj"].append(compare(
+            f"panel_adj nD={nD}",
+            K.panel_adj(ops.panels, ops.cols, ops.inv, Y, n_J),
+            K.panel_adj_plain(ops.panels, ops.cols, ops.inv, Y, n_J)))
+        errs["gram_matvec"].append(compare(
+            f"gram_matvec nD={nD}",
+            K.gram_matvec(ops.panels, ops.cols, ops.inv, Ln, s),
+            K.gram_matvec_plain(ops.panels, ops.cols, ops.inv, Ln, s)))
+        ms, _ = device_ms(lambda: K.panel_fwd(ops.panels, ops.cols, s, dz0))
+        print(f"[time] panel_fwd nD={nD}: device ms per call {ms!r}")
+    return {k: max(v) for k, v in errs.items()}
+
+
+def _feasible_rows(M, z0, rng):
+    """Seeded rows y (m, nD) inside the problem's set at most nodes: a zoo
+    problem's own start point D z0 plus a small perturbation; for the
+    parabolic pair (z0 None: its start lies on the cones' walls) random
+    (u, grad u) with s1 = u^2 + U and s2 = |grad u| + U. About 1 % of the
+    nodes are then pushed outside (the last row, a cone's s, negative)."""
+    m = M.n_nodes
+    if z0 is not None:
+        Dz = M.apply_D_full(z0) + 0.01 * rng.standard_normal(
+            (m, len(M.D_fine)))
+    else:
+        Dz = 0.5 * rng.standard_normal((m, 5))
+        Dz[:, 3] = Dz[:, 0] ** 2 + rng.uniform(1e-3, 1.0, m)
+        Dz[:, 4] = np.sqrt(Dz[:, 1] ** 2 + Dz[:, 2] ** 2) \
+            + rng.uniform(1e-3, 1.0, m)
+    bad = rng.choice(m, m // 100, replace=False)
+    Dz[bad, -1] = -rng.uniform(0.0, 1.0, len(bad))
+    return Dz
+
+
+def node_barrier_phases(tables, torch, K):
+    """K6 against its plain version at the L=5 top-level shapes, on each
+    piece table in modes 0/1/2 and in the phase-I cobarrier form (slack
+    and component rows with the box). A piecewise table's select grid
+    switches each piece off at every other node where the piece is
+    infinite, so both the dropped and the non-finite cases run. Returns the
+    kernel record (timed on the parabolic pair's phase-I Hessian, the
+    heaviest call of the slice's path)."""
+    from mgbtpu_torch.kernels.node_barrier import POWER
+    from mgbtpu_torch.solver.mgb import barrier_weights
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(99)
+    f8, errs, rows = 8, [], {}
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    for name, M, Q, z0 in tables:
+        m, nu = M.n_nodes, M.nu
+        Dz = t(_feasible_rows(M, z0, rng))
+        nD = Dz.shape[1]
+        args = tuple(t(a) for a in Q.args)
+        sel = args[0] if Q.select else None
+        if sel is not None:
+            sel = sel.clone()
+            for k, pc in enumerate(Q.pieces):
+                v = K.node_barrier_plain(0, Dz, (pc,), args, None,
+                                         torch.ones(m, dtype=torch.float64,
+                                                    device=dev),
+                                         torch.zeros_like(Dz))
+                off = torch.nonzero(~torch.isfinite(v)).flatten()[::2]
+                sel[off, k] = 0.0
+            args = (sel,) + args[1:]
+        w = np.asarray(M.w, np.float64)
+        bw = t(barrier_weights(w, None))
+        wc = t(w[:, None] * rng.standard_normal((m, nD)))
+        yhat = torch.cat([Dz, t(rng.uniform(-0.5, 0.5, (m, 1))),
+                          t(rng.standard_normal((m, nu)))], dim=1)
+        yhat[:: 97, nD + 1] = 12.0                      # outside the box
+        wch = t(w[:, None] * rng.standard_normal((m, nD + 1 + nu)))
+        box = (t(np.full(m, 4.0)), t(np.full(m, 10.0)))
+        calls = {}
+        for mode in (0, 1, 2):
+            calls[f"mode {mode}"] = (mode, Dz, wc, None, None)
+            calls[f"co mode {mode}"] = (mode, yhat, wch, nD + 1, box)
+        for label, (mode, y, wcx, co, bx) in calls.items():
+            errs.append(compare(
+                f"node_barrier {name} {label}",
+                K.node_barrier(mode, y, Q.pieces, args, sel, bw, wcx, co, bx),
+                K.node_barrier_plain(mode, y, Q.pieces, args, sel, bw, wcx,
+                                     co, bx)))
+        grids = sum(g.numel() for pc in Q.pieces for g in pc.grids(args))
+        npc = len(Q.pieces)
+        for label in ("mode 2", "co mode 2"):
+            mode, y, wcx, co, bx = calls[label]
+            ny = y.shape[1]
+            nbytes = f8 * (m * ny + m + grids + (m * npc if sel is not None
+                                                 else 0)
+                           + (2 * m if bx else 0) + m * ny * ny)
+            nops = m * (sum(2 * pc.width * len(pc.idx) + 30
+                            + (3 * len(pc.idx) ** 4 if pc.kind == POWER
+                               else 3 * pc.width * len(pc.idx) ** 2)
+                            for pc in Q.pieces) + npc * ny * ny)
+            bnd, by = bound_ms(nbytes, nops)
+            fn = (lambda mode=mode, y=y, wcx=wcx, co=co, bx=bx:
+                  K.node_barrier(mode, y, Q.pieces, args, sel, bw, wcx, co,
+                                 bx))
+            plain = (lambda mode=mode, y=y, wcx=wcx, co=co, bx=bx:
+                     K.node_barrier_plain(mode, y, Q.pieces, args, sel, bw,
+                                          wcx, co, bx))
+            rows[(name, label)] = dict(bound_ms=bnd, bound_by=by, **timings(
+                f"node_barrier {name} {label} (ny={ny}, {npc} pieces)", fn,
+                plain, plain_reps=2))
+            print(f"[bound] node_barrier {name} {label}: {bnd!r} ms ({by})")
+    torch.cuda.synchronize()
+    return dict(name="node_barrier",
+                source="mgbtpu_torch/kernels/csrc/node_barrier.cu",
+                replaces="mgbtpu/ops/pallas_dd.py:258", max_abs_err=max(errs),
+                **rows[("parabolic", "co mode 2")])
+
+
+def k6_tables(mg5):
+    """K6's piece tables at L=5: two_sided_obstacle (power p=2 nz=3 +
+    linear nc=2), rof (cones p=1 and p=2), p_harmonic p=1.5 (a lone nz=5
+    cone, spec 0: K6 takes its cobarrier) and parabolic_solve's pair, each
+    as (name, main system, Convex, start point or None)."""
+    import mgbtpu_torch.solver.parabolic as P
+    from mgbtpu_torch import intersect, zoo
+    from mgbtpu_torch.convex import convex_euclidian_power
+
+    out = []
+    for name in ("two_sided_obstacle", "rof", "p_harmonic"):
+        prob = getattr(zoo, name)(mg5, device="cuda")
+        out.append((name, prob.M[0], prob.Q, prob.g_grid.T.reshape(-1)))
+    Q = intersect(mg5, convex_euclidian_power(mg5, idx=P.parabolic_idx1(2),
+                                              p=2.0),
+                  convex_euclidian_power(mg5, idx=P.parabolic_idx2(2), p=1.0))
+    out.append(("parabolic", parabolic_systems(mg5)[0], Q, None))
+    return out
+
+
+def parabolic_systems(mg):
+    """The (main, feasibility) AMG pair of parabolic_solve's default state
+    and rows (the pair it builds, cached on mg)."""
+    import mgbtpu_torch.solver.parabolic as P
+    from mgbtpu_torch import prepare_amg
+
+    sp = mg.geometry.discretization.default_slack_space()
+    return prepare_amg(mg, state_variables=[("u", "dirichlet"), ("s1", sp),
+                                            ("s2", sp)],
+                       D=P.default_D_parabolic(2))
+
+
+def phase1_systems(mg5):
+    """The phase-I (feasibility) systems with the most rows at L=5: 9 for
+    parabolic_solve (5 + 1 + 3), 11 for p_harmonic (7 + 1 + 3)."""
+    from mgbtpu_torch import zoo
+
+    return [("parabolic", parabolic_systems(mg5)[1]),
+            ("p_harmonic", zoo.p_harmonic(mg5, device="cuda").M[1])]
+
+
 def solve(L, torch):
-    """Assembles fem2d_P2, p=1 at level L for the card; returns the problem
-    and a runner of one timed ``mgb_solve`` -> (seconds, solution, host
-    syncs)."""
+    """Assembles fem2d_P2, p=1 at level L for the card; returns the
+    MultiGrid, the problem and a runner of one timed ``mgb_solve`` ->
+    (seconds, solution, host syncs)."""
     from mgbtpu_torch import amg, assemble, fem2d_P2, mgb_solve, subdivide
     from mgbtpu_torch.solver.newton import SYNCS
 
     t0 = time.time()
-    prob = assemble(amg(subdivide(fem2d_P2(), L)), p=1.0, device="cuda")
+    mg = amg(subdivide(fem2d_P2(), L))
+    prob = assemble(mg, p=1.0, device="cuda")
     print(f"[setup] L={L}: subdivide + amg + assemble {time.time() - t0!r} s")
-    return prob, lambda: _timed_solve(prob, mgb_solve, torch, SYNCS)
+    return mg, prob, lambda: _timed_solve(prob, mgb_solve, torch, SYNCS)
 
 
 def _timed_solve(prob, mgb_solve, torch, SYNCS):
@@ -372,7 +573,8 @@ def _timed_solve(prob, mgb_solve, torch, SYNCS):
 def report(tag, secs, sol, syncs):
     S = sol.SOL_main
     its = S["its"].sum(axis=1)
-    print(f"[solve] {tag}: {secs!r} s, its per level {its.tolist()} "
+    wall = "" if secs is None else f"{secs!r} s wall, "
+    print(f"[solve] {tag}: {wall}its per level {its.tolist()} "
           f"total {int(its.sum())}, steps {S['steps_accepted']}/"
           f"{S['steps_attempted']} (accepted/attempted), "
           f"cg {int(S['cg'].sum())}, host syncs {syncs}, "
@@ -380,6 +582,158 @@ def report(tag, secs, sol, syncs):
           f"{S['its'][-1].tolist()}")
     if not np.all(np.isfinite(sol.z)):
         raise RuntimeError(f"{tag}: non-finite solution")
+
+
+def counted(torch, K, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after: (seconds, result, launches, K6 launches in cobarrier form)."""
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.time() - t0, out, K.launches(), K.node_barrier.co_launches
+
+
+def require_launches(tag, launches, names):
+    missing = [n for n in names if launches[n] == 0]
+    if missing:
+        raise RuntimeError(f"{tag}: kernels not launched: {missing}")
+
+
+def ref_record(fname, prefix):
+    """The solve record stored under ``prefix/`` in a reference file."""
+    data = np.load(os.path.join(DATA, fname))
+    n = len(prefix) + 1
+    return {k[n:]: data[k] for k in data.files if k.startswith(prefix + "/")}
+
+
+def check_record(tag, sol, ref):
+    """The solution within TOL_Z of the x64 one; the main ramp's Newton its
+    on every step but the last within 5 % in total, the last (the
+    exact-stopping polish, decided at the objective's roundoff floor)
+    within FLOOR_ITS; phase I run iff the reference ran it, its its within
+    5 %."""
+    z_ref = ref["z"]
+    zerr = float(np.linalg.norm(sol.z - z_ref) / np.linalg.norm(z_ref))
+    its, its_ref = sol.SOL_main["its"], ref["its"]
+    body, body_ref = int(its[:, :-1].sum()), int(its_ref[:, :-1].sum())
+    last, last_ref = int(its[:, -1].sum()), int(its_ref[:, -1].sum())
+    F = sol.SOL_feasibility
+    feas = -1 if F is None else int(F["its"].sum())
+    feas_ref = -1 if ref["feas_its"].size == 0 else int(ref["feas_its"].sum())
+    steps = [sol.SOL_main["steps_accepted"], sol.SOL_main["steps_attempted"]]
+    print(f"[reference] {tag}: |z - z_ref|/|z_ref| = {zerr!r}; main its "
+          f"{body} + {last} (final step) vs {body_ref} + {last_ref} (x64), "
+          f"total {body + last} vs {body_ref + last_ref}; phase I its {feas} "
+          f"vs {feas_ref} (-1: none); steps {steps} vs "
+          f"{ref['steps'].tolist()}")
+    fails = []
+    if not zerr <= TOL_Z:
+        fails.append(f"solution error {zerr}")
+    if abs(body - body_ref) > TOL_ITS * body_ref:
+        fails.append(f"its {body} not within 5% of {body_ref}")
+    if abs(last - last_ref) > FLOOR_ITS:
+        fails.append(f"final-step its {last} vs {last_ref}")
+    if (feas < 0) != (feas_ref < 0) \
+            or abs(feas - feas_ref) > TOL_ITS * max(feas_ref, 0):
+        fails.append(f"phase I its {feas} vs {feas_ref}")
+    if fails:
+        raise RuntimeError(f"{tag}: " + "; ".join(fails))
+
+
+def _grad(mg, u):
+    ops = mg.geometry.operators
+    return np.stack([ops["dx"].matvec(u), ops["dy"].matvec(u)], axis=1)
+
+
+def behaviour(name, mg, z):
+    """tests/test_zoo.py's checks in 2D: obstacles respected and reached,
+    the yield bound, the minimal surface's cone, ROF within the data."""
+    ok = True
+    if name == "two_sided_obstacle":
+        u = z[:, 0]
+        ok = u.min() >= -0.1 - 1e-6 and u.max() <= 1.0 + 1e-6 \
+            and u.min() < -0.09
+    elif name == "elastoplastic_torsion":
+        ok = np.sqrt((_grad(mg, z[:, 0]) ** 2).sum(axis=1)).max() <= 1 + 1e-3
+    elif name == "minimal_surface":
+        du = _grad(mg, z[:, 0])
+        ok = bool(np.all(z[:, 1] ** 2 >= (du ** 2).sum(axis=1) + 1 - 1e-3))
+    elif name == "rof":
+        ok = z[:, 0].max() <= 0.5 + 1e-6 and z[:, 0].min() >= -0.5 - 1e-6
+    if not ok:
+        raise RuntimeError(f"{name}: behavioural check failed")
+
+
+def slice2_solves(torch, K, smi, mg5):
+    """The zoo and parabolic solves on the card, each with the launch
+    counters set to 0 just before it; returns the parabolic run's launch
+    counts."""
+    import mgbtpu_torch.solver.parabolic as P
+    from mgbtpu_torch import amg, fem2d_P2, mgb_solve, subdivide, zoo
+
+    cuda = dict(device="cuda")
+    mesh = ["panel_fwd", "panel_adj", "gram_matvec", "front_factor",
+            "front_solve"]
+
+    prob = zoo.two_sided_obstacle(mg5, **cuda)
+    secs, sol, la, co = counted(torch, K, lambda: mgb_solve(prob, **cuda))
+    report("zoo.two_sided_obstacle L=5", secs, sol, "n/a")
+    print(f"[solve] zoo.two_sided_obstacle L=5 wall {secs!r} s on {smi}; "
+          f"launches {la}")
+    require_launches("two_sided_obstacle L=5", la, mesh + ["node_barrier"])
+    check_record("two_sided_obstacle L=5", sol,
+                 ref_record("ref_obstacle_L5.npz", "two_sided_obstacle"))
+    behaviour("two_sided_obstacle", mg5, sol.z)
+
+    steps, mgb = [], P.mgb_solve
+
+    def recording(prob, **kw):
+        steps.append(mgb(prob, **kw))
+        return steps[-1]
+
+    P.mgb_solve = recording     # records each implicit step's solve
+    try:
+        secs, psol, la_par, co = counted(torch, K, lambda: P.parabolic_solve(
+            mg5, h=0.5, p=1.0, **cuda))
+    finally:
+        P.mgb_solve = mgb
+    print(f"[solve] parabolic_solve L=5 h=0.5 ({len(steps)} steps) wall "
+          f"{secs!r} s on {smi}; launches {la_par}, K6 in cobarrier form "
+          f"{co}")
+    require_launches("parabolic_solve L=5", la_par, mesh + ["node_barrier"])
+    if co == 0:
+        raise RuntimeError("parabolic_solve L=5: no phase-I K6 launch")
+    data = np.load(os.path.join(DATA, "ref_parabolic_L5.npz"))
+    if not np.array_equal(psol.ts, data["ts"]) or len(steps) != 2:
+        raise RuntimeError(f"parabolic time stamps {psol.ts}")
+    for j, s in enumerate(steps, 1):
+        report(f"parabolic step {j} main ramp", None, s, "n/a")
+        rec = {k[6:]: data[k] for k in data.files
+               if k.startswith(f"step{j}/")}
+        check_record(f"parabolic L=5 step {j}", s, rec)
+
+    t0 = time.time()
+    mg3 = amg(subdivide(fem2d_P2(), 3))
+    print(f"[setup] L=3: subdivide + amg {time.time() - t0!r} s")
+    cases = [(n, {}, "ref_zoo_L3.npz") for n in ZOO] \
+        + [("p_harmonic", dict(s_init=0.0), "ref_phase1_L3.npz")]
+    for name, kw, fname in cases:
+        tag = f"zoo.{name} L=3" + (" from s=0" if kw else "")
+        prob = getattr(zoo, name)(mg3, **kw, **cuda)
+        secs, sol, la, co = counted(torch, K,
+                                    lambda: mgb_solve(prob, **cuda))
+        print(f"[solve] {tag} wall {secs!r} s on {smi}; launches {la}, K6 "
+              f"in cobarrier form {co}")
+        need = ["panel_fwd", "panel_adj"]
+        need.append("power_cone" if name in LONE_CONE else "node_barrier")
+        require_launches(tag, la, need)
+        if kw and co == 0:
+            raise RuntimeError(f"{tag}: no phase-I K6 launch")
+        check_record(tag, sol, ref_record(fname, name))
+        behaviour(name, mg3, sol.z)
+    return la_par
 
 
 def main(argv=None) -> int:
@@ -406,8 +760,13 @@ def main(argv=None) -> int:
     secs = K.build_all(force=True)
     print(f"[build] {len(K.WRAPPERS)} kernels in {secs!r} s")
 
-    prob, run = solve(5, torch)
+    mg5, prob, run = solve(5, torch)
     records = kernel_phases(prob, torch, K)
+    records.append(node_barrier_phases(k6_tables(mg5), torch, K))
+    wide = wide_panel_phases(phase1_systems(mg5), torch, K)
+    for r in records:
+        if r["name"] in wide:
+            r["max_abs_err"] = max(r["max_abs_err"], wide[r["name"]])
 
     s1, sol1, syncs1 = run()
     report("L=5 first", s1, sol1, syncs1)
@@ -415,14 +774,12 @@ def main(argv=None) -> int:
     s2, sol, syncs = run()
     launches = K.launches()
     report("L=5 second", s2, sol, syncs)
+    print(f"[solve] fem2d_P2 p=1 L=5 wall {s2!r} s on {smi}")
     print(f"[solve] second solve bitwise equal to the first: "
           f"{bool(np.array_equal(sol.z, sol1.z))}")
     print(f"[kernels] launches in the second L=5 solve: {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise RuntimeError(f"kernels not launched on the main path: {missing}")
-    for r in records:
-        r["launches"] = launches[r["name"]]
+    require_launches("fem2d_P2 p=1 L=5", launches,
+                     [n for n in launches if n != "node_barrier"])
 
     ref = np.load(REF)
     z_ref = ref["z"]
@@ -437,8 +794,13 @@ def main(argv=None) -> int:
     if abs(its - its_ref) > TOL_ITS * its_ref:
         raise RuntimeError(f"Newton its {its} not within 5% of {its_ref}")
 
+    launches_par = slice2_solves(torch, K, smi, mg5)
+    for r in records:
+        r["launches"] = (launches_par if r["name"] == "node_barrier"
+                         else launches)[r["name"]]
+
     for L in args.level:
-        _, run_L = solve(L, torch)
+        _, _, run_L = solve(L, torch)
         sL, solL, syL = run_L()
         report(f"L={L}", sL, solL, syL)
     if args.profile:

@@ -1,12 +1,16 @@
-"""The Convex container: per-node barrier families + parameter grids.
+"""The Convex container: a static piece table + per-node parameter grids.
 
-Port of ``mgbtpu/convex/convex.py``. A barrier family is a batched function
-over the node axis, ``barrier(mode, args, Dz, bw, wc)``, that returns the
-level's per-node terms directly (mode 0 objective terms, mode 1 gradient
-rows, mode 2 Hessian blocks; see ``kernels/power_cone.py``): the JAX
-package's ``vmap(F)`` plus the masking of ``solver/barrier.py`` in one call.
-``args`` hold the per-node grids as host numpy arrays; the solver moves them
-to its device once.
+Port of ``mgbtpu/convex/convex.py``. A ``Convex`` describes its barrier by
+its pieces (``kernels.node_barrier.Piece``: kind, input rows, widths, the
+power cone's alpha specialisation, and where its grids sit in ``args``) and
+an optional select grid ``args[0]`` (``convex_piecewise``/``intersect``).
+``barrier(mode, args, Dz, bw, wc)`` returns the level's per-node terms
+directly (mode 0 objective terms, mode 1 gradient rows, mode 2 Hessian
+blocks): the JAX package's ``vmap(F)`` plus the masking of
+``solver/barrier.py`` in one kernel call, K2 for a lone power cone and K6
+for any other table; ``cobarrier`` is the slack-augmented (phase-I) form,
+always K6. ``args`` hold the per-node grids as host numpy arrays; the solver
+moves them to its device once.
 
 Index semantics are 0-based. ``idx=None`` means "all rows".
 """
@@ -15,14 +19,39 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Tuple
 
+from ..kernels.node_barrier import POWER, Piece, node_barrier
+from ..kernels.power_cone import power_cone_eval
+
 
 @dataclass
 class Convex:
     args: Tuple[Any, ...]     # per-node grids, each (n,) or (n, k), numpy
-    barrier: Callable         # barrier(mode, args, Dz, bw, wc)
-    cobarrier: Tuple[Callable, Callable, Callable]  # slack-augmented (phase I)
+    pieces: Tuple[Piece, ...]  # the static piece table
     slack: Callable           # slack(args, Dz) -> (n,) initial-slack estimate
     input_spec: Tuple         # D-row count validation
+    select: bool = False      # args[0] is the (n, pieces) select grid
+
+    def _sel(self, args):
+        return args[0] if self.select else None
+
+    def barrier(self, mode, args, Dz, bw, wc):
+        """Per-node barrier terms of ``mode`` at the rows Dz (see
+        ``kernels/node_barrier.py``)."""
+        if not self.select and len(self.pieces) == 1 \
+                and self.pieces[0].kind == POWER:
+            pc = self.pieces[0]
+            return power_cone_eval(mode, Dz, *pc.grids(args), bw, wc, pc.idx,
+                                   pc.spec)
+        return node_barrier(mode, Dz, self.pieces, args, self._sel(args), bw,
+                            wc)
+
+    def cobarrier(self, mode, args, yhat, bw, wc, NC=None, box=None):
+        """The slack-augmented barrier: yhat[:, NC-1] is the slack (NC
+        defaults to all of yhat's rows); with ``box=(b, R)`` the phase-I
+        box terms over the rows NC.. are added."""
+        return node_barrier(mode, yhat, self.pieces, args, self._sel(args),
+                            bw, wc, co=yhat.shape[1] if NC is None else NC,
+                            box=box)
 
 
 def input_spec_from_idx(idx, n: int):
@@ -42,12 +71,30 @@ def input_spec_from_idx(idx, n: int):
 def validate_convex_inputs(Q: Convex, nD: int) -> None:
     """Check Q's expected input-row layout against the problem's D table
     (reference ``src/convex.jl:54-68``)."""
-    kind, n = Q.input_spec
-    if kind == "exact" and n != nD:
-        raise ValueError(
-            f"convex constraint with idx=None expects exactly {n} "
-            f"D row(s), but D has {nD} row(s)")
-    if kind == "atleast" and n > nD:
-        raise ValueError(
-            f"convex constraint indexes input row {n - 1} (0-based), "
-            f"but D has only {nD} row(s)")
+
+    def _check(spec):
+        kind = spec[0]
+        if kind == "exact" and spec[1] != nD:
+            raise ValueError(
+                f"convex constraint with idx=None expects exactly {spec[1]} "
+                f"D row(s), but D has {nD} row(s)")
+        if kind == "atleast" and spec[1] > nD:
+            raise ValueError(
+                f"convex constraint indexes input row {spec[1] - 1} "
+                f"(0-based), but D has only {nD} row(s)")
+        if kind == "all":
+            for s in spec[1]:
+                _check(s)
+        # ("any",) -> unchecked
+
+    _check(Q.input_spec)
+
+
+def intersect(mg, *Qs: Convex) -> Convex:
+    """Intersection of convex domains: all pieces active at every node
+    (reference ``src/convex.jl:110-122``)."""
+    from .piecewise import convex_piecewise
+
+    if len(Qs) == 0:
+        raise ValueError("intersect needs at least one Convex")
+    return convex_piecewise(Qs, mg=mg, select=lambda x: (True,) * len(Qs))

@@ -4,9 +4,11 @@ Barrier: -log(s^(2/p) - ||q||^2) - mu(p) log(s), with mu = 0 for p in
 {1, 2}, 1 for p < 2, 2 for p > 2. Port of ``mgbtpu/convex/
 euclidian_power.py`` (reference ``src/convex_euclidian_power.jl``): the
 closed forms are written once, as batched tensor code over the node axis,
-in ``kernels/power_cone.py``. The barrier runs through kernel K2
-(``power_cone_eval``); the phase-I cobarrier and the slack estimate are
-plain PyTorch over the same closed forms.
+in ``kernels/power_cone.py`` (and in ``csrc/power_cone.cuh`` for the
+kernels). A lone cone's barrier runs through kernel K2
+(``power_cone_eval``); its phase-I cobarrier, and the cone as a piece of a
+piecewise set, through K6 (``node_barrier``). The slack estimate (once, at
+the start of phase I) is plain PyTorch.
 """
 from __future__ import annotations
 
@@ -14,8 +16,9 @@ import numpy as np
 import torch
 
 from ..kernels import power_cone as K2
+from ..kernels.node_barrier import POWER, Piece
 from ..utils.log import safe_pow
-from ._common import resolve_x, sample_grid
+from ._common import resolve_x, sample_grid, ssum
 from .convex import Convex, input_spec_from_idx
 
 
@@ -96,59 +99,14 @@ def convex_euclidian_power(mg=None, *, idx=None, A=None, b=None, p=2.0,
         if a0 in (1.0, 2.0):
             spec = int(a0)
 
-    def rows(nD):
-        return tuple(range(nD)) if idx_t is None else idx_t
-
-    def barrier(mode, args, Dz, bw, wc):
-        A_, b_, p_, mu_ = args
-        return K2.power_cone_eval(mode, Dz, A_, b_, p_, mu_, bw, wc,
-                                  rows(Dz.shape[1]), spec)
-
-    # cobarrier: y carries an appended slack; s_eff = s + slack
-    def _co_parts(args, yhat):
-        A_, b_, _, _ = args
-        q, s = K2.core_parts(A_, b_, rows(yhat.shape[1] - 1), yhat)
-        return q, s + yhat[:, -1]
-
-    def C0(args, yhat):
-        q, s = _co_parts(args, yhat)
-        return K2.core_value(q, s, args[2], args[3], spec)
-
-    def C1(args, yhat):
-        q, s = _co_parts(args, yhat)
-        gz = K2.core_grad(q, s, args[2], args[3], spec)
-        g = K2.at_g(args[0], gz, nz)
-        out = K2.scatter_vec(rows(yhat.shape[1] - 1), g, yhat.shape[1] - 1, s)
-        return torch.cat([out, gz[-1][:, None]], dim=1)
-
-    def C2(args, yhat):
-        A_ = args[0]
-        q, s = _co_parts(args, yhat)
-        Hz = K2.core_hess(q, s, args[2], args[3], spec)
-        H = K2.at_h_a(A_, Hz, nz)
-        # cross = A' Hz[:, -1] (the slack couples through s only)
-        cross = K2.at_g(A_, [Hz[k][nz - 1] for k in range(nz)], nz)
-        N1 = yhat.shape[1]
-        pos = {j: k for k, j in enumerate(rows(N1 - 1))}
-        zero = torch.zeros_like(s)
-        rws = []
-        for i in range(N1 - 1):
-            row = [H[pos[i]][pos[j]] if i in pos and j in pos else zero
-                   for j in range(N1 - 1)]
-            row.append(cross[pos[i]] if i in pos else zero)
-            rws.append(torch.stack(row, dim=1))
-        rws.append(torch.stack([cross[pos[j]] if j in pos else zero
-                                for j in range(N1 - 1)]
-                               + [Hz[nz - 1][nz - 1]], dim=1))
-        return torch.stack(rws, dim=1)
+    idx_r = tuple(range(nz)) if idx_t is None else idx_t
 
     def Slack(args, Dz):
         A_, b_, p_, _ = args
-        q, s = K2.core_parts(A_, b_, rows(Dz.shape[1]), Dz)
-        q_sq = K2.ssum([qi * qi for qi in q])
+        q, s = K2.core_parts(A_, b_, idx_r, Dz)
+        q_sq = ssum([qi * qi for qi in q])
         return -torch.minimum(s - safe_pow(q_sq, p_ / 2.0), s)
 
-    return Convex(args=(A_grid, b_grid, p_grid, mu_grid), barrier=barrier,
-                  cobarrier=(C0, C1, C2), slack=Slack,
+    return Convex(args=(A_grid, b_grid, p_grid, mu_grid),
+                  pieces=(Piece(POWER, idx_r, nz, spec),), slack=Slack,
                   input_spec=input_spec_from_idx(idx_t, nz))
-

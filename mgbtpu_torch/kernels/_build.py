@@ -27,7 +27,7 @@ from .._config import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NAMES = ("panel_fwd", "power_cone", "panel_adj", "gram_matvec",
-         "front_factor", "front_solve")
+         "front_factor", "front_solve", "node_barrier")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -10,7 +10,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define MAX_ND 8
+#define MAX_ND 12
 
 __global__ void panel_fwd_kernel(const double* __restrict__ panels,
                                  const int64_t* __restrict__ cols,
@@ -34,8 +34,9 @@ __global__ void panel_fwd_kernel(const double* __restrict__ panels,
             if (k < nD) acc[k] += pq[k * kstride + c] * sv;
     }
     double* o = out + (size_t)t * nD;
-    for (int k = 0; k < nD; ++k)
-        o[k] = dz0 ? dz0[(size_t)t * nD + k] + acc[k] : acc[k];
+#pragma unroll  // static indices keep acc in registers
+    for (int k = 0; k < MAX_ND; ++k)
+        if (k < nD) o[k] = dz0 ? dz0[(size_t)t * nD + k] + acc[k] : acc[k];
 }
 
 extern "C" int panel_fwd_launch(const void* panels, const void* cols,

@@ -38,7 +38,7 @@ def panel_fwd(panels, cols, s, dz0=None):
     if not B.on_cuda(NAME, panels, cols, s, dz0):
         return panel_fwd_plain(panels, cols, s, dz0)
     nD, N, p, C = panels.shape
-    B.require(nD <= 8, NAME, f"nD={nD} exceeds 8")
+    B.require(nD <= 12, NAME, f"nD={nD} exceeds 12")
     B.cuda_f64(NAME, panels, (nD, N, p, C), "panels")
     B.cuda_i64(NAME, cols, (N, C), "cols")
     B.require(s.dim() == 1 and s.dtype == torch.float64 and s.is_contiguous(),

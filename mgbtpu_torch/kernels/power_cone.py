@@ -21,30 +21,27 @@ exactly (``Log`` of a value at or below sqrt(tiny), NaN included, is -inf;
 searches reject non-finite trial points, so any difference here would
 change the Newton path.
 
-CUDA design (``csrc/power_cone.cu``): one thread per node, the nz x nz
-matrices in registers. What bounds it on an H100: bytes (a few hundred
-flops per node against ~(nz^2 + 2nD + 4) doubles read); at L=5 the inputs
-sit in L2 and the call is launch-bound.
+CUDA design (``csrc/power_cone.cu``, the closed forms in
+``csrc/power_cone.cuh``, shared with K6): one thread per node, the nz x nz
+matrices in registers; nz <= 5, nD <= 12. Every other barrier family, and
+the power cone's cobarrier, runs through K6 (``node_barrier.py``). What
+bounds it on an H100: bytes (a few hundred flops per node against
+~(nz^2 + 2nD + 4) doubles read); at L=5 the inputs sit in L2 and the call
+is launch-bound.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-import operator
 
 import torch
 
 from . import _build as B
+from ..convex._common import gather, scatter_mat, scatter_vec, ssum
 from ..utils.log import Log, barrier_floor, safe_pow
 
 NAME = "power_cone"
-_ARGS = ([ctypes.c_int] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
+_ARGS = ([ctypes.c_int] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
          + [ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p])
-
-
-def ssum(parts):
-    """Left-fold sum of a list of tensors (the JAX code's ``ssum``)."""
-    return functools.reduce(operator.add, parts)
 
 
 def pow_alpha(s, alpha, spec):
@@ -60,7 +57,7 @@ def pow_alpha(s, alpha, spec):
 def core_parts(A, b, idx, Dz):
     """z = A Dz[idx] + b as a list of (m,) columns; returns (q list, s)."""
     nz = b.shape[1]
-    ys = [Dz[:, j] for j in idx]
+    ys = gather(idx, Dz)
     z = [ssum([A[:, i * nz + j] * ys[j] for j in range(nz)]) + b[:, i]
          for i in range(nz)]
     return z[:-1], z[-1]
@@ -126,21 +123,6 @@ def at_h_a(A, Hz, nz):
              for j in range(nz)] for i in range(nz)]
 
 
-def scatter_vec(idx, vals, N, like):
-    pos = {j: k for k, j in enumerate(idx)}
-    zero = torch.zeros_like(like)
-    return torch.stack([vals[pos[j]] if j in pos else zero
-                        for j in range(N)], dim=1)
-
-
-def scatter_mat(idx, H, N, like):
-    pos = {j: k for k, j in enumerate(idx)}
-    zero = torch.zeros_like(like)
-    return torch.stack([torch.stack(
-        [H[pos[i]][pos[j]] if i in pos and j in pos else zero
-         for j in range(N)], dim=1) for i in range(N)], dim=1)
-
-
 def power_cone_plain(mode, Dz, A, b, p, mu, bw, wc, idx, spec):
     """Plain PyTorch version of the kernel (same arithmetic, same order)."""
     nz = b.shape[1]
@@ -170,7 +152,7 @@ def power_cone_eval(mode, Dz, A, b, p, mu, bw, wc, idx, spec):
     nz = len(idx)
     B.require(mode in (0, 1, 2), NAME, f"mode {mode}")
     B.require(spec in (0, 1, 2), NAME, f"spec {spec}")
-    B.require(2 <= nz <= 4 and nD <= 8, NAME, f"nz={nz}, nD={nD}")
+    B.require(2 <= nz <= 5 and nD <= 12, NAME, f"nz={nz}, nD={nD}")
     B.require(all(0 <= i < nD for i in idx), NAME, f"idx {idx}")
     B.cuda_f64(NAME, Dz, (m, nD), "Dz")
     B.cuda_f64(NAME, A, (m, nz * nz), "A")
@@ -180,7 +162,7 @@ def power_cone_eval(mode, Dz, A, b, p, mu, bw, wc, idx, spec):
     B.cuda_f64(NAME, wc, (m, nD), "wc")
     shape = ((m,), (m, nD), (m, nD, nD))[mode]
     out = torch.empty(shape, dtype=torch.float64, device=Dz.device)
-    ids = list(idx) + [0] * (4 - nz)
+    ids = list(idx) + [0] * (5 - nz)
     fn = B.launcher(NAME, _ARGS)
     err = fn(mode, spec, m, nD, nz, *ids,
              B.ptr(Dz), B.ptr(A), B.ptr(b), B.ptr(p), B.ptr(mu), B.ptr(bw),

@@ -20,7 +20,7 @@ from .._config import EPS, resolve_device
 from ..convex.convex import Convex, validate_convex_inputs
 from ..hierarchy.multigrid import AMGSystem, prepare_amg
 from ..utils.errors import MGBConvergenceFailure
-from ..utils.log import Log, Logger
+from ..utils.log import Logger
 from .barrier import make_level_fns
 from .levelops import GramHessian, build_panel_ops
 from .newton import (CONVERGED, PREDICTOR, dense_ir_solve, equilibrated_solve,
@@ -190,13 +190,20 @@ class ProblemKernels:
                             ).cpu().numpy()
 
 
-def _kernels_for(M: AMGSystem, barrier, line_search, device) -> ProblemKernels:
+def _kernels_for(M: AMGSystem, Q: Convex, NC, line_search,
+                 device) -> ProblemKernels:
+    """The cached per-level solvers of Q's barrier on M (``NC`` None), or of
+    its phase-I barrier with cobarrier width NC: one per (Q, form), so that
+    repeat solves of the same problem (the parabolic steps) reuse the panel
+    operators and nested-dissection plans. The entry holds Q (through its
+    barrier), so ``id(Q)`` stays unique while it lives."""
     cache = getattr(M, "_torch_kernel_cache", None)
     if cache is None:
         cache = {}
         M._torch_kernel_cache = cache
-    key = (id(barrier), line_search, str(device))
+    key = (id(Q), NC, line_search, str(device))
     if key not in cache:
+        barrier = Q.barrier if NC is None else make_feasibility_fs(Q, NC)
         cache[key] = ProblemKernels(M, barrier, line_search, device)
     return cache[key]
 
@@ -397,9 +404,9 @@ def mgb_core(kern: ProblemKernels, z, c, args, *, w, bw, tol, t, maxit=10000,
 # Phase I: feasibility barrier with bounding box
 # ---------------------------------------------------------------------------
 
-def make_feasibility_fs(cobarrier, NC: int):
-    """Wrap a cobarrier triple with the phase-I box barriers, as a barrier
-    family (plain PyTorch; see ``convex/convex.py``).
+def make_feasibility_fs(Q: Convex, NC: int):
+    """The phase-I barrier family of ``Q``: its cobarrier plus the box
+    barriers, as one K6 launch per mode (``kernels/node_barrier.py``).
 
     Per node, with yy = (D rows..., slack u, component values v_i...) and
     box scalars (b, R) as the two trailing args:
@@ -407,41 +414,10 @@ def make_feasibility_fs(cobarrier, NC: int):
         F0 = cobarrier(yy[:NC]) - log(b-u) - log(b+u)
              - sum_i [log(R-v_i) + log(R+v_i)]
 
-    (reference ``src/mgb.jl:190-287``)."""
-    C0, C1, C2 = cobarrier
+    (reference ``src/mgb.jl:190-287``; ``mgbtpu/solver/mgb.py:928``)."""
 
     def barrier(mode, args, y, bw, wc):
-        b, R = args[-2], args[-1]
-        cargs = args[:-2]
-        yc = y[:, :NC]
-        u = yc[:, NC - 1]
-        v = y[:, NC:]
-        if mode == 0:
-            F = (C0(cargs, yc) - Log(b - u) - Log(b + u)
-                 + (-Log(R[:, None] - v) - Log(R[:, None] + v)).sum(dim=1))
-            lin = (wc * y).sum(dim=1)
-            return torch.where(bw != 0, bw * F, torch.zeros_like(F)) + lin
-        bw1 = bw[:, None]
-        if mode == 1:
-            gc = C1(cargs, yc)
-            gs = 1.0 / (b - u) - 1.0 / (b + u)
-            gv = 1.0 / (R[:, None] - v) - 1.0 / (R[:, None] + v)
-            g = torch.cat([gc[:, :NC - 1], (gc[:, NC - 1] + gs)[:, None], gv],
-                          dim=1)
-            return torch.where(bw1 != 0, bw1 * g, torch.zeros_like(g)) + wc
-        Hc = C2(cargs, yc)
-        ibm, ibp = 1.0 / (b - u), 1.0 / (b + u)
-        ivm, ivp = 1.0 / (R[:, None] - v), 1.0 / (R[:, None] + v)
-        hs = ibm * ibm + ibp * ibp
-        hv = ivm * ivm + ivp * ivp
-        NF = y.shape[1]
-        H = torch.zeros((y.shape[0], NF, NF), dtype=y.dtype, device=y.device)
-        H[:, :NC, :NC] = Hc
-        H[:, NC - 1, NC - 1] += hs
-        ar = torch.arange(NC, NF, device=y.device)
-        H[:, ar, ar] += hv
-        bw2 = bw1[:, :, None]
-        return torch.where(bw2 != 0, bw2 * H, torch.zeros_like(H))
+        return Q.cobarrier(mode, args[:-2], y, bw, wc, NC=NC, box=args[-2:])
 
     return barrier
 
@@ -506,7 +482,7 @@ def mgb_driver(Mpair, f_grid, g_grid, Q: Convex, *, device, tol=None, t=0.1,
         raise ValueError(f"f grid must be ({m}, {nD}), got {c0.shape}")
     z2 = z0.T.reshape(-1).copy()            # stacked (nu*m,), component-major
 
-    kern1 = _kernels_for(M1, Q.barrier, line_search, device)
+    kern1 = _kernels_for(M1, Q, None, line_search, device)
     q_args = tuple(kern1.tensor(a) for a in Q.args)
 
     SOL_feasibility = None
@@ -523,8 +499,7 @@ def mgb_driver(Mpair, f_grid, g_grid, Q: Convex, *, device, tol=None, t=0.1,
         c1 = np.zeros((m, nD2))
         c1[:, nD] = 1.0
         z1 = np.concatenate([z2, u0])
-        feas_fs = make_feasibility_fs(Q.cobarrier, nD + 1)
-        kern2 = _kernels_for(M2, feas_fs, line_search, device)
+        kern2 = _kernels_for(M2, Q, nD + 1, line_search, device)
         Rbox = max(10.0, 10.0 * float(np.abs(z2).max()))
         Rmax = max(float(feasibility_Rmax), Rbox)
 

@@ -1,4 +1,4 @@
-"""PyTorch port, the six CUDA kernels against their plain PyTorch versions
+"""PyTorch port, the seven CUDA kernels against their plain PyTorch versions
 on the card, at small ragged shapes and in every mode the wrappers take.
 
 Marked ``cuda``: each test skips without a card. The file imports neither
@@ -10,14 +10,17 @@ Tolerance: the kernels sum in another order than the plain versions
 (per thread in registers, the adjoint as a per-column gather, the front
 factorization column by column where the library blocks), so they agree
 to a few ulps, not bitwise; 1e-13 relative to the largest entry.
-The power-cone kernel follows the plain version operation by operation
-(built with --fmad=false) and must give the same non-finite pattern.
+The per-node barrier kernels (K2, K6) follow the plain versions operation
+by operation (built with --fmad=false) and must give the same non-finite
+pattern.
 """
 import numpy as np
 import pytest
 import torch
 
+import mgbtpu_torch as mt
 import mgbtpu_torch.kernels as K
+from mgbtpu_torch.kernels.node_barrier import POWER
 from mgbtpu_torch.solver.levelops import inverse_incidence
 
 pytestmark = pytest.mark.cuda
@@ -62,9 +65,11 @@ def _panels(rng, dev, nD=4, N=37, p=7, C=13, n_J=101):
     return t(panels), t(cols), t(inv), n_J
 
 
-def test_panel_fwd(dev):
-    rng = np.random.default_rng(0)
-    panels, cols, _, n_J = _panels(rng, dev)
+@pytest.mark.parametrize("nD", [4, 9, 11])
+def test_panel_fwd(dev, nD):
+    """nD = 9 and 11: the phase-I rows of parabolic_solve and p_harmonic."""
+    rng = np.random.default_rng(nD)
+    panels, cols, _, n_J = _panels(rng, dev, nD=nD)
     nD, N, p, _ = panels.shape
     s = torch.as_tensor(rng.standard_normal(n_J), device=dev)
     dz0 = torch.as_tensor(rng.standard_normal((N * p, nD)), device=dev)
@@ -75,9 +80,10 @@ def test_panel_fwd(dev):
     assert K.panel_fwd.launches == before + 2
 
 
-def test_panel_adj(dev):
+@pytest.mark.parametrize("nD", [4, 11])
+def test_panel_adj(dev, nD):
     rng = np.random.default_rng(1)
-    panels, cols, inv, n_J = _panels(rng, dev)
+    panels, cols, inv, n_J = _panels(rng, dev, nD=nD)
     nD, N, p, _ = panels.shape
     Y = torch.as_tensor(rng.standard_normal((N * p, nD)), device=dev)
     before = K.panel_adj.launches
@@ -86,9 +92,10 @@ def test_panel_adj(dev):
     assert K.panel_adj.launches == before + 1
 
 
-def test_gram_matvec(dev):
+@pytest.mark.parametrize("nD", [4, 11])
+def test_gram_matvec(dev, nD):
     rng = np.random.default_rng(2)
-    panels, cols, inv, n_J = _panels(rng, dev)
+    panels, cols, inv, n_J = _panels(rng, dev, nD=nD)
     nD, N, p, _ = panels.shape
     Ln = torch.as_tensor(np.tril(rng.standard_normal((N * p, nD, nD))),
                          device=dev)
@@ -124,6 +131,100 @@ def test_power_cone(dev, mode, spec, p):
     assert _rel(K.power_cone_eval(mode, *args),
                 K.power_cone_plain(mode, *args)) <= TOL
     assert K.power_cone_eval.launches == before + 1
+
+
+def _tables(m, rng):
+    """The piece tables of the zoo and parabolic_solve, and the kernel's
+    widest cases, on random grids: name -> (Convex, D rows)."""
+    x = np.zeros((m, 2))
+    cone, lin = mt.convex_euclidian_power, mt.convex_linear
+
+    def rand_A(n):
+        return np.tile(np.eye(n).reshape(1, -1), (m, 1)) \
+            + 0.01 * rng.standard_normal((m, n * n))
+
+    return {
+        "two_sided_obstacle": (mt.intersect(
+            x, cone(x=x, idx=(1, 2, 3), p=2.0),
+            lin(x=x, idx=(0,), A=lambda _: np.array([[1.0], [-1.0]]),
+                b=lambda _: np.array([0.1, 1.0]))), 4),
+        "rof": (mt.intersect(
+            x, cone(x=x, idx=(1, 2, 3), p=1.0),
+            cone(x=x, idx=(0, 4), A_grid=rand_A(2),
+                 b_grid=0.1 * rng.standard_normal((m, 2)), p=2.0)), 5),
+        "p_harmonic": (cone(x=x, idx=(1, 2, 4, 5, 6), A_grid=rand_A(5),
+                            p=1.5), 7),
+        "parabolic": (mt.intersect(x, cone(x=x, idx=(0, 3), p=2.0),
+                                   cone(x=x, idx=(1, 2, 4), p=3.0)), 5),
+        # 4 pieces, nc = 4 and ni = 5, nz = 5: over 8 rows, so that the
+        # phase-I form (8 + 1 + 3) has the kernel's widest 12 rows
+        "four_pieces_widest": (mt.convex_piecewise(
+            (lin(x=x, idx=(0, 1, 2, 3, 4),
+                 A_grid=rng.standard_normal((m, 20)),
+                 b_grid=rng.uniform(2.0, 4.0, (m, 4))),
+             cone(x=x, idx=(1, 2, 5, 6, 7), A_grid=rand_A(5), p=1.0),
+             cone(x=x, idx=(3, 7), p=2.0),
+             lin(x=x, idx=(4,), A=lambda _: np.array([[1.0]]))),
+            select_grid=(rng.uniform(size=(m, 4)) < 0.8).astype(float),
+            x=x), 8),
+    }
+
+
+TABLES = ["two_sided_obstacle", "rof", "p_harmonic", "parabolic",
+          "four_pieces_widest"]
+
+
+@pytest.mark.parametrize("form", ["barrier", "cobarrier", "phase_one"])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("table", TABLES)
+def test_node_barrier(dev, table, mode, form):
+    """K6 in every mode, as the barrier, the cobarrier (trailing slack) and
+    the phase-I barrier (cobarrier + box over 3 component rows), with
+    infeasible nodes, masked nodes and pieces switched off."""
+    rng = np.random.default_rng(TABLES.index(table))
+    m = 1000
+    Q, nD = _tables(m, rng)[table]
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    Dz = rng.uniform(-0.3, 0.3, (m, nD))
+    s_rows = sorted({pc.idx[-1] for pc in Q.pieces if pc.kind == POWER})
+    Dz[:, s_rows] = rng.uniform(1.0, 3.0, (m, len(s_rows)))  # cones' s
+    Dz[:60] *= rng.choice([-4.0, 4.0], (60, nD))        # infeasible nodes
+    Dz[60:70, nD - 1] = 0.0
+    nu = 3
+    co = box = None
+    y = Dz
+    if form != "barrier":
+        y = np.concatenate([Dz, rng.uniform(-0.5, 0.5, (m, 1))], axis=1)
+        co = nD + 1
+        if form == "phase_one":
+            y = np.concatenate([y, rng.uniform(-5.0, 5.0, (m, nu))], axis=1)
+            y[:5, co] = 12.0                              # outside the box
+            box = (t(np.full(m, 4.0)), t(np.full(m, 10.0)))
+    bw = np.full(m, 1.0 / m)
+    bw[10:20] = 0.0
+    args = tuple(t(a) for a in Q.args)
+    sel = args[0] if Q.select else None
+    call = (mode, t(y), Q.pieces, args, sel, t(bw),
+            t(rng.standard_normal(y.shape)), co, box)
+    before = (K.node_barrier.launches, K.node_barrier.co_launches)
+    assert _rel(K.node_barrier(*call), K.node_barrier_plain(*call)) <= TOL
+    assert K.node_barrier.launches == before[0] + 1
+    assert K.node_barrier.co_launches == before[1] + (co is not None)
+
+
+def test_node_barrier_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(5)
+    m = 16
+    Q, nD = _tables(m, rng)["rof"]
+    args = tuple(torch.as_tensor(a, device=dev) for a in Q.args)
+    y = torch.zeros((m, 13), dtype=torch.float64, device=dev)
+    ones = torch.ones(m, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="rows exceed"):
+        K.node_barrier(0, y, Q.pieces, args, args[0], ones, y)
+    y = y[:, :nD]
+    with pytest.raises(ValueError, match="cobarrier form"):
+        K.node_barrier(0, y, Q.pieces, args, args[0], ones, y,
+                       box=(ones, ones))
 
 
 def _fronts(rng, nk, a, b):
