@@ -8,31 +8,36 @@
 In order: prints the card's name and power limit; builds the seven CUDA
 kernels from ``mgbtpu_torch/kernels/csrc`` (one nvcc per source, in
 parallel); holds each kernel against its plain PyTorch version on the card
-at the fem2d_P2 L=5 top-level shapes (seeded inputs; the front kernels on
-every tree level of that level's nested dissection; K1, K3 and K4 also at
-the 9 and 11 rows of the phase-I systems; K6 on the piece tables of
-two_sided_obstacle, rof, p_harmonic and parabolic_solve in modes 0/1/2 and
-in the phase-I cobarrier form, with ~1 % infeasible nodes and a select
-mask that switches a piece off where it is infinite; max relative error
-<= 1e-12, identical non-finite patterns) and times kernel, plain version
-and, where one exists, a single PyTorch library call (device time per
-call, the host hidden behind a spin kernel). Then the solves, each through
-the entry points a user calls, with the launch counters set to 0 just
-before and read just after: fem2d_P2, p=1, L=5 twice (K1-K5 must launch;
-the second solve bitwise equal to the first); zoo.two_sided_obstacle and
-parabolic_solve (p=1, h=0.5, 2 implicit steps, each a phase I and a main
-ramp) at L=5; the six zoo problems at L=3 and p_harmonic at L=3 from an
-infeasible start (phase I over 11 rows). K6 must launch in every solve of
-a piece table, in the cobarrier form in every phase I. Each solution and
-its Newton iterations are held against the stored JAX x64 run
+at the fem2d_P2 L=5 top-level shapes (seeded inputs; K3 also at the
+coarsest level, where a column has hundreds of slots; K3 and K4 called
+twice, the repeat bitwise equal; the front kernels on every tree level of
+that level's nested dissection, K5b in both sweeps of its fused level call
+and as a whole ``nd_solve`` against the plain composition, repeat bitwise
+equal; K1, K3 and K4 also at the 9 and 11 rows of the phase-I systems; K6
+on the piece tables of two_sided_obstacle, rof, p_harmonic and
+parabolic_solve in modes 0/1/2 and in the phase-I cobarrier form, with ~1 %
+infeasible nodes and a select mask that switches a piece off where it is
+infinite; max relative error <= 1e-12, identical non-finite patterns) and
+times kernel, plain version and, where one exists, a single PyTorch library
+call (device time per call, the host hidden behind a spin kernel; K5b per
+``nd_solve`` and per launch, against the same sweeps'
+``torch.linalg.solve_triangular``). Then the solves, each through the entry
+points a user calls, with the launch counters set to 0 just before and read
+just after: fem2d_P2, p=1, L=5 twice (K1-K5 must launch; the second solve
+bitwise equal to the first); zoo.two_sided_obstacle and parabolic_solve
+(p=1, h=0.5, 2 implicit steps, each a phase I and a main ramp) at L=5; the
+six zoo problems at L=3 and p_harmonic at L=3 from an infeasible start
+(phase I over 11 rows). K6 must launch in every solve of a piece table, in
+the cobarrier form in every phase I. Each solution and its Newton
+iterations are held against the stored JAX x64 run
 (``mgbtpu_torch/data/*.npz``): relative 2-norm error <= 1e-6; Newton
 iterations within 5 % (for the zoo and parabolic solves: the main ramp's
 steps but the last within 5 %, the last, an exact-stopping polish decided
-at the objective's roundoff floor, within +-4; phase I within 5 %); and
-the zoo's behavioural checks (obstacles respected, |grad u| <= smax,
-s^2 >= |grad u|^2 + 1). Prints one JSON line of kernel records, then
-``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, before
-that line, on any failure or without a card.
+at the objective's roundoff floor, within +-4; phase I within 5 %); and the
+zoo's behavioural checks (obstacles respected, |grad u| <= smax, s^2 >=
+|grad u|^2 + 1). Prints one JSON line of kernel records, then ``{"ok":
+true, "device": {...}}`` as the last line. Exits non-zero, before that
+line, on any failure or without a card.
 """
 from __future__ import annotations
 
@@ -120,16 +125,18 @@ def device_ms(fn, reps=50):
     return a.elapsed_time(b) / reps, hidden
 
 
-def timings(name, kernel, plain, library=None, plain_reps=50):
+def timings(name, kernel, plain, library=None, plain_reps=50, reps=50):
     """Device ms per call of the kernel, its plain version and the library
-    call (None without one); prints the host launch rate beside them."""
+    call (None without one); prints the host launch rate beside them. A
+    call of many launches takes fewer ``reps``: the launches behind the
+    spin kernel must fit in the device's queue, or the host waits on it."""
     out, notes = {}, []
-    for key, fn, reps in (("ms", kernel, 50), ("plain_ms", plain, plain_reps),
-                          ("library_ms", library, 50)):
+    for key, fn, n in (("ms", kernel, reps), ("plain_ms", plain, plain_reps),
+                       ("library_ms", library, reps)):
         if fn is None:
             out[key] = None
             continue
-        out[key], hidden = device_ms(fn, reps)
+        out[key], hidden = device_ms(fn, n)
         if not hidden:
             notes.append(key)
     print(f"[time] {name}: device ms per call: kernel {out['ms']!r}, plain "
@@ -163,6 +170,15 @@ def compare(name, out, ref):
     if rel > TOL_KERNEL:
         raise RuntimeError(f"{name}: relative error {rel} > {TOL_KERNEL}")
     return err
+
+
+def same_bits(name, out, again):
+    """A repeat call must give the same bits (no atomics in the kernels)."""
+    import torch
+
+    if not torch.equal(out.view(torch.int64), again.view(torch.int64)):
+        raise RuntimeError(f"{name}: a repeat call gave other bits")
+    print(f"[kernel] {name}: repeat call bitwise equal")
 
 
 def csr_of_panels(ops, transpose=False):
@@ -257,29 +273,40 @@ def kernel_phases(prob, torch, K):
             lambda: K.power_cone_plain(2, Dz, A, bb, pp, mu, bw, wc, idx, 2),
             plain_reps=2)))
 
-    # K3 panel_adj
-    Y = t(rng.standard_normal((m, nD)))
-    err = compare("panel_adj", K.panel_adj(ops.panels, ops.cols, ops.inv, Y, n_J),
-                  K.panel_adj_plain(ops.panels, ops.cols, ops.inv, Y, n_J))
-    GT = csr_of_panels(ops, transpose=True)
-    Yf = Y.reshape(-1)
-    compare("panel_adj library", torch.mv(GT, Yf),
-            K.panel_adj_plain(ops.panels, ops.cols, ops.inv, Y, n_J))
-    b, o = bound_ms(panel_bytes + f8 * (m * nD + n_J), 2 * nD * m * C)
+    # K3 panel_adj: the top level (the record) and the coarsest level
+    ops0 = build_panel_ops(M.D_fine, M.nu, M.R_fine[0],
+                           M.geometry.x.shape[0], dev)
+    errs, rows = [], {}
+    for tag, lv in (("top level", ops), ("coarsest level", ops0)):
+        Yl = t(rng.standard_normal((m, nD)))
+        K_ = lv.inv.shape[1]
+        print(f"[shapes] panel_adj {tag}: n_J={lv.n_J} C={lv.C} K={K_}")
+        args = (lv.panels, lv.cols, lv.inv, Yl, lv.n_J)
+        out = K.panel_adj(*args)
+        errs.append(compare(f"panel_adj {tag}", out, K.panel_adj_plain(*args)))
+        same_bits(f"panel_adj {tag}", out, K.panel_adj(*args))
+        GT, Yf = csr_of_panels(lv, transpose=True), Yl.reshape(-1)
+        compare(f"panel_adj {tag} library", torch.mv(GT, Yf),
+                K.panel_adj_plain(*args))
+        b, o = bound_ms(f8 * (nD * N * p * lv.C + N * lv.C + m * nD
+                              + lv.n_J), 2 * nD * m * lv.C)
+        rows[tag] = dict(bound_ms=b, bound_by=o, **timings(
+            f"panel_adj {tag}", lambda: K.panel_adj(*args),
+            lambda: K.panel_adj_plain(*args), lambda: torch.mv(GT, Yf)))
+        print(f"[bound] panel_adj {tag}: {b!r} ms ({o})")
     records.append(dict(
         name="panel_adj", source="mgbtpu_torch/kernels/csrc/panel_adj.cu",
-        replaces="mgbtpu/ops/pallas_dd.py:228", max_abs_err=err,
-        bound_ms=b, bound_by=o, **timings(
-            "panel_adj",
-            lambda: K.panel_adj(ops.panels, ops.cols, ops.inv, Y, n_J),
-            lambda: K.panel_adj_plain(ops.panels, ops.cols, ops.inv, Y, n_J),
-            lambda: torch.mv(GT, Yf))))
+        replaces="mgbtpu/ops/pallas_dd.py:228", max_abs_err=max(errs),
+        **rows["top level"]))
 
     # K4 gram_matvec
     Ln = t(np.tril(rng.standard_normal((m, nD, nD))))
     v = t(rng.standard_normal(n_J))
-    err = compare("gram_matvec", K.gram_matvec(ops.panels, ops.cols, ops.inv, Ln, v),
+    out = K.gram_matvec(ops.panels, ops.cols, ops.inv, Ln, v)
+    err = compare("gram_matvec", out,
                   K.gram_matvec_plain(ops.panels, ops.cols, ops.inv, Ln, v))
+    same_bits("gram_matvec", out,
+              K.gram_matvec(ops.panels, ops.cols, ops.inv, Ln, v))
     b, o = bound_ms(panel_bytes + f8 * (m * nD * (nD + 1) // 2 + 2 * n_J),
                     4 * nD * m * C + 4 * m * nD * nD)
     records.append(dict(
@@ -341,28 +368,84 @@ def front_phases(prob, ops, torch, K, rng):
             lambda: [K.front_factor(F, a, b) for F, a, b in levels],
             lambda: [K.front_factor_plain(F, a, b) for F, a, b in levels])))
 
-    rhs = [torch.as_tensor(rng.standard_normal((F.shape[0], a)), device=dev)
-           for F, a, _ in levels]
-    pairs = [(Lf.contiguous(), r, tr) for (Lf, _), r in zip(fact, rhs)
-             for tr in (False, True)]
-    errs = [compare(f"front_solve level {i // 2} transpose={tr}",
-                    K.front_solve(Lf, r, tr), K.front_solve_plain(Lf, r, tr))
-            for i, (Lf, r, tr) in enumerate(pairs)]
-    nbytes = sum(f8 * r.numel() * ((r.shape[1] + 1) / 2 + 2)
-                 for Lf, r, _ in pairs)
-    nops = sum(r.shape[0] * r.shape[1] ** 2 for Lf, r, _ in pairs)
-    bnd, by = bound_ms(nbytes, nops)
-    records.append(dict(
-        name="front_solve", source="mgbtpu_torch/kernels/csrc/front_solve.cu",
-        replaces="mgbtpu/ops/pallas_dd.py:446", max_abs_err=max(errs),
-        bound_ms=bnd, bound_by=by, **timings(
-            f"front_solve ({len(pairs)} sweeps, one nd_solve)",
-            lambda: [K.front_solve(Lf, r, tr) for Lf, r, tr in pairs],
-            lambda: [K.front_solve_plain(Lf, r, tr) for Lf, r, tr in pairs],
-            lambda: [torch.linalg.solve_triangular(
-                Lf.mT if tr else Lf, r[:, :, None], upper=tr)
-                for Lf, r, tr in pairs])))
+    records.append(solve_phases(nd, fact, torch, K, rng))
     return records
+
+
+def solve_phases(nd, fact, torch, K, rng):
+    """K5b on the real factors of one ``nd_factor``: each tree level's
+    fused call in both sweeps, and the whole ``nd_solve``, against the plain
+    versions; the device time per ``nd_solve`` and per launch, beside the
+    same sweeps' triangular solves through ``torch.linalg.solve_triangular``
+    alone."""
+    from mgbtpu_torch.ops.ndchol import nd_solve
+
+    dev = torch.device("cuda")
+    fact = [(Lf.contiguous(), U.contiguous()) for Lf, U in fact]
+    n_J = nd.n_J
+    rhs = torch.as_tensor(rng.standard_normal(n_J), device=dev)
+    pad = torch.zeros(1, dtype=torch.float64, device=dev)
+    r0 = torch.cat([rhs, pad])
+    x0 = torch.cat([torch.as_tensor(rng.standard_normal(n_J), device=dev),
+                    pad])
+    errs = []
+    for li, (L, (Lf, U)) in enumerate(zip(nd.levels, fact)):
+        y = torch.as_tensor(rng.standard_normal((L.nk, L.amax)), device=dev)
+        got = []
+        for fwd, bwd in ((K.front_forward, K.front_backward),
+                         (K.front_forward_plain, K.front_backward_plain)):
+            r, x = r0.clone(), x0.clone()
+            got.append((*fwd(Lf, U, L.adofs, r, L.b_rows, L.b_inc), r,
+                        bwd(Lf, U, L.adofs, L.bdofs, y, x), x))
+        for part, out, ref in zip(("y", "upd", "r", "xA", "x"), *got):
+            errs.append(compare(f"front_solve level {li} {part}", out, ref))
+
+    def nd_solve_plain():
+        """``nd_solve``'s composition through K5b's plain versions."""
+        r = torch.cat([rhs, pad])
+        ys = [K.front_forward_plain(Lf, U, L.adofs, r, L.b_rows, L.b_inc)[0]
+              for L, (Lf, U) in zip(nd.levels, fact)]
+        x = torch.zeros_like(r)
+        for L, (Lf, U), y in reversed(list(zip(nd.levels, fact, ys))):
+            K.front_backward_plain(Lf, U, L.adofs, L.bdofs, y, x)
+        return x[:-1]
+
+    x = nd_solve(nd, fact, rhs)
+    errs.append(compare("nd_solve (front_solve, every level)", x,
+                        nd_solve_plain()))
+    same_bits("nd_solve (front_solve, every level)", x,
+              nd_solve(nd, fact, rhs))
+    before = K.front_solve.launches
+    nd_solve(nd, fact, rhs)
+    per_solve = K.front_solve.launches - before
+    if per_solve != 2 * len(nd.levels):
+        raise RuntimeError(f"nd_solve made {per_solve} front_solve launches, "
+                           f"not one per tree level and sweep")
+
+    f8, nops = 8, 0
+    nbytes = f8 * 2 * (n_J + 1)           # rhs in, x out
+    for L in nd.levels:
+        nk, a, b = L.nk, L.amax, L.bmax
+        nbytes += f8 * (nk * (a * (a + 1) // 2 + a * b) + nk * (a + b))
+        nops += nk * (2 * a * a + 4 * a * b) + int((L.bdofs < n_J).sum())
+    bnd, by = bound_ms(nbytes, nops)
+    sweeps = [(Lf, t) for Lf, _ in fact for t in (False, True)]
+    rs = [torch.as_tensor(rng.standard_normal((Lf.shape[0], Lf.shape[1], 1)),
+                          device=dev) for Lf, _ in sweeps]
+    row = timings(
+        f"front_solve (one nd_solve: {per_solve} launches)",
+        lambda: nd_solve(nd, fact, rhs),
+        nd_solve_plain,
+        lambda: [torch.linalg.solve_triangular(Lf.mT if t else Lf, r,
+                                               upper=t)
+                 for (Lf, t), r in zip(sweeps, rs)], plain_reps=2, reps=10)
+    print(f"[time] front_solve: device ms per launch {row['ms'] / per_solve!r}"
+          f" ({per_solve} per nd_solve); bound per nd_solve {bnd!r} ms "
+          f"({by})")
+    return dict(name="front_solve",
+                source="mgbtpu_torch/kernels/csrc/front_solve.cu",
+                replaces="mgbtpu/ops/pallas_dd.py:446", max_abs_err=max(errs),
+                bound_ms=bnd, bound_by=by, **row)
 
 
 def wide_panel_phases(systems, torch, K):
@@ -775,8 +858,10 @@ def main(argv=None) -> int:
     launches = K.launches()
     report("L=5 second", s2, sol, syncs)
     print(f"[solve] fem2d_P2 p=1 L=5 wall {s2!r} s on {smi}")
-    print(f"[solve] second solve bitwise equal to the first: "
-          f"{bool(np.array_equal(sol.z, sol1.z))}")
+    same = bool(np.array_equal(sol.z, sol1.z))
+    print(f"[solve] second solve bitwise equal to the first: {same}")
+    if not same:
+        raise RuntimeError("the second L=5 solve differs from the first")
     print(f"[kernels] launches in the second L=5 solve: {launches}")
     require_launches("fem2d_P2 p=1 L=5", launches,
                      [n for n in launches if n != "node_barrier"])

@@ -6,7 +6,8 @@ K2     ``power_cone_eval``  per-node lone power-cone barrier (``node_eval``)
 K3     ``panel_adj``        G'y scattered into n_J (``adj_contrib``)
 K4     ``gram_matvec``      P' L L' P v, fused (``ymv_contrib``)
 K5a    ``front_factor``     ND front partial Cholesky (``panel_chol_inv``)
-K5b    ``front_solve``      ND front triangular solves (``panel_chol_inv``)
+K5b    ``front_forward``,   ND front triangular solves, one tree level
+       ``front_backward``   of a sweep each (``panel_chol_inv``)
 K6     ``node_barrier``     per-node barrier of any piece table: linear,
                             piecewise/intersect, cobarrier + phase-I box
                             (``node_eval``)
@@ -14,12 +15,14 @@ K6     ``node_barrier``     per-node barrier of any piece table: linear,
 
 Each wrapper runs its plain PyTorch version when its inputs lie on the CPU
 and launches its kernel when they lie on a CUDA device; it never falls back.
-Each counts its launches in the integer attribute ``launches`` (K6 also
-counts those in the cobarrier form in ``co_launches``).
+Each counts its launches in the integer attribute ``launches`` (K5b's two
+sweeps share ``front_solve.launches``; K6 also counts those in the
+cobarrier form in ``co_launches``).
 """
 from ._build import build_all
 from .front_factor import cholesky_nan, front_factor, front_factor_plain
-from .front_solve import front_solve, front_solve_plain
+from .front_solve import (front_backward, front_backward_plain,
+                          front_forward, front_forward_plain, front_solve)
 from .gram_matvec import gram_matvec, gram_matvec_plain
 from .node_barrier import Piece, node_barrier, node_barrier_plain
 from .panel_adj import panel_adj, panel_adj_plain
@@ -42,8 +45,10 @@ def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["WRAPPERS", "Piece", "build_all", "cholesky_nan", "front_factor",
-           "front_factor_plain", "front_solve", "front_solve_plain",
+__all__ = ["WRAPPERS", "Piece", "build_all", "cholesky_nan",
+           "front_backward", "front_backward_plain", "front_factor",
+           "front_factor_plain", "front_forward", "front_forward_plain",
+           "front_solve",
            "gram_matvec", "gram_matvec_plain", "launches", "node_barrier",
            "node_barrier_plain", "panel_adj", "panel_adj_plain", "panel_fwd",
            "panel_fwd_plain", "power_cone_eval", "power_cone_plain",

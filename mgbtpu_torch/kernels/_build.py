@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exports one plain C function
-``int <name>_launch(...)`` that launches its kernel on the stream it is
+Each ``csrc/<name>.cu`` exports a plain C entry ``int <name>_launch(...)``
+(``front_solve.cu`` one per sweep, ``front_forward_launch`` and
+``front_backward_launch``) that launches its kernels on the stream it is
 given and returns ``cudaGetLastError()``. Each source is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/mgbtpu_torch`` at first use and loaded with ctypes (no PyTorch
@@ -91,17 +92,18 @@ def build_all(names=NAMES, force=False) -> float:
     return time.time() - t0
 
 
-def launcher(name: str, argtypes):
-    """The ctypes entry ``<name>_launch`` of a built kernel library (builds
-    it first if missing or stale)."""
-    fn = _LIBS.get(name)
+def launcher(name: str, argtypes, entry: str | None = None):
+    """The ctypes entry ``entry`` (default ``<name>_launch``) of a built
+    kernel library (builds it first if missing or stale)."""
+    entry = entry or f"{name}_launch"
+    fn = _LIBS.get(entry)
     if fn is None:
         build_all((name,))
         lib = ctypes.CDLL(library(name))
-        fn = getattr(lib, f"{name}_launch")
+        fn = getattr(lib, entry)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _LIBS[name] = fn
+        _LIBS[entry] = fn
     return fn
 
 

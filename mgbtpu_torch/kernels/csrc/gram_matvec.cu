@@ -12,8 +12,9 @@
 // Phase 1: one warp per element, gather -> forward -> L^T -> L with the
 // intermediates in shared memory; only W (p*nD doubles per element) goes to
 // device memory; only the lower triangle of each factor is read. Phase 2:
-// the deterministic adjoint gather (adjoint.cuh), one thread per column,
-// fixed summation order (no atomics).
+// K3's two deterministic adjoint phases (adjoint.cuh) on W, which is
+// per-element as K3's Y is: coalesced per-slot contributions, then each
+// column's fixed-order sum by a thread or a block (no atomics).
 // Bound on an H100: bytes (panels and the factors' lower triangles read
 // once).
 #include <cstdint>
@@ -34,6 +35,7 @@ __global__ void gram_node_kernel(const double* __restrict__ panels,
     __shared__ double sB[WARPS][MAX_PN];
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
+    pdl_trigger();  // the adjoint phases may be scheduled now
     const int e = blockIdx.x * WARPS + warp;
     if (e >= N) return;  // whole warp leaves together
     const int pn = p * nD;
@@ -71,16 +73,19 @@ __global__ void gram_node_kernel(const double* __restrict__ panels,
 
 extern "C" int gram_matvec_launch(const void* panels, const void* cols,
                                   const void* inv, const void* Lnode,
-                                  const void* v, void* W, void* out, int nD,
-                                  int N, int p, int C, int n_J, int K,
-                                  void* stream) {
+                                  const void* v, void* W, void* contrib,
+                                  void* out, int nD, int N, int p, int C,
+                                  int n_J, int K, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (N > 0) {
         gram_node_kernel<<<(N + WARPS - 1) / WARPS, 32 * WARPS, 0, s>>>(
             (const double*)panels, (const int64_t*)cols, (const double*)Lnode,
             (const double*)v, (double*)W, nD, N, p, C);
     }
-    adjoint_gather((const double*)panels, (const int64_t*)inv,
-                   (const double*)W, (double*)out, nD, N, p, C, n_J, K, s);
-    return (int)cudaGetLastError();
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    e = adjoint_launch((const double*)panels, (const int64_t*)inv,
+                       (const double*)W, (double*)contrib, (double*)out, nD,
+                       N, p, C, n_J, K, s);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

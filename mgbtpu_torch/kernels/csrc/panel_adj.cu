@@ -4,9 +4,11 @@
 //
 // Replaces the Pallas kernel adj_contrib (mgbtpu/ops/pallas_dd.py:228),
 // which produced the (C, N) per-slot contributions in double-float and left
-// the scatter into n_J to XLA. Here the scatter is fused and runs in gather
-// form (adjoint.cuh): one thread per column walks its slots in a fixed
-// order, so the result has the same bits on every run.
+// the scatter into n_J to XLA. Here the same two steps run as two coalesced
+// phases of adjoint.cuh from one entry: per-slot contributions with the
+// slots on neighbouring threads, then each column's fixed-order sum over
+// its slots, by a thread or a block per column as K asks. No atomics, so
+// the result has the same bits on every run.
 // Bound on an H100: bytes (panels read once, 2 flops per 8 bytes).
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -14,10 +16,12 @@
 #include "adjoint.cuh"
 
 extern "C" int panel_adj_launch(const void* panels, const void* inv,
-                                const void* Y, void* out, int nD, int N,
-                                int p, int C, int n_J, int K, void* stream) {
-    adjoint_gather((const double*)panels, (const int64_t*)inv,
-                   (const double*)Y, (double*)out, nD, N, p, C, n_J, K,
-                   (cudaStream_t)stream);
-    return (int)cudaGetLastError();
+                                const void* Y, void* contrib, void* out,
+                                int nD, int N, int p, int C, int n_J, int K,
+                                void* stream) {
+    cudaError_t e = adjoint_launch(
+        (const double*)panels, (const int64_t*)inv, (const double*)Y,
+        (double*)contrib, (double*)out, nD, N, p, C, n_J, K,
+        (cudaStream_t)stream);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -10,12 +10,12 @@ form, not the TPU kernel's Y form.
 CUDA design (``csrc/gram_matvec.cu``): phase 1, one warp per element runs
 gather -> forward product -> L' -> L with the intermediates in shared
 memory, reads only the lower triangle of each node factor and writes only
-the p*nD node values W; phase 2 is the adjoint gather of K3
-(``csrc/adjoint.cuh``): one thread per column, fixed summation order, no
-atomics, the same bits on every run. Both launches happen in one call of
-the C entry. What bounds it on an H100: bytes (panels and the factors'
-lower triangles read once, a few flops per 8 bytes); at L=5 the working
-set sits in L2 and the call is launch-bound.
+the p*nD node values W; phase 2 is K3's two adjoint phases on W
+(``csrc/adjoint.cuh``): coalesced per-slot contributions, then each
+column's fixed-order sum, with no atomics, so the same bits on every run.
+All launches happen in one call of the C entry. What bounds it on an H100:
+bytes (panels and the factors' lower triangles read once, a few flops per
+8 bytes); at L=5 the working set sits in L2 and the call is launch-bound.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from . import _build as B
 from ..ops.scatter import scatter_add
 
 NAME = "gram_matvec"
-_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def gram_matvec_plain(panels, cols, inv, Lnode, v):
@@ -59,11 +59,13 @@ def gram_matvec(panels, cols, inv, Lnode, v):
     B.cuda_f64(NAME, Lnode, (N * p, nD, nD), "Lnode")
     B.require(v.dim() == 1 and v.dtype == torch.float64 and v.is_contiguous(),
               NAME, "v must be a contiguous float64 vector")
+    K = inv.shape[1]
     W = torch.empty((N * p * nD,), dtype=torch.float64, device=v.device)
+    contrib = torch.empty((N * C,), dtype=torch.float64, device=v.device)
     out = torch.empty(v.shape, dtype=torch.float64, device=v.device)
     fn = B.launcher(NAME, _ARGS)
     err = fn(B.ptr(panels), B.ptr(cols), B.ptr(inv), B.ptr(Lnode), B.ptr(v),
-             B.ptr(W), B.ptr(out), nD, N, p, C, n_J, inv.shape[1],
+             B.ptr(W), B.ptr(contrib), B.ptr(out), nD, N, p, C, n_J, K,
              B.stream(v.device))
     B.check(NAME, err)
     gram_matvec.launches += 1

@@ -16,8 +16,11 @@ factor is built from the FEM element structure:
   block, batched triangular solve for the coupling, batched product for the
   Schur complement, all three in one launch of the front kernel K5a
   (``kernels.front_factor``) per tree level.
-- SOLVE: forward/backward sweeps over the same structure, the triangular
-  solves in the front kernel K5b (``kernels.front_solve``).
+- SOLVE: forward/backward sweeps over the same structure, each tree level
+  of each sweep one call of the front kernel K5b (``kernels.front_forward``,
+  ``kernels.front_backward``):
+  gathers, triangular solves, coupling products and, forward, the
+  separator update as a fixed-order gather over ``boundary_incidence``.
 
 Padded slots carry unit diagonal and zero coupling so they factor trivially
 and contribute nothing. Index plans are int64 (int32 in the reference).
@@ -29,7 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels import front_factor, front_solve
+from ..kernels import front_backward, front_factor, front_forward
 from .scatter import scatter_add
 
 ND_LEAF_ELEMS = 8
@@ -142,6 +145,28 @@ def _row_searchsorted(A, v):
 
 
 
+def boundary_incidence(bdofs: np.ndarray, n: int):
+    """Inverse incidence of one level's boundary scatter: the real dofs
+    of ``bdofs`` (nk, bmax), increasing, and for each the flat positions
+    node*bmax + slot that land on it, increasing, padded with nk*bmax,
+    (nr, Kb). Row i is row ``rows[i]`` of the JAX package's ``b_inc``
+    (``mgbtpu/ops/ndchol.py:318-332``), whose other rows are all padding.
+    Gathering the updates in this order gives the bits of a sequential
+    scatter-add, with no atomics."""
+    nk, bmax = bdofs.shape
+    bd = bdofs.reshape(-1)
+    pos = np.flatnonzero(bd < n)
+    dofs = bd[pos]
+    o = np.argsort(dofs, kind="stable")
+    pos, dofs = pos[o], dofs[o]
+    rows, start, cnt = np.unique(dofs, return_index=True, return_counts=True)
+    Kb = max(int(cnt.max()) if len(cnt) else 1, 1)
+    inc = np.full((len(rows), Kb), nk * bmax, dtype=np.int64)
+    inc[np.repeat(np.arange(len(rows)), cnt),
+        np.arange(len(dofs)) - np.repeat(start, cnt)] = pos
+    return rows.astype(np.int64), inc
+
+
 class NDDevicePlan:
     """Per-level static index arrays for the batched factorization.
 
@@ -200,8 +225,10 @@ class NDDevicePlan:
             am = ~bnd_s
             adofs[nd_s[am], slot[am]] = dof_s[am]
             bdofs[nd_s[~am], slot[~am]] = dof_s[~am]
+            b_rows, b_inc = boundary_incidence(bdofs, n)
             self.levels.append(dict(k=k, nk=nk, amax=amax, bmax=bmax,
-                                    adofs=adofs, bdofs=bdofs))
+                                    adofs=adofs, bdofs=bdofs, b_rows=b_rows,
+                                    b_inc=b_inc))
 
         def slot_of(level_idx, nodes, dofs):
             """Front-local slot of (node, dof) pairs at a level via
@@ -263,6 +290,7 @@ class NDDevicePlan:
 
         levels = tuple(
             NDLevel(adofs=t(L["adofs"]), bdofs=t(L["bdofs"]),
+                    b_rows=t(L["b_rows"]), b_inc=t(L["b_inc"]),
                     k=L["k"], nk=L["nk"], amax=L["amax"], bmax=L["bmax"])
             for L in self.levels)
         return NDDev(levels=levels, leaf_of_elem=t(self.leaf_of_elem),
@@ -276,6 +304,9 @@ class NDDevicePlan:
 class NDLevel:
     adofs: torch.Tensor    # (nk, amax) assigned dof ids (n_J = pad)
     bdofs: torch.Tensor    # (nk, bmax) boundary dof ids
+    b_rows: torch.Tensor   # (nr,) the level's boundary dofs, increasing
+    b_inc: torch.Tensor    # (nr, Kb) their flat bdofs positions (see
+                           # boundary_incidence)
     k: int
     nk: int
     amax: int
@@ -353,25 +384,17 @@ def nd_finite(fact) -> bool:
 
 
 def nd_solve(dp: NDDev, fact, rhs):
-    """Solve H x = rhs with the factors from nd_factor (one rhs)."""
+    """Solve H x = rhs with the factors from nd_factor (one rhs): one call of
+    the kernel K5b per tree level and sweep, each updating the padded
+    residual, then the padded solution, in place."""
     r = torch.cat([rhs, rhs.new_zeros(1)])
-    ys = []
-    for li, L in enumerate(dp.levels):
-        Lf, U = fact[li]
-        rA = r[L.adofs]
-        y = front_solve(Lf, rA)
-        ys.append(y)
-        upd = torch.einsum("nba,na->nb", U, y)
-        r = scatter_add(r.clone(), L.bdofs.reshape(-1), -upd.reshape(-1))
+    ys = [front_forward(Lf, U, L.adofs, r, L.b_rows, L.b_inc)[0]
+          for L, (Lf, U) in zip(dp.levels, fact)]
     x = torch.zeros_like(r)
     for li in range(len(dp.levels) - 1, -1, -1):
         L = dp.levels[li]
         Lf, U = fact[li]
-        xB = x[L.bdofs]
-        t = ys[li] - torch.einsum("nba,nb->na", U, xB)
-        xA = front_solve(Lf, t, transpose=True)
-        xA = torch.where(L.adofs < dp.n_J, xA, torch.zeros_like(xA))
-        x[L.adofs.reshape(-1)] = xA.reshape(-1)
+        front_backward(Lf, U, L.adofs, L.bdofs, ys[li], x)
     return x[:-1]
 
 

@@ -84,6 +84,17 @@ def save(path, arrays: dict):
     print(f"wrote {path}: {sorted(arrays)}")
 
 
+def update(path, records: dict):
+    """Write ``records`` ({prefix: record}) into the npz at ``path``, keeping
+    its records under other prefixes."""
+    keep = {}
+    if os.path.exists(path):
+        with np.load(path) as old:
+            keep = {k: old[k] for k in old.files
+                    if k.split("/", 1)[0] not in records}
+    save(path, {**keep, **flatten(records)})
+
+
 def main_setup():
     """The JAX x64 CPU setup of a ``__main__`` that regenerates a file."""
     import sys

@@ -1,6 +1,6 @@
 """PyTorch port, the nested-dissection front operations (K5a
-``front_factor``, K5b ``front_solve``, on the CPU through their plain
-versions) against the JAX x64 front code of ``mgbtpu/ops/ndchol.py``:
+``front_factor``, K5b ``front_forward``/``front_backward``, on the CPU
+through their plain versions) against the JAX x64 front code of ``mgbtpu/ops/ndchol.py``:
 ``jnp.linalg.cholesky`` + ``lax.linalg.triangular_solve`` + the Schur
 product in ``nd_factor``, and ``triangular_solve`` in ``nd_solve``, on the
 same seeded fronts. Tolerance 1e-12 relative to the largest entry: both
@@ -78,15 +78,72 @@ def test_front_factor_indefinite_front_is_nan():
         assert _rel(g.numpy()[[0, 2]], np.asarray(r)[[0, 2]]) <= TOL
 
 
+def _sweep_case(nk, a, b, seed):
+    """A tree level's factors, dof maps and padded vectors (n_J + 1,): the
+    fronts' assigned dofs distinct, one of them the dump slot n_J; the
+    boundary dofs drawn from a shared separator pool, so several fronts'
+    updates land on one dof, and a dump slot with zero coupling."""
+    rng = np.random.default_rng(seed)
+    F = _fronts(nk, a, b, seed)
+    Lf = np.asarray(jnp.linalg.cholesky(F[:, :a, :a]))
+    U = rng.standard_normal((nk, b, a))
+    n_J = nk * a + b + 4
+    perm = rng.permutation(n_J)
+    adofs = perm[:nk * a].reshape(nk, a)
+    adofs[nk // 2, a - 1] = n_J
+    pool = perm[nk * a:]
+    bdofs = np.stack([np.sort(rng.choice(pool, b, replace=False))
+                      for _ in range(nk)])
+    bdofs[0, b - 1] = n_J
+    U[0, b - 1] = 0.0              # a padded slot has no coupling
+    r = np.append(rng.standard_normal(n_J), 0.0)
+    y = rng.standard_normal((nk, a))
+    return Lf, U, adofs, bdofs, r, y, n_J
+
+
+@jax.jit
+def _jax_forward(Lf, U, adofs, bdofs, r):
+    """``nd_solve``'s forward step of one level (mgbtpu/ops/ndchol.py:
+    544-549)."""
+    y = lax.linalg.triangular_solve(Lf, r[adofs][:, :, None], left_side=True,
+                                    lower=True)[:, :, 0]
+    upd = jnp.einsum("nba,na->nb", U, y)
+    return y, upd, r.at[bdofs].add(-upd)
+
+
+@jax.jit
+def _jax_backward(Lf, U, adofs, bdofs, y, x):
+    """``nd_solve``'s backward step of one level (mgbtpu/ops/ndchol.py:
+    554-558)."""
+    n_J = x.shape[0] - 1
+    t = y - jnp.einsum("nba,nb->na", U, x[bdofs])
+    xA = lax.linalg.triangular_solve(Lf, t[:, :, None], left_side=True,
+                                     lower=True, transpose_a=True)[:, :, 0]
+    xA = jnp.where(adofs < n_J, xA, 0.0)
+    return xA, x.at[adofs].set(xA)
+
+
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("nk,a,b", SHAPES)
 def test_front_solve_matches_jax(nk, a, b, transpose):
-    F = _fronts(nk, a, b, seed=a + b)
-    Lf = np.asarray(jnp.linalg.cholesky(F[:, :a, :a]))
-    r = np.random.default_rng(a).standard_normal((nk, a))
-    ref = lax.linalg.triangular_solve(Lf, r[:, :, None], left_side=True,
-                                      lower=True, transpose_a=transpose)
+    """The fused level sweep (plain version): forward, the gather, the
+    triangular solve, the U product and the separator update by the
+    boundary inverse incidence; backward, the gather, the U' product, the
+    transposed solve, the dump mask and the write to x. 1e-13 relative."""
+    from mgbtpu_torch.ops.ndchol import boundary_incidence
+
+    Lf, U, adofs, bdofs, r, y, n_J = _sweep_case(nk, a, b, seed=a + b)
+    rows, inc = boundary_incidence(bdofs, n_J)
+    T = torch.tensor
     before = K.front_solve.launches
-    got = K.front_solve(torch.tensor(Lf), torch.tensor(r), transpose)
+    v = T(r)
+    if not transpose:
+        ref = _jax_forward(Lf, U, adofs, bdofs, r)
+        got = (*K.front_forward(T(Lf), T(U), T(adofs), v, T(rows), T(inc)), v)
+    else:
+        ref = _jax_backward(Lf, U, adofs, bdofs, y, r)
+        got = (K.front_backward(T(Lf), T(U), T(adofs), T(bdofs), T(y), v), v)
     assert K.front_solve.launches == before
-    assert _rel(got.numpy(), np.asarray(ref)[:, :, 0]) <= TOL
+    for g, want in zip(got, ref):
+        assert _rel(g.numpy(), want) <= 1e-13
+    assert v[n_J] == (0.0 if transpose else r[n_J])   # the dump entry

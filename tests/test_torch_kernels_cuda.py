@@ -7,9 +7,12 @@ JAX nor ``mgbtpu``, so it runs on a machine without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerance: the kernels sum in another order than the plain versions
-(per thread in registers, the adjoint as a per-column gather, the front
-factorization column by column where the library blocks), so they agree
-to a few ulps, not bitwise; 1e-13 relative to the largest entry.
+(per thread in registers, the adjoint's column sums over the inverse
+incidence and in fixed shuffle trees, the front factorization column by
+column and the front solves in 32-wide tiles where the library blocks
+otherwise), so they agree to a few ulps, not bitwise; 1e-13 relative to
+the largest entry. They use no atomics, so a repeat call must give the
+same bits.
 The per-node barrier kernels (K2, K6) follow the plain versions operation
 by operation (built with --fmad=false) and must give the same non-finite
 pattern.
@@ -21,6 +24,7 @@ import torch
 import mgbtpu_torch as mt
 import mgbtpu_torch.kernels as K
 from mgbtpu_torch.kernels.node_barrier import POWER
+from mgbtpu_torch.ops.ndchol import boundary_incidence
 from mgbtpu_torch.solver.levelops import inverse_incidence
 
 pytestmark = pytest.mark.cuda
@@ -80,30 +84,55 @@ def test_panel_fwd(dev, nD):
     assert K.panel_fwd.launches == before + 2
 
 
+def _same_bits(a, b):
+    return a.shape == b.shape and bool((a.view(torch.int64)
+                                        == b.view(torch.int64)).all())
+
+
+# (n_J, N): coarse levels, each element touching half to all of the n_J
+# columns (C = n_J), so a column has ~3N/4 slots: K ~ 100, K ~ 495 as at
+# L=5 level 0, K ~ 8,192 as at L=7 level 0 (one block per column)
+COARSE = [(16, 130), (4, 660), (2, 11000)]
+
+
+@pytest.mark.parametrize("p", [7, 3])
 @pytest.mark.parametrize("nD", [4, 11])
-def test_panel_adj(dev, nD):
+@pytest.mark.parametrize("coarse", [None] + COARSE)
+def test_panel_adj(dev, nD, coarse, p):
+    """Both phase-B forms, at the fine-level and the coarse-level shapes,
+    phase A for the P2 element's p = 7 and for any other p; repeat calls
+    give the same bits."""
     rng = np.random.default_rng(1)
-    panels, cols, inv, n_J = _panels(rng, dev, nD=nD)
+    kw = {} if coarse is None else dict(n_J=coarse[0], N=coarse[1],
+                                        C=coarse[0])
+    panels, cols, inv, n_J = _panels(rng, dev, nD=nD, p=p, **kw)
     nD, N, p, _ = panels.shape
+    if coarse is not None:
+        assert inv.shape[1] > 32 and n_J <= 16
     Y = torch.as_tensor(rng.standard_normal((N * p, nD)), device=dev)
     before = K.panel_adj.launches
-    assert _rel(K.panel_adj(panels, cols, inv, Y, n_J),
-                K.panel_adj_plain(panels, cols, inv, Y, n_J)) <= TOL
-    assert K.panel_adj.launches == before + 1
+    out = K.panel_adj(panels, cols, inv, Y, n_J)
+    assert _rel(out, K.panel_adj_plain(panels, cols, inv, Y, n_J)) <= TOL
+    assert _same_bits(out, K.panel_adj(panels, cols, inv, Y, n_J))
+    assert K.panel_adj.launches == before + 2
 
 
 @pytest.mark.parametrize("nD", [4, 11])
-def test_gram_matvec(dev, nD):
+@pytest.mark.parametrize("coarse", [None, COARSE[1]])
+def test_gram_matvec(dev, nD, coarse):
     rng = np.random.default_rng(2)
-    panels, cols, inv, n_J = _panels(rng, dev, nD=nD)
+    kw = {} if coarse is None else dict(n_J=coarse[0], N=coarse[1],
+                                        C=coarse[0])
+    panels, cols, inv, n_J = _panels(rng, dev, nD=nD, **kw)
     nD, N, p, _ = panels.shape
     Ln = torch.as_tensor(np.tril(rng.standard_normal((N * p, nD, nD))),
                          device=dev)
     v = torch.as_tensor(rng.standard_normal(n_J), device=dev)
     before = K.gram_matvec.launches
-    assert _rel(K.gram_matvec(panels, cols, inv, Ln, v),
-                K.gram_matvec_plain(panels, cols, inv, Ln, v)) <= TOL
-    assert K.gram_matvec.launches == before + 1
+    out = K.gram_matvec(panels, cols, inv, Ln, v)
+    assert _rel(out, K.gram_matvec_plain(panels, cols, inv, Ln, v)) <= TOL
+    assert _same_bits(out, K.gram_matvec(panels, cols, inv, Ln, v))
+    assert K.gram_matvec.launches == before + 2
 
 
 @pytest.mark.parametrize("spec,p", [(2, 1.0), (1, 2.0), (0, 1.5), (0, 3.0)])
@@ -255,18 +284,60 @@ def test_front_factor(dev, nk, a, b):
     assert K.front_factor.launches == before + 1
 
 
+def _sweep(rng, dev, nk, a, b):
+    """One tree level's factors, dof maps and padded vectors (n_J + 1,):
+    assigned dofs distinct with one dump slot (n_J); boundary dofs from a
+    shared separator pool (several fronts' updates land on one dof) with a
+    dump slot of zero coupling; front 1, where there is one, all NaN, as
+    K5a leaves a front that is not positive definite."""
+    F = _fronts(rng, nk, a, b)
+    Lf = np.linalg.cholesky(F[:, :a, :a])
+    U = rng.standard_normal((nk, b, a))
+    n_J = nk * a + b + 4
+    perm = rng.permutation(n_J)
+    adofs = perm[:nk * a].reshape(nk, a)
+    adofs[nk // 2, a - 1] = n_J
+    bdofs = np.stack([np.sort(rng.choice(perm[nk * a:], b, replace=False))
+                      for _ in range(nk)])
+    bdofs[0, b - 1] = n_J
+    U[0, b - 1] = 0.0
+    if nk > 1:
+        Lf[1] = U[1] = np.nan
+    rows, inc = boundary_incidence(bdofs, n_J)
+    v = np.append(rng.standard_normal(n_J), 0.0)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    return (t(Lf), t(U), t(adofs), t(bdofs), t(rows), t(inc), t(v),
+            t(rng.standard_normal((nk, a))))
+
+
+# FRONTS and the widest fronts of L=7: a = 192, and f = a + b = 279
+SWEEP_FRONTS = FRONTS + [(1, 192, 1), (8, 43, 236)]
+
+
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("nk,a,b", FRONTS)
+@pytest.mark.parametrize("nk,a,b", SWEEP_FRONTS)
 def test_front_solve(dev, nk, a, b, transpose):
+    """The fused level sweep against its plain version, forward (y, upd and
+    the separator-updated r) and backward (xA and the written x), with the
+    NaN front propagating as in the plain version; repeat calls give the
+    same bits."""
     rng = np.random.default_rng(a * b)
-    F = torch.as_tensor(_fronts(rng, nk, a, b), device=dev)
-    Lf = K.front_factor_plain(F, a, b)[0].contiguous()   # the library's is
-    # column-major; the kernel takes row-major factors, as K5a writes them
-    r = torch.as_tensor(rng.standard_normal((nk, a)), device=dev)
+    Lf, U, adofs, bdofs, rows, inc, v, y = _sweep(rng, dev, nk, a, b)
     before = K.front_solve.launches
-    assert _rel(K.front_solve(Lf, r, transpose),
-                K.front_solve_plain(Lf, r, transpose)) <= TOL
-    assert K.front_solve.launches == before + 1
+    outs = []
+    for fwd, bwd in ((K.front_forward, K.front_backward),) * 2 \
+            + ((K.front_forward_plain, K.front_backward_plain),):
+        w = v.clone()
+        if transpose:
+            outs.append((bwd(Lf, U, adofs, bdofs, y, w), w))
+        else:
+            outs.append((*fwd(Lf, U, adofs, w, rows, inc), w))
+    assert K.front_solve.launches == before + 2
+    for out, again, ref in zip(*outs):
+        assert _rel(out, ref) <= TOL
+        assert _same_bits(out, again)
+    if nk > 1:                                   # the NaN front's slots
+        assert torch.isnan(outs[0][0][1][adofs[1] < v.shape[0] - 1]).all()
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -277,3 +348,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.panel_fwd(panels, cols, s)
     with pytest.raises(ValueError, match="devices"):
         K.panel_fwd(panels, cols.cpu(), s.double())
+    # K3's C entry refuses an element whose p*nD values of Y exceed its stage
+    cols = torch.tensor([[0, 1, 2], [0, 1, 2]], device=dev)
+    inv = torch.as_tensor(inverse_incidence(cols.cpu().numpy(), 3), device=dev)
+    wide = torch.zeros((4097, 2, 1, 3), dtype=torch.float64, device=dev)
+    Y = torch.zeros((2, 4097), dtype=torch.float64, device=dev)
+    with pytest.raises(RuntimeError, match="panel_adj launch failed"):
+        K.panel_adj(wide, cols, inv, Y, 3)

@@ -90,6 +90,37 @@ def test_factor_and_solve_match_jax(nx, ny, leaf):
     assert np.abs(x_oracle - x_ref).max() <= 1e-10 * scale
 
 
+@pytest.mark.parametrize("nx,ny,leaf", CASES)
+def test_boundary_incidence_matches_jax_and_scatter(nx, ny, leaf):
+    """Each level's boundary inverse incidence holds the JAX dd solve's
+    ``b_inc`` rows of its boundary dofs (every other row of ``b_inc`` is
+    padding), and the fixed-order gather over it gives the bits of the
+    sequential scatter-add ``r.index_add_(bdofs, -upd)`` exactly."""
+    cols, n, xy, _ = _grid_case(nx, ny)
+    pj = NJ.NDDevicePlan(NJ.NDPlan(cols, n, xy, leaf_elems=leaf))
+    pt = NT.NDDevicePlan(NT.NDPlan(cols, n, xy, leaf_elems=leaf))
+    dt = pt.to_device("cpu")
+    rng = np.random.default_rng(nx * ny)
+    for L, b_inc in zip(dt.levels, pj.b_inc):
+        rows, inc = L.b_rows.numpy(), L.b_inc.numpy()
+        np.testing.assert_array_equal(inc, b_inc[rows])
+        rest = np.ones(len(b_inc), bool)
+        rest[rows] = False
+        assert (b_inc[rest] == L.nk * L.bmax).all()
+        r = torch.tensor(np.append(rng.standard_normal(n), 0.0))
+        upd = torch.tensor(rng.standard_normal((L.nk, L.bmax)))
+        upd[L.bdofs >= n] = 0.0             # padded slots have no coupling
+        scattered = r.clone().index_add_(0, L.bdofs.reshape(-1),
+                                         -upd.reshape(-1))
+        flat = torch.cat([upd.reshape(-1), upd.new_zeros(1)])
+        acc = r[L.b_rows]
+        for t in range(L.b_inc.shape[1]):
+            acc = acc - flat[L.b_inc[:, t]]
+        gathered = r.clone()
+        gathered[L.b_rows] = acc
+        assert torch.equal(gathered, scattered)
+
+
 def test_indefinite_front_is_nan_not_raise():
     """A front that is not positive definite comes back non-finite (the
     reference's cholesky semantics), so the solver can retry with a larger
