@@ -8,26 +8,31 @@
 In order: prints the card's name and power limit; builds the seven CUDA
 kernels from ``mgbtpu_torch/kernels/csrc`` (one nvcc per source, in
 parallel); holds each kernel against its plain PyTorch version on the card
-at the fem2d_P2 L=5 top-level shapes (seeded inputs; K3 also at the
-coarsest level, where a column has hundreds of slots; K3 and K4 called
-twice, the repeat bitwise equal; the front kernels on every tree level of
-that level's nested dissection, K5b in both sweeps of its fused level call
-and as a whole ``nd_solve`` against the plain composition, repeat bitwise
-equal; K1, K3 and K4 also at the 9 and 11 rows of the phase-I systems; K6
-on the piece tables of two_sided_obstacle, rof, p_harmonic and
-parabolic_solve in modes 0/1/2 and in the phase-I cobarrier form, with ~1 %
-infeasible nodes and a select mask that switches a piece off where it is
-infinite; max relative error <= 1e-12, identical non-finite patterns) and
+at the fem2d_P2 L=5 top-level shapes (seeded inputs; K3 and K4 also at
+the coarsest level, where a column has hundreds of slots; K3, K4 and K5a
+called twice, the repeat bitwise equal; the front kernels on every tree
+level of that level's nested dissection, K5a also on seeded SPD fronts at
+the 11 tree levels of the L=7 plan, K5b in both sweeps of its fused level
+call and as a whole ``nd_solve`` against the plain composition, repeat
+bitwise equal; K1, K3 and K4 also at the 9 and 11 rows of the phase-I
+systems; K6 on the piece tables of two_sided_obstacle, rof, p_harmonic
+and parabolic_solve in modes 0/1/2 and in the phase-I cobarrier form, with
+~1 % infeasible nodes and a select mask that switches a piece off where it
+is infinite; max relative error <= 1e-12, identical non-finite patterns)
+and
 times kernel, plain version and, where one exists, a single PyTorch library
 call (device time per call, the host hidden behind a spin kernel; K5b per
 ``nd_solve`` and per launch, against the same sweeps'
-``torch.linalg.solve_triangular``). Then the solves, each through the entry
+``torch.linalg.solve_triangular``; K5a per ``nd_factor`` at L=5 and L=7,
+against the composition of ``cholesky_ex``, ``solve_triangular`` and
+``baddbmm``). Then the solves, each through the entry
 points a user calls, with the launch counters set to 0 just before and read
 just after: fem2d_P2, p=1, L=5 twice (K1-K5 must launch; the second solve
 bitwise equal to the first); zoo.two_sided_obstacle and parabolic_solve
 (p=1, h=0.5, 2 implicit steps, each a phase I and a main ramp) at L=5; the
 six zoo problems at L=3 and p_harmonic at L=3 from an infeasible start
-(phase I over 11 rows). K6 must launch in every solve of a piece table, in
+(phase I over 11 rows); K2's launches in the second p=1 L=5 solve are
+also printed by mode. K6 must launch in every solve of a piece table, in
 the cobarrier form in every phase I. Each solution and its Newton
 iterations are held against the stored JAX x64 run
 (``mgbtpu_torch/data/*.npz``): relative 2-norm error <= 1e-6; Newton
@@ -251,8 +256,8 @@ def kernel_phases(prob, torch, K):
     w = np.asarray(M.w, np.float64)
     bw = t(barrier_weights(w, None))
     wc = t(w[:, None] * (1e3 * prob.f_grid))
-    idx = (1, 2, 3)
-    errs = []
+    idx, nz = (1, 2, 3), 3
+    errs, bounds = [], []
     for mode in (0, 1, 2):
         errs.append(compare(
             f"power_cone mode {mode}",
@@ -260,10 +265,15 @@ def kernel_phases(prob, torch, K):
             K.power_cone_plain(mode, Dz, A, bb, pp, mu, bw, wc, idx, 2)))
         ms, _ = device_ms(lambda: K.power_cone_eval(mode, Dz, A, bb, pp, mu,
                                                     bw, wc, idx, 2))
-        print(f"[time] power_cone mode {mode}: device ms per call {ms!r}")
-    nz = 3
-    b, o = bound_ms(f8 * m * (nD + nz * nz + nz + 3 + nD * nD),   # no wc
-                    m * (5 * nz * nz + 2 * nz ** 4 + nD * nD + 30))
+        # inputs (wc but in mode 2) and the mode's output, (1, nD, nD^2)
+        bounds.append(bound_ms(
+            f8 * m * (nD + nz * nz + nz + 3 + (nD if mode < 2 else 0)
+                      + (1, nD, nD * nD)[mode]),
+            m * (5 * nz * nz + 30
+                 + (2 * nz ** 4 + nD * nD if mode == 2 else 0))))
+        print(f"[time] power_cone mode {mode}: device ms per call {ms!r}; "
+              f"bound {bounds[-1][0]!r} ms ({bounds[-1][1]})")
+    b, o = bounds[2]
     records.append(dict(
         name="power_cone", source="mgbtpu_torch/kernels/csrc/power_cone.cu",
         replaces="mgbtpu/ops/pallas_dd.py:258", max_abs_err=max(errs),
@@ -299,24 +309,30 @@ def kernel_phases(prob, torch, K):
         replaces="mgbtpu/ops/pallas_dd.py:228", max_abs_err=max(errs),
         **rows["top level"]))
 
-    # K4 gram_matvec
-    Ln = t(np.tril(rng.standard_normal((m, nD, nD))))
-    v = t(rng.standard_normal(n_J))
-    out = K.gram_matvec(ops.panels, ops.cols, ops.inv, Ln, v)
-    err = compare("gram_matvec", out,
-                  K.gram_matvec_plain(ops.panels, ops.cols, ops.inv, Ln, v))
-    same_bits("gram_matvec", out,
-              K.gram_matvec(ops.panels, ops.cols, ops.inv, Ln, v))
-    b, o = bound_ms(panel_bytes + f8 * (m * nD * (nD + 1) // 2 + 2 * n_J),
-                    4 * nD * m * C + 4 * m * nD * nD)
+    # K4 gram_matvec: the top level (the record) and the coarsest level
+    errs, rows = [], {}
+    for tag, lv in (("top level", ops), ("coarsest level", ops0)):
+        Ln = t(np.tril(rng.standard_normal((m, nD, nD))))
+        v = t(rng.standard_normal(lv.n_J))
+        args = (lv.panels, lv.cols, lv.inv, Ln, v)
+        before = K.gram_matvec.launches
+        out = K.gram_matvec(*args)
+        errs.append(compare(f"gram_matvec {tag}", out,
+                            K.gram_matvec_plain(*args)))
+        same_bits(f"gram_matvec {tag}", out, K.gram_matvec(*args))
+        if K.gram_matvec.launches != before + 2:
+            raise RuntimeError("gram_matvec: not one count per call")
+        b, o = bound_ms(f8 * (nD * N * p * lv.C + N * lv.C
+                              + m * nD * (nD + 1) // 2 + 2 * lv.n_J),
+                        4 * nD * m * lv.C + 4 * m * nD * nD)
+        rows[tag] = dict(bound_ms=b, bound_by=o, **timings(
+            f"gram_matvec {tag}", lambda: K.gram_matvec(*args),
+            lambda: K.gram_matvec_plain(*args)))
+        print(f"[bound] gram_matvec {tag}: {b!r} ms ({o})")
     records.append(dict(
         name="gram_matvec", source="mgbtpu_torch/kernels/csrc/gram_matvec.cu",
-        replaces="mgbtpu/ops/pallas_dd.py:142", max_abs_err=err,
-        bound_ms=b, bound_by=o, **timings(
-            "gram_matvec",
-            lambda: K.gram_matvec(ops.panels, ops.cols, ops.inv, Ln, v),
-            lambda: K.gram_matvec_plain(ops.panels, ops.cols, ops.inv, Ln,
-                                        v))))
+        replaces="mgbtpu/ops/pallas_dd.py:142", max_abs_err=max(errs),
+        **rows["top level"]))
     records += front_phases(prob, ops, torch, K, rng)
     torch.cuda.synchronize()
     return records
@@ -345,31 +361,105 @@ def front_phases(prob, ops, torch, K, rng):
                      factor=record)
     print("[shapes] ND fronts (nk, amax, bmax) leaf..root: "
           f"{[(F.shape[0], a, b) for F, a, b in levels]}")
-    f8, records = 8, []
-
-    errs = []
+    records, errs = [], []
     for li, (F, a, b) in enumerate(levels):
-        for part, out, ref in zip(("Lf", "U", "S"), K.front_factor(F, a, b),
-                                  K.front_factor_plain(F, a, b)):
+        outs = K.front_factor(F, a, b)
+        for part, out, ref, again in zip(("Lf", "U", "S"), outs,
+                                         K.front_factor_plain(F, a, b),
+                                         K.front_factor(F, a, b)):
             errs.append(compare(f"front_factor level {li} {part}", out, ref))
-    nbytes = nops = 0
-    for F, a, b in levels:
-        f, nk = a + b, F.shape[0]
-        nbytes += f8 * nk * (f * f + a * a + a * b + b * b)
-        for j in range(a):
-            w = a - 1 - j
-            nops += nk * (w * (w + 1) + 2 * b * w + 2 * b * b + w + b + 1)
-    bnd, by = bound_ms(nbytes, nops)
+            same_bits(f"front_factor level {li} {part}", out, again)
+    bnd, by = factor_bound(levels)
+    print(f"[bound] front_factor L=5: {bnd!r} ms per nd_factor ({by})")
+    row = timings(
+        f"front_factor ({len(levels)} levels, one nd_factor)",
+        lambda: [K.front_factor(F, a, b) for F, a, b in levels],
+        lambda: [K.front_factor_plain(F, a, b) for F, a, b in levels])
+    factor_library_ms(torch, "L=5", levels)
+    errs.append(front_l7_phases(torch, K))
     records.append(dict(
         name="front_factor", source="mgbtpu_torch/kernels/csrc/front_factor.cu",
         replaces="mgbtpu/ops/pallas_dd.py:446", max_abs_err=max(errs),
-        bound_ms=bnd, bound_by=by, **timings(
-            f"front_factor ({len(levels)} levels, one nd_factor)",
-            lambda: [K.front_factor(F, a, b) for F, a, b in levels],
-            lambda: [K.front_factor_plain(F, a, b) for F, a, b in levels])))
+        bound_ms=bnd, bound_by=by, **row))
 
     records.append(solve_phases(nd, fact, torch, K, rng))
     return records
+
+
+def factor_bound(levels):
+    """K5a's bound for one ``nd_factor`` over ``levels`` [(F, a, b)]: each
+    front's entries read once, Lf, U and S written once; the flops of the
+    column-by-column elimination."""
+    nbytes = nops = 0
+    for F, a, b in levels:
+        f, nk = a + b, F.shape[0]
+        nbytes += 8 * nk * (f * f + a * a + a * b + b * b)
+        for j in range(a):
+            w = a - 1 - j
+            nops += nk * (w * (w + 1) + 2 * b * w + 2 * b * b + w + b + 1)
+    return bound_ms(nbytes, nops)
+
+
+def factor_library(torch, F, a, b):
+    """K5a's function as a composition of three library calls (the
+    yardstick: no single PyTorch call computes it)."""
+    Lf, _ = torch.linalg.cholesky_ex(F[:, :a, :a])
+    U = torch.linalg.solve_triangular(Lf.mT, F[:, a:a + b, :a], upper=True,
+                                      left=False)
+    return torch.baddbmm(F[:, a:a + b, a:a + b], U, U.mT, alpha=-1.0)
+
+
+def factor_library_ms(torch, tag, levels):
+    ms, hidden = device_ms(lambda: [factor_library(torch, F, a, b)
+                                    for F, a, b in levels], 10)
+    print(f"[time] front_factor {tag} library composition (cholesky_ex + "
+          f"solve_triangular + baddbmm, three calls a level, "
+          f"{len(levels)} levels): device ms per nd_factor {ms!r}"
+          + ("" if hidden else " (host not hidden: an upper bound)"))
+    return ms
+
+
+def front_l7_phases(torch, K):
+    """K5a at the tree levels of the fem2d_P2 L=7 plan (built on the host),
+    on seeded SPD fronts made on the card: each level against the plain
+    version, one ``nd_factor``'s worth timed against the plain version and
+    the library composition. Returns the largest error."""
+    from mgbtpu_torch import amg, assemble, fem2d_P2, subdivide
+    from mgbtpu_torch.solver.levelops import build_panel_ops
+    from mgbtpu_torch.solver.mgb import ProblemKernels, nd_plan
+
+    t0 = time.time()
+    cpu = torch.device("cpu")
+    M = assemble(amg(subdivide(fem2d_P2(), 7)), p=1.0, device="cpu").M[0]
+    ops = build_panel_ops(M.D_fine, M.nu, M.R_fine[-1],
+                          M.geometry.x.shape[0], cpu)
+    nd = nd_plan(M, ops, ProblemKernels.ND_LEAF_ELEMS, cpu)
+    shapes = [(L.nk, L.amax, L.bmax) for L in nd.levels]
+    print(f"[setup] L=7 ND plan on the host {time.time() - t0!r} s; fronts "
+          f"(nk, amax, bmax) leaf..root: {shapes}")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    levels = []
+    for nk, a, b in shapes:
+        f = a + b
+        X = torch.randn((nk, f, 2 * f), generator=g, dtype=torch.float64,
+                        device="cuda")
+        F = torch.zeros((nk, f + 1, f + 1), dtype=torch.float64,
+                        device="cuda")
+        F[:, :f, :f] = X @ X.mT / f + 0.5 * torch.eye(f, device="cuda")
+        levels.append((F, a, b))
+    errs = []
+    for (F, a, b), sh in zip(levels, shapes):
+        for part, out, ref in zip(("Lf", "U", "S"), K.front_factor(F, a, b),
+                                  K.front_factor_plain(F, a, b)):
+            errs.append(compare(f"front_factor L=7 {sh} {part}", out, ref))
+    bnd, by = factor_bound(levels)
+    timings(f"front_factor L=7 ({len(levels)} levels, one nd_factor)",
+            lambda: [K.front_factor(F, a, b) for F, a, b in levels],
+            lambda: [K.front_factor_plain(F, a, b) for F, a, b in levels],
+            plain_reps=10, reps=20)
+    factor_library_ms(torch, "L=7", levels)
+    print(f"[bound] front_factor L=7: {bnd!r} ms per nd_factor ({by})")
+    return max(errs)
 
 
 def solve_phases(nd, fact, torch, K, rng):
@@ -862,7 +952,8 @@ def main(argv=None) -> int:
     print(f"[solve] second solve bitwise equal to the first: {same}")
     if not same:
         raise RuntimeError("the second L=5 solve differs from the first")
-    print(f"[kernels] launches in the second L=5 solve: {launches}")
+    print(f"[kernels] launches in the second L=5 solve: {launches}; "
+          f"power_cone by mode 0/1/2: {K.power_cone_eval.mode_launches}")
     require_launches("fem2d_P2 p=1 L=5", launches,
                      [n for n in launches if n != "node_barrier"])
 

@@ -16,8 +16,9 @@ K6     ``node_barrier``     per-node barrier of any piece table: linear,
 Each wrapper runs its plain PyTorch version when its inputs lie on the CPU
 and launches its kernel when they lie on a CUDA device; it never falls back.
 Each counts its launches in the integer attribute ``launches`` (K5b's two
-sweeps share ``front_solve.launches``; K6 also counts those in the
-cobarrier form in ``co_launches``).
+sweeps share ``front_solve.launches``; K2 also counts them by mode in
+``mode_launches``; K6 also counts those in the cobarrier form in
+``co_launches``).
 """
 from ._build import build_all
 from .front_factor import cholesky_nan, front_factor, front_factor_plain
@@ -39,6 +40,7 @@ def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
     node_barrier.co_launches = 0
+    power_cone_eval.mode_launches = [0, 0, 0]
 
 
 def launches() -> dict:

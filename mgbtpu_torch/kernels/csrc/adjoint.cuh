@@ -22,6 +22,9 @@
 // of the one-pass gather it replaces, so its bits are that kernel's. Both
 // phases launch as programmatic dependents (pdl.cuh): phase B is scheduled
 // while phase A runs and waits for it on the device.
+// K3 (panel_adj.cu) runs both phases through adjoint_launch; K4
+// (gram_matvec.cu) computes its per-slot contributions in its own fused
+// kernel, in phase A's order, and runs phase B alone (adjoint_sum_launch).
 #pragma once
 #include <cstdint>
 
@@ -116,6 +119,24 @@ __global__ void adjoint_sum_block_kernel(const double* __restrict__ contrib,
     }
 }
 
+// Phase B alone: out (n_J,) from the per-slot contributions contrib
+// (N*C,), in the form K asks for.
+static inline cudaError_t adjoint_sum_launch(const int64_t* inv,
+                                             const double* contrib,
+                                             double* out, int N, int C,
+                                             int n_J, int K,
+                                             cudaStream_t stream) {
+    if (n_J <= 0) return cudaSuccess;
+    const int64_t pad = (int64_t)N * C;
+    if (K <= ADJ_THREAD_K)
+        return launch_pdl(adjoint_sum_thread_kernel, dim3((n_J + 127) / 128),
+                          dim3(128), 0, stream, contrib, inv, out, n_J, K,
+                          pad);
+    return launch_pdl(adjoint_sum_block_kernel, dim3(n_J),
+                      dim3(ADJ_COL_THREADS), 0, stream, contrib, inv, out, K,
+                      pad);
+}
+
 // Both phases on one stream; contrib is (N*C,) scratch. Returns the first
 // launch error, or cudaErrorInvalidValue when an element's p*nD values of Y
 // do not fit phase A's stage.
@@ -137,13 +158,5 @@ static inline cudaError_t adjoint_launch(const double* panels,
             panels, Y, contrib, nD, N, p, C, EB);
         if (e != cudaSuccess) return e;
     }
-    if (n_J <= 0) return cudaSuccess;
-    const int64_t pad = (int64_t)N * C;
-    if (K <= ADJ_THREAD_K)
-        return launch_pdl(adjoint_sum_thread_kernel, dim3((n_J + 127) / 128),
-                          dim3(128), 0, stream, contrib, inv, out, n_J, K,
-                          pad);
-    return launch_pdl(adjoint_sum_block_kernel, dim3(n_J),
-                      dim3(ADJ_COL_THREADS), 0, stream, contrib, inv, out, K,
-                      pad);
+    return adjoint_sum_launch(inv, contrib, out, N, C, n_J, K, stream);
 }

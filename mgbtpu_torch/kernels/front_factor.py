@@ -8,13 +8,19 @@ dd front panels; the x64 reference runs the same fronts through
 (``mgbtpu/ops/ndchol.py:518-522``), once per tree level of every
 ``nd_factor``. K5b (``front_solve``) is the solve half.
 
-CUDA design (``csrc/front_factor.cu``): one block per front, a right-looking
-elimination of the a eliminated columns in place in the outputs, each
-column cached in shared memory for its trailing update. A front whose A is
-not positive definite comes back all NaN (the reference's cholesky
+CUDA design (``csrc/front_factor.cu``): one block per front, a left-looking
+partial Cholesky in 32-column panels. Each panel (the rows of A on and
+below its diagonal tile, and all b rows of B) is staged from F into shared
+memory with ``cp.async``, symmetrized, and updated by the earlier panels as
+a tiled product; one warp factors the diagonal tile in registers, the
+block solves the panel's other rows against it, writes the panel out once
+and takes the panel's U U' off S (S = C on the first panel). A front whose
+A is not positive definite comes back all NaN (the reference's cholesky
 semantics, which ``nd_finite`` reads). What bounds it on an H100: at the
-front sizes of the fem2d_P2 levels (f = a + b <= ~300) neither bytes nor
-flops; the a-step serial chain of block synchronisations does.
+front sizes of the fem2d_P2 levels (f = a + b <= 190 at L=7) neither bytes
+nor flops but the chain of its ceil(a/32) panels, a few block barriers
+each; the shared memory, f x 34 doubles and 17 KB, takes fronts up to
+f = 790.
 """
 from __future__ import annotations
 

@@ -7,15 +7,17 @@ iteration and per refinement residual of the nested-dissection levels
 (``mgbtpu/solver/newton.py:417, 485, 488``). This kernel computes that Lnode
 form, not the TPU kernel's Y form.
 
-CUDA design (``csrc/gram_matvec.cu``): phase 1, one warp per element runs
-gather -> forward product -> L' -> L with the intermediates in shared
-memory, reads only the lower triangle of each node factor and writes only
-the p*nD node values W; phase 2 is K3's two adjoint phases on W
-(``csrc/adjoint.cuh``): coalesced per-slot contributions, then each
-column's fixed-order sum, with no atomics, so the same bits on every run.
-All launches happen in one call of the C entry. What bounds it on an H100:
-bytes (panels and the factors' lower triangles read once, a few flops per
-8 bytes); at L=5 the working set sits in L2 and the call is launch-bound.
+CUDA design (``csrc/gram_matvec.cu``): two launches from one C entry. The
+first kernel takes a few elements a block, stages their panels and node
+factors in shared memory with ``cp.async``, gathers ``v[cols]`` once per
+slot, forms P v, L' P v and W = L L' P v per node in shared memory and
+writes only the per-slot contributions, from the staged panels and W in
+the fixed order of K3's phase A; the second is K3's phase B
+(``csrc/adjoint.cuh``): each column's fixed-order sum, with no atomics, so
+the same bits on every run. The panels leave device memory once and W
+never does. What bounds it on an H100: bytes (panels and node factors read
+once, a few flops per 8 bytes); at L=5 the working set sits in L2 and the
+call is bound by its two launches and the latency of its loads.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from . import _build as B
 from ..ops.scatter import scatter_add
 
 NAME = "gram_matvec"
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def gram_matvec_plain(panels, cols, inv, Lnode, v):
@@ -47,12 +49,12 @@ def gram_matvec_plain(panels, cols, inv, Lnode, v):
 def gram_matvec(panels, cols, inv, Lnode, v):
     """panels (nD, N, p, C), cols (N, C) int64, inv (n_J, K) int64 (see
     ``solver.levelops.inverse_incidence``), Lnode (N*p, nD, nD), v (n_J,)
-    -> H v (n_J,)."""
+    -> H v (n_J,). On the card the launch fails (RuntimeError) when one
+    element's panels and node factors exceed a block's shared memory."""
     if not B.on_cuda(NAME, panels, cols, inv, Lnode, v):
         return gram_matvec_plain(panels, cols, inv, Lnode, v)
     nD, N, p, C = panels.shape
     n_J = v.shape[0]
-    B.require(p * nD <= 128, NAME, f"p*nD={p * nD} exceeds 128")
     B.cuda_f64(NAME, panels, (nD, N, p, C), "panels")
     B.cuda_i64(NAME, cols, (N, C), "cols")
     B.cuda_i64(NAME, inv, (n_J, inv.shape[1]), "inv")
@@ -60,12 +62,11 @@ def gram_matvec(panels, cols, inv, Lnode, v):
     B.require(v.dim() == 1 and v.dtype == torch.float64 and v.is_contiguous(),
               NAME, "v must be a contiguous float64 vector")
     K = inv.shape[1]
-    W = torch.empty((N * p * nD,), dtype=torch.float64, device=v.device)
     contrib = torch.empty((N * C,), dtype=torch.float64, device=v.device)
     out = torch.empty(v.shape, dtype=torch.float64, device=v.device)
     fn = B.launcher(NAME, _ARGS)
     err = fn(B.ptr(panels), B.ptr(cols), B.ptr(inv), B.ptr(Lnode), B.ptr(v),
-             B.ptr(W), B.ptr(contrib), B.ptr(out), nD, N, p, C, n_J, K,
+             B.ptr(contrib), B.ptr(out), nD, N, p, C, n_J, K,
              B.stream(v.device))
     B.check(NAME, err)
     gram_matvec.launches += 1

@@ -170,7 +170,9 @@ def power_cone_eval(mode, Dz, A, b, p, mu, bw, wc, idx, spec):
              B.stream(Dz.device))
     B.check(NAME, err)
     power_cone_eval.launches += 1
+    power_cone_eval.mode_launches[mode] += 1
     return out
 
 
 power_cone_eval.launches = 0
+power_cone_eval.mode_launches = [0, 0, 0]     # the same launches by mode

@@ -17,9 +17,10 @@ import mgbtpu_torch.kernels as K
 torch.set_num_threads(1)
 TOL = 1e-12
 
-# (nk, amax, bmax): fem2d_P2 L=5 ND levels (leaf, middle, root) and a
-# one-column front
-SHAPES = [(4, 73, 16), (8, 7, 39), (1, 31, 1), (5, 1, 18)]
+# (nk, amax, bmax): fem2d_P2 L=5 ND levels (leaf, middle, root), a
+# one-column front, and the widest levels of the L=7 plan
+SHAPES = [(4, 73, 16), (8, 7, 39), (1, 31, 1), (5, 1, 18), (8, 31, 159),
+          (4, 63, 127), (1, 127, 1)]
 
 
 def _fronts(nk, a, b, seed):
@@ -76,6 +77,60 @@ def test_front_factor_indefinite_front_is_nan():
         assert np.isnan(np.asarray(r)[1]).all() and torch.isnan(g[1]).all()
     for g, r in zip(got, ref):
         assert _rel(g.numpy()[[0, 2]], np.asarray(r)[[0, 2]]) <= TOL
+
+
+def _panelled_factor(F, a, b, T=32):
+    """The K5a kernel's schedule (``csrc/front_factor.cu``) in plain torch,
+    a front batch at a time: left-looking T-column panels, each symmetrized
+    from F and updated by the columns of [Lf; U] already written; the
+    diagonal tile factored column by column with the pivots' reciprocals
+    (the warp's shuffle steps); the panel's other rows solved against the
+    tile the same way; S = C minus each panel's U_J U_J' in turn, from the
+    lower triangle and its mirror; a front with a pivot that is not > 0 all
+    NaN."""
+    nk, f = F.shape[0], a + b
+    X = torch.zeros((nk, f, a), dtype=F.dtype)          # [Lf; U]
+    S = F[:, a:f, a:f].clone()
+    bad = torch.zeros(nk, dtype=torch.bool)
+    for j0 in range(0, a, T):
+        w = min(T, a - j0)
+        P = F[:, j0:f, j0:j0 + w].clone()
+        P[:, :a - j0] = (P[:, :a - j0] + F[:, j0:j0 + w, j0:a].mT) / 2
+        P -= X[:, j0:f, :j0] @ X[:, j0:j0 + w, :j0].mT
+        P[:, :w] = torch.tril(P[:, :w])
+        for k in range(w):
+            d = P[:, k, k].clone()
+            bad |= ~(d > 0)
+            piv = torch.sqrt(d)
+            P[:, k + 1:, k] *= (1.0 / piv)[:, None]
+            P[:, k, k] = piv
+            Lk = P[:, k + 1:w, k]
+            P[:, k + 1:, k + 1:w] -= P[:, k + 1:, k:k + 1] * Lk[:, None, :]
+            P[:, k + 1:w, k + 1:w] = torch.tril(P[:, k + 1:w, k + 1:w])
+        X[:, j0:f, j0:j0 + w] = P
+        G = P[:, a - j0:] @ P[:, a - j0:].mT
+        S -= torch.tril(G) + torch.tril(G, -1).mT
+    out = [X[:, :a], X[:, a:], S]
+    return [torch.where(bad.reshape(-1, 1, 1), float("nan"), t) for t in out]
+
+
+@pytest.mark.parametrize("nk,a,b", [(3, 73, 16), (3, 33, 20), (3, 127, 31)])
+def test_panel_schedule_matches_jax(nk, a, b):
+    """The kernel's 32-column schedule, emulated on the CPU where the
+    kernel cannot run, against JAX's cholesky + triangular_solve + Schur
+    product (1e-12); front 1's first bad pivot, column 40 where the front
+    has one (else a // 2), lies past the first panel: that front comes back
+    all NaN, its neighbours unchanged."""
+    F = _fronts(nk, a, b, seed=a + b)
+    bad = 40 if a > 40 else a // 2
+    F[1, bad, bad] = -1e3
+    ref = _jax_front(F[:, :a, :a], F[:, a:a + b, :a], F[:, a:a + b, a:a + b])
+    got = _panelled_factor(torch.tensor(F), a, b)
+    for g, r in zip(got, ref):
+        assert torch.isnan(g[1]).all()
+        assert torch.isfinite(g[[0, 2]]).all()
+        assert _rel(g.numpy()[[0, 2]], np.asarray(r)[[0, 2]]) <= TOL
+    assert np.all(np.triu(got[0].numpy()[0], 1) == 0.0)
 
 
 def _sweep_case(nk, a, b, seed):

@@ -8,8 +8,8 @@ JAX nor ``mgbtpu``, so it runs on a machine without them:
 
 Tolerance: the kernels sum in another order than the plain versions
 (per thread in registers, the adjoint's column sums over the inverse
-incidence and in fixed shuffle trees, the front factorization column by
-column and the front solves in 32-wide tiles where the library blocks
+incidence and in fixed shuffle trees, the front factorization and the
+front solves in 32-wide panels and tiles where the library blocks
 otherwise), so they agree to a few ulps, not bitwise; 1e-13 relative to
 the largest entry. They use no atomics, so a repeat call must give the
 same bits.
@@ -117,13 +117,18 @@ def test_panel_adj(dev, nD, coarse, p):
     assert K.panel_adj.launches == before + 2
 
 
-@pytest.mark.parametrize("nD", [4, 11])
+@pytest.mark.parametrize("p", [7, 3])
+@pytest.mark.parametrize("nD", [4, 9, 11])
 @pytest.mark.parametrize("coarse", [None, COARSE[1]])
-def test_gram_matvec(dev, nD, coarse):
+def test_gram_matvec(dev, nD, coarse, p):
+    """The fused node phase and the per-slot adjoint, then phase B, at the
+    main path's nD = 4, the phase-I widths 9 and 11, the P2 element's p = 7
+    and any other p, top and coarse shapes; one count per wrapper call,
+    repeat calls give the same bits."""
     rng = np.random.default_rng(2)
     kw = {} if coarse is None else dict(n_J=coarse[0], N=coarse[1],
                                         C=coarse[0])
-    panels, cols, inv, n_J = _panels(rng, dev, nD=nD, **kw)
+    panels, cols, inv, n_J = _panels(rng, dev, nD=nD, p=p, **kw)
     nD, N, p, _ = panels.shape
     Ln = torch.as_tensor(np.tril(rng.standard_normal((N * p, nD, nD))),
                          device=dev)
@@ -157,9 +162,12 @@ def test_power_cone(dev, mode, spec, p):
     args = (t(Dz), A, b, pp, mu, t(bw), t(rng.standard_normal((m, nD))),
             idx, spec)
     before = K.power_cone_eval.launches
+    by_mode = list(K.power_cone_eval.mode_launches)
     assert _rel(K.power_cone_eval(mode, *args),
                 K.power_cone_plain(mode, *args)) <= TOL
     assert K.power_cone_eval.launches == before + 1
+    by_mode[mode] += 1
+    assert K.power_cone_eval.mode_launches == by_mode
 
 
 def _tables(m, rng):
@@ -269,19 +277,48 @@ def _fronts(rng, nk, a, b):
 
 # (nk, amax, bmax): fem2d_P2 L=5 and L=7 nested-dissection levels
 FRONTS = [(64, 73, 16), (32, 3, 24), (1, 31, 1), (7, 1, 18), (4, 91, 190)]
+# FRONTS and the widest fronts of L=7: a = 192, and f = a + b = 279
+SWEEP_FRONTS = FRONTS + [(1, 192, 1), (8, 43, 236)]
+# SWEEP_FRONTS, the L=7 plan's widest levels, one column past a 32-column
+# panel, and no boundary block (b = 0)
+FACTOR_FRONTS = SWEEP_FRONTS + [(8, 31, 159), (4, 63, 127), (1, 127, 1),
+                                (3, 33, 20), (5, 40, 0)]
 
 
-@pytest.mark.parametrize("nk,a,b", FRONTS)
+@pytest.mark.parametrize("nk,a,b", FACTOR_FRONTS)
 def test_front_factor(dev, nk, a, b):
+    """The panelled factorization against its plain version, with front 1
+    not positive definite where there is one; one count per call, repeat
+    calls give the same bits."""
     rng = np.random.default_rng(a + b)
     F = _fronts(rng, nk, a, b)
     if nk > 1:
         F[1, a // 2, a // 2] = -1e3               # not positive definite
     F = torch.as_tensor(F, device=dev)
     before = K.front_factor.launches
-    for out, ref in zip(K.front_factor(F, a, b), K.front_factor_plain(F, a, b)):
+    outs = K.front_factor(F, a, b)
+    for out, ref in zip(outs, K.front_factor_plain(F, a, b)):
         assert _rel(out, ref) <= TOL
-    assert K.front_factor.launches == before + 1
+    for out, again in zip(outs, K.front_factor(F, a, b)):
+        assert _same_bits(out, again)
+    assert K.front_factor.launches == before + 2
+
+
+def test_front_factor_bad_pivot_in_second_panel(dev):
+    """A front whose first pivot that is not > 0 is column 40, inside the
+    second 32-column panel, comes back all NaN; its neighbours in the batch
+    are finite and match the plain version."""
+    nk, a, b = 3, 73, 16
+    rng = np.random.default_rng(40)
+    F = _fronts(rng, nk, a, b)
+    F[1, 40, 40] = -1e3
+    F = torch.as_tensor(F, device=dev)
+    outs = K.front_factor(F, a, b)
+    refs = K.front_factor_plain(F, a, b)
+    for out, ref in zip(outs, refs):
+        assert torch.isnan(out[1]).all()
+        assert torch.isfinite(out[[0, 2]]).all()
+        assert _rel(out[[0, 2]], ref[[0, 2]]) <= TOL
 
 
 def _sweep(rng, dev, nk, a, b):
@@ -308,10 +345,6 @@ def _sweep(rng, dev, nk, a, b):
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     return (t(Lf), t(U), t(adofs), t(bdofs), t(rows), t(inc), t(v),
             t(rng.standard_normal((nk, a))))
-
-
-# FRONTS and the widest fronts of L=7: a = 192, and f = a + b = 279
-SWEEP_FRONTS = FRONTS + [(1, 192, 1), (8, 43, 236)]
 
 
 @pytest.mark.parametrize("transpose", [False, True])
