@@ -2,14 +2,16 @@
 """Smoke run of the PyTorch port (mgbtpu_torch) on one CUDA card.
 
     python3 chip_smoke.py                 # the check: kernels + solves
-    python3 chip_smoke.py --level 7       # also solve fem2d_P2 L=7 once
+    python3 chip_smoke.py --level 7       # also K1/K2 and one solve at L=7
     python3 chip_smoke.py --profile       # also profile one L=5 solve
 
 In order: prints the card's name and power limit; builds the seven CUDA
 kernels from ``mgbtpu_torch/kernels/csrc`` (one nvcc per source, in
-parallel); holds each kernel against its plain PyTorch version on the card
-at the fem2d_P2 L=5 top-level shapes (seeded inputs; K3 and K4 also at
-the coarsest level, where a column has hundreds of slots; K3, K4 and K5a
+parallel); prints the launch floor (the device time of an empty kernel,
+timed as the kernels are); holds each kernel against its plain PyTorch
+version on the card at the fem2d_P2 L=5 top-level shapes (seeded inputs;
+K3 and K4 also at the coarsest level, where a column has hundreds of
+slots; K3, K4 and K5a
 called twice, the repeat bitwise equal; the front kernels on every tree
 level of that level's nested dissection, K5a also on seeded SPD fronts at
 the 11 tree levels of the L=7 plan, K5b in both sweeps of its fused level
@@ -18,11 +20,11 @@ bitwise equal; K1, K3 and K4 also at the 9 and 11 rows of the phase-I
 systems; K6 on the piece tables of two_sided_obstacle, rof, p_harmonic
 and parabolic_solve in modes 0/1/2 and in the phase-I cobarrier form, with
 ~1 % infeasible nodes and a select mask that switches a piece off where it
-is infinite; max relative error <= 1e-12, identical non-finite patterns)
-and
-times kernel, plain version and, where one exists, a single PyTorch library
-call (device time per call, the host hidden behind a spin kernel; K5b per
-``nd_solve`` and per launch, against the same sweeps'
+is infinite; max relative error <= 1e-12, identical non-finite patterns;
+K2 and K6 bitwise equal to their plain versions, K1's repeat call bitwise
+equal) and times kernel, plain version and, where one exists, a single
+PyTorch library call (device time per call, the host hidden behind a spin
+kernel; K5b per ``nd_solve`` and per launch, against the same sweeps'
 ``torch.linalg.solve_triangular``; K5a per ``nd_factor`` at L=5 and L=7,
 against the composition of ``cholesky_ex``, ``solve_triangular`` and
 ``baddbmm``). Then the solves, each through the entry
@@ -33,7 +35,10 @@ bitwise equal to the first); zoo.two_sided_obstacle and parabolic_solve
 six zoo problems at L=3 and p_harmonic at L=3 from an infeasible start
 (phase I over 11 rows); K2's launches in the second p=1 L=5 solve are
 also printed by mode. K6 must launch in every solve of a piece table, in
-the cobarrier form in every phase I. Each solution and its Newton
+the cobarrier form in every phase I. Each ``--level L`` then holds K1 and
+K2 against their plain versions and times them at level L's top-level
+shapes, and solves fem2d_P2 p=1 at L once, printing that solve's launches
+per kernel (K2's by mode). Each solution and its Newton
 iterations are held against the stored JAX x64 run
 (``mgbtpu_torch/data/*.npz``): relative 2-norm error <= 1e-6; Newton
 iterations within 5 % (for the zoo and parabolic solves: the main ramp's
@@ -177,13 +182,14 @@ def compare(name, out, ref):
     return err
 
 
-def same_bits(name, out, again):
-    """A repeat call must give the same bits (no atomics in the kernels)."""
+def same_bits(name, out, again, what="a repeat call"):
+    """``again`` (by default a repeat call; no atomics in the kernels) must
+    hold the same bits as ``out``."""
     import torch
 
     if not torch.equal(out.view(torch.int64), again.view(torch.int64)):
-        raise RuntimeError(f"{name}: a repeat call gave other bits")
-    print(f"[kernel] {name}: repeat call bitwise equal")
+        raise RuntimeError(f"{name}: {what} gave other bits")
+    print(f"[kernel] {name}: bitwise equal to {what}")
 
 
 def csr_of_panels(ops, transpose=False):
@@ -203,47 +209,49 @@ def csr_of_panels(ops, transpose=False):
                                    shape).coalesce().to_sparse_csr()
 
 
-def kernel_phases(prob, torch, K):
-    """Each kernel against its plain version at the top-level shapes."""
-    from mgbtpu_torch.solver.levelops import build_panel_ops
+def fwd_cone_phases(prob, ops, torch, K, rng, tag):
+    """K1 and K2 at a level's top-level shapes (``ops``, the problem's
+    cone grids), each against its plain version (K2 bitwise, every mode;
+    K1's repeat call bitwise) and timed: K1 against its plain version and
+    ``torch.addmv`` on G in CSR, K2 in each mode. Returns their records."""
     from mgbtpu_torch.solver.mgb import barrier_weights
 
     dev = torch.device("cuda")
     M = prob.M[0]
-    ops = build_panel_ops(M.D_fine, M.nu, M.R_fine[-1],
-                          M.geometry.x.shape[0], dev)
     nD, N, p, C = ops.panels.shape
     n_J, m = ops.n_J, ops.N * ops.p
-    print(f"[shapes] top level: nD={nD} N={N} p={p} C={C} n_J={n_J} m={m}")
-    rng = np.random.default_rng(1234)
 
     def t(a):
         return torch.as_tensor(a, dtype=torch.float64, device=dev)
 
-    records = []
     f8 = 8
     panel_bytes = f8 * (nD * N * p * C + N * C)
 
     # K1 panel_fwd
     s = t(rng.standard_normal(n_J))
     dz0 = t(rng.standard_normal((m, nD)))
-    err = compare("panel_fwd", K.panel_fwd(ops.panels, ops.cols, s, dz0),
+    out = K.panel_fwd(ops.panels, ops.cols, s, dz0)
+    err = compare(f"panel_fwd {tag}", out,
                   K.panel_fwd_plain(ops.panels, ops.cols, s, dz0))
+    same_bits(f"panel_fwd {tag}", out,
+              K.panel_fwd(ops.panels, ops.cols, s, dz0))
     G = csr_of_panels(ops)
     dzf = dz0.reshape(-1)
-    compare("panel_fwd library", torch.addmv(dzf, G, s).reshape(m, nD),
+    compare(f"panel_fwd {tag} library", torch.addmv(dzf, G, s).reshape(m, nD),
             K.panel_fwd_plain(ops.panels, ops.cols, s, dz0))
     b, o = bound_ms(panel_bytes + f8 * (n_J + 2 * m * nD),
                     2 * nD * m * C + m * nD)
-    records.append(dict(
+    k1 = dict(
         name="panel_fwd", source="mgbtpu_torch/kernels/csrc/panel_fwd.cu",
         replaces="mgbtpu/ops/pallas_dd.py:186", max_abs_err=err,
         bound_ms=b, bound_by=o, **timings(
-            "panel_fwd", lambda: K.panel_fwd(ops.panels, ops.cols, s, dz0),
+            f"panel_fwd {tag}",
+            lambda: K.panel_fwd(ops.panels, ops.cols, s, dz0),
             lambda: K.panel_fwd_plain(ops.panels, ops.cols, s, dz0),
-            lambda: torch.addmv(dzf, G, s))))
+            lambda: torch.addmv(dzf, G, s)))
+    print(f"[bound] panel_fwd {tag}: {b!r} ms ({o})")
 
-    # K2 power_cone_eval (timed in mode 2, the Hessian blocks)
+    # K2 power_cone_eval, every mode (the record: mode 2, the Hessians)
     A, bb, pp, mu = (t(a) for a in prob.Q.args)
     q = rng.standard_normal((m, 2))
     Dz = np.zeros((m, nD))
@@ -259,10 +267,11 @@ def kernel_phases(prob, torch, K):
     idx, nz = (1, 2, 3), 3
     errs, bounds = [], []
     for mode in (0, 1, 2):
-        errs.append(compare(
-            f"power_cone mode {mode}",
-            K.power_cone_eval(mode, Dz, A, bb, pp, mu, bw, wc, idx, 2),
-            K.power_cone_plain(mode, Dz, A, bb, pp, mu, bw, wc, idx, 2)))
+        out = K.power_cone_eval(mode, Dz, A, bb, pp, mu, bw, wc, idx, 2)
+        ref = K.power_cone_plain(mode, Dz, A, bb, pp, mu, bw, wc, idx, 2)
+        errs.append(compare(f"power_cone {tag} mode {mode}", out, ref))
+        same_bits(f"power_cone {tag} mode {mode}", out, ref,
+                  "the plain version")
         ms, _ = device_ms(lambda: K.power_cone_eval(mode, Dz, A, bb, pp, mu,
                                                     bw, wc, idx, 2))
         # inputs (wc but in mode 2) and the mode's output, (1, nD, nD^2)
@@ -271,17 +280,59 @@ def kernel_phases(prob, torch, K):
                       + (1, nD, nD * nD)[mode]),
             m * (5 * nz * nz + 30
                  + (2 * nz ** 4 + nD * nD if mode == 2 else 0))))
-        print(f"[time] power_cone mode {mode}: device ms per call {ms!r}; "
-              f"bound {bounds[-1][0]!r} ms ({bounds[-1][1]})")
+        print(f"[time] power_cone {tag} mode {mode}: device ms per call "
+              f"{ms!r}; bound {bounds[-1][0]!r} ms ({bounds[-1][1]})")
     b, o = bounds[2]
-    records.append(dict(
+    k2 = dict(
         name="power_cone", source="mgbtpu_torch/kernels/csrc/power_cone.cu",
         replaces="mgbtpu/ops/pallas_dd.py:258", max_abs_err=max(errs),
         bound_ms=b, bound_by=o, **timings(
-            "power_cone mode 2",
+            f"power_cone {tag} mode 2",
             lambda: K.power_cone_eval(2, Dz, A, bb, pp, mu, bw, wc, idx, 2),
             lambda: K.power_cone_plain(2, Dz, A, bb, pp, mu, bw, wc, idx, 2),
-            plain_reps=2)))
+            plain_reps=2))
+    return k1, k2
+
+
+def top_level_ops(prob, tag, torch):
+    """The panel operators of the problem's top level, on the card."""
+    from mgbtpu_torch.solver.levelops import build_panel_ops
+
+    M = prob.M[0]
+    t0 = time.time()
+    ops = build_panel_ops(M.D_fine, M.nu, M.R_fine[-1],
+                          M.geometry.x.shape[0], torch.device("cuda"))
+    nD, N, p, C = ops.panels.shape
+    print(f"[shapes] {tag} top level: nD={nD} N={N} p={p} C={C} "
+          f"n_J={ops.n_J} m={N * p} (panels built in "
+          f"{time.time() - t0!r} s)")
+    return ops
+
+
+def level_phases(prob, L, torch, K):
+    """K1 and K2 against their plain versions and timed at level L's
+    top-level shapes."""
+    ops = top_level_ops(prob, f"L={L}", torch)
+    fwd_cone_phases(prob, ops, torch, K, np.random.default_rng(L), f"L={L}")
+    torch.cuda.synchronize()
+
+
+def kernel_phases(prob, torch, K):
+    """Each kernel against its plain version at the top-level shapes."""
+    from mgbtpu_torch.solver.levelops import build_panel_ops
+
+    dev = torch.device("cuda")
+    M = prob.M[0]
+    ops = top_level_ops(prob, "L=5", torch)
+    nD, N, p, C = ops.panels.shape
+    n_J, m = ops.n_J, ops.N * ops.p
+    rng = np.random.default_rng(1234)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    records = list(fwd_cone_phases(prob, ops, torch, K, rng, "L=5"))
+    f8 = 8
 
     # K3 panel_adj: the top level (the record) and the coarsest level
     ops0 = build_panel_ops(M.D_fine, M.nu, M.R_fine[0],
@@ -644,11 +695,13 @@ def node_barrier_phases(tables, torch, K):
             calls[f"mode {mode}"] = (mode, Dz, wc, None, None)
             calls[f"co mode {mode}"] = (mode, yhat, wch, nD + 1, box)
         for label, (mode, y, wcx, co, bx) in calls.items():
-            errs.append(compare(
-                f"node_barrier {name} {label}",
-                K.node_barrier(mode, y, Q.pieces, args, sel, bw, wcx, co, bx),
-                K.node_barrier_plain(mode, y, Q.pieces, args, sel, bw, wcx,
-                                     co, bx)))
+            out = K.node_barrier(mode, y, Q.pieces, args, sel, bw, wcx, co,
+                                 bx)
+            ref = K.node_barrier_plain(mode, y, Q.pieces, args, sel, bw, wcx,
+                                       co, bx)
+            errs.append(compare(f"node_barrier {name} {label}", out, ref))
+            same_bits(f"node_barrier {name} {label}", out, ref,
+                      "the plain version")
         grids = sum(g.numel() for pc in Q.pieces for g in pc.grids(args))
         npc = len(Q.pieces)
         for label in ("mode 2", "co mode 2"):
@@ -912,7 +965,8 @@ def slice2_solves(torch, K, smi, mg5):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--level", type=int, action="append", default=[],
-                    help="also solve fem2d_P2 at this level once")
+                    help="also time K1/K2 at this level's top-level "
+                    "shapes and solve fem2d_P2 there once")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one L=5 solve (torch.profiler)")
     args = ap.parse_args(argv)
@@ -932,6 +986,9 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda}")
     secs = K.build_all(force=True)
     print(f"[build] {len(K.WRAPPERS)} kernels in {secs!r} s")
+    floor_ms, _ = device_ms(lambda: torch.cuda._sleep(0))
+    print(f"[time] launch floor: device ms per call of an empty kernel "
+          f"(torch.cuda._sleep(0), one thread) {floor_ms!r}")
 
     mg5, prob, run = solve(5, torch)
     records = kernel_phases(prob, torch, K)
@@ -976,9 +1033,12 @@ def main(argv=None) -> int:
                          else launches)[r["name"]]
 
     for L in args.level:
-        _, _, run_L = solve(L, torch)
-        sL, solL, syL = run_L()
+        _, probL, run_L = solve(L, torch)
+        level_phases(probL, L, torch, K)
+        _, (sL, solL, syL), la, _ = counted(torch, K, run_L)
         report(f"L={L}", sL, solL, syL)
+        print(f"[kernels] launches in the L={L} solve: {la}; power_cone by "
+              f"mode 0/1/2: {K.power_cone_eval.mode_launches}")
     if args.profile:
         profile(run, s2)
 

@@ -5,12 +5,18 @@ kernel ``_fwd_kernel`` :174), whose f64 counterpart on the x64 path is
 ``PanelOps.apply_G`` (``mgbtpu/solver/levelops.py:58-62``) plus the Dz0 add
 of ``barrier._Dz``. It runs in every level f0/f1/f2.
 
-CUDA design (``csrc/panel_fwd.cu``): one thread per (element, node) pair
-gathers ``s[cols[e, :]]`` itself (the TPU kernel got the gathered slab from
-XLA) and keeps the nD sums in registers. What bounds it on an H100: bytes —
-the panels (nD*N*p*C doubles) are read once for 2 flops per 8 bytes, far
-below the f64 rate; at fem2d_P2 L=5 the ~4 MB working set sits in the 50 MB
-L2, so the call is launch-bound.
+CUDA design (``csrc/panel_fwd.cu``): a block takes a group of elements
+(about 128 threads, one per (element, node, k) output). It stages each k's
+panel slab of the group, contiguous in the ``(nD, N, p, C)`` layout, in
+shared memory with 16-byte ``cp.async`` copies, and gathers ``s[cols[e, :]]``
+once per element (the TPU kernel got the gathered slab from XLA); each
+thread then sums its C products from shared memory and the ``(N*p, nD)``
+output is stored with k fastest, so loads and stores are coalesced. The
+sums run in the order of the one-thread-per-node kernel it replaced (from
+0.0, c = 0..C-1, then dz0 + acc), so its bits are unchanged. What bounds it
+on an H100: bytes -- the panels (nD*N*p*C doubles) are read once for 2
+flops per 8 bytes, far below the f64 rate; at fem2d_P2 L=5 the ~2 MB it
+moves sit in the 50 MB L2, so the call is launch-bound.
 """
 from __future__ import annotations
 

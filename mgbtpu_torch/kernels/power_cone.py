@@ -22,12 +22,17 @@ searches reject non-finite trial points, so any difference here would
 change the Newton path.
 
 CUDA design (``csrc/power_cone.cu``, the closed forms in
-``csrc/power_cone.cuh``, shared with K6): one thread per node, the nz x nz
-matrices in registers; nz <= 5, nD <= 12. Every other barrier family, and
-the power cone's cobarrier, runs through K6 (``node_barrier.py``). What
-bounds it on an H100: bytes (a few hundred flops per node against
-~(nz^2 + 2nD + 4) doubles read); at L=5 the inputs sit in L2 and the call
-is launch-bound.
+``csrc/power_cone.cuh``, shared with K6): one thread per node in blocks of
+32 nodes (64 above 8,448 nodes), one instance per (nz, mode, spec), so every
+loop over the cone unrolls and z, A and the nz x nz Hessians stay in
+registers. A block stages its nodes' A, b, Dz and wc in shared memory with
+coalesced ``cp.async`` copies; modes 1 and 2 build the block's rows or
+nD x nD blocks in shared memory (the entries outside the cone's rows
+first, then the cone's entries at the ``idx`` positions) and store them
+coalesced. nz <= 5, nD <= 12. Every other barrier family, and the power
+cone's cobarrier, runs through K6 (``node_barrier.py``). What bounds it on
+an H100: bytes (a few hundred flops per node against ~(nz^2 + 2nD + 4)
+doubles read); at L=5 the inputs sit in L2 and the call is launch-bound.
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ the largest entry. They use no atomics, so a repeat call must give the
 same bits.
 The per-node barrier kernels (K2, K6) follow the plain versions operation
 by operation (built with --fmad=false) and must give the same non-finite
-pattern.
+pattern; K2 is held to the plain version's bits.
 """
 import numpy as np
 import pytest
@@ -59,7 +59,7 @@ def _panels(rng, dev, nD=4, N=37, p=7, C=13, n_J=101):
     cols = np.zeros((N, C), np.int64)
     panels = rng.standard_normal((nD, N, p, C))
     for e in range(N):
-        k = rng.integers(C // 2, C + 1)
+        k = rng.integers(max(C // 2, 1), C + 1)
         c = np.sort(rng.choice(n_J, k, replace=False))
         cols[e, :k] = c
         cols[e, k:] = c[-1]
@@ -69,19 +69,26 @@ def _panels(rng, dev, nD=4, N=37, p=7, C=13, n_J=101):
     return t(panels), t(cols), t(inv), n_J
 
 
-@pytest.mark.parametrize("nD", [4, 9, 11])
-def test_panel_fwd(dev, nD):
-    """nD = 9 and 11: the phase-I rows of parabolic_solve and p_harmonic."""
-    rng = np.random.default_rng(nD)
-    panels, cols, _, n_J = _panels(rng, dev, nD=nD)
+@pytest.mark.parametrize("C", [1, 4, 9, 14, 80])
+@pytest.mark.parametrize("nD", [1, 4, 9, 11, 12])
+def test_panel_fwd(dev, nD, C):
+    """nD = 4 on the main path, 9 and 11 the phase-I rows of parabolic_solve
+    and p_harmonic, 12 the most the kernel takes; C from 1 through the
+    fem2d_P2 levels' 4..14 to 80, whose element slabs need more than 48 KB
+    of shared memory at nD >= 11; N*p = 259 rows, no multiple of a block's
+    element group. Dz0 absent and given; a repeat call gives the same
+    bits."""
+    rng = np.random.default_rng(nD * 100 + C)
+    panels, cols, _, n_J = _panels(rng, dev, nD=nD, C=C)
     nD, N, p, _ = panels.shape
     s = torch.as_tensor(rng.standard_normal(n_J), device=dev)
     dz0 = torch.as_tensor(rng.standard_normal((N * p, nD)), device=dev)
     before = K.panel_fwd.launches
     for d in (None, dz0):
-        assert _rel(K.panel_fwd(panels, cols, s, d),
-                    K.panel_fwd_plain(panels, cols, s, d)) <= TOL
-    assert K.panel_fwd.launches == before + 2
+        out = K.panel_fwd(panels, cols, s, d)
+        assert _rel(out, K.panel_fwd_plain(panels, cols, s, d)) <= TOL
+        assert _same_bits(out, K.panel_fwd(panels, cols, s, d))
+    assert K.panel_fwd.launches == before + 4
 
 
 def _same_bits(a, b):
@@ -140,33 +147,49 @@ def test_gram_matvec(dev, nD, coarse, p):
     assert K.gram_matvec.launches == before + 2
 
 
+# nz -> (nD, idx, m): the main path's cone (nz = 3 over rows 1..3 of 4),
+# and the other sizes over wider, permuted rows; m no multiple of 32 or 64,
+# 9,001 above the 8,448 nodes where the blocks grow to 64
+CONES = {2: (5, (4, 1), 1000), 3: (4, (1, 2, 3), 1000),
+         4: (9, (7, 0, 5, 2), 9001), 5: (12, (11, 3, 8, 0, 6), 9001)}
+
+
+@pytest.mark.parametrize("nz", [2, 3, 4, 5])
 @pytest.mark.parametrize("spec,p", [(2, 1.0), (1, 2.0), (0, 1.5), (0, 3.0)])
 @pytest.mark.parametrize("mode", [0, 1, 2])
-def test_power_cone(dev, mode, spec, p):
-    rng = np.random.default_rng(10 * mode + spec)
-    m, nD, idx = 1000, 4, (1, 2, 3)
+def test_power_cone(dev, mode, spec, p, nz):
+    """Every (nz, mode, spec) instance against the plain version, bitwise
+    (both follow the reference operation by operation; the kernel is built
+    with --fmad=false), with infeasible, s = 0, log-of-negative and masked
+    nodes; a repeat call gives the same bits."""
+    rng = np.random.default_rng(100 * nz + 10 * mode + spec)
+    nD, idx, m = CONES[nz]
+    q, si = list(idx[:-1]), idx[-1]
     Dz = rng.standard_normal((m, nD))
-    Dz[:, 3] = np.sqrt((Dz[:, 1:3] ** 2).sum(axis=1)) ** p \
+    Dz[:, si] = np.sqrt((Dz[:, q] ** 2).sum(axis=1)) ** p \
         + rng.uniform(1e-3, 1.0, m)
-    Dz[:50, 3] = -rng.uniform(0.0, 1.0, 50)     # s < 0
-    Dz[50:60, 3] = 0.0                           # s == 0
-    Dz[60:80, 3] *= 0.1                          # inside |q|^p: log of < 0
+    Dz[:50, si] = -rng.uniform(0.0, 1.0, 50)    # s < 0
+    Dz[50:60, si] = 0.0                          # s == 0
+    Dz[60:80, si] *= 0.1                         # inside |q|^p: log of < 0
     bw = np.full(m, 1.0 / m)
     bw[40:45] = 0.0                              # masked infeasible nodes
     bw[100:110] = 0.0
     t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
-    A = t(np.tile(np.eye(3).reshape(1, 9), (m, 1))
-          + 0.01 * rng.standard_normal((m, 9)))
-    b = t(0.01 * rng.standard_normal((m, 3)))
+    A = t(np.tile(np.eye(nz).reshape(1, nz * nz), (m, 1))
+          + 0.01 * rng.standard_normal((m, nz * nz)))
+    b = t(0.01 * rng.standard_normal((m, nz)))
     pp, mu = t(np.full(m, p)), t(np.full(m, 0.0 if p <= 2 else 1.0))
     args = (t(Dz), A, b, pp, mu, t(bw), t(rng.standard_normal((m, nD))),
             idx, spec)
     before = K.power_cone_eval.launches
     by_mode = list(K.power_cone_eval.mode_launches)
-    assert _rel(K.power_cone_eval(mode, *args),
-                K.power_cone_plain(mode, *args)) <= TOL
-    assert K.power_cone_eval.launches == before + 1
-    by_mode[mode] += 1
+    out = K.power_cone_eval(mode, *args)
+    ref = K.power_cone_plain(mode, *args)
+    assert _rel(out, ref) <= TOL
+    assert _same_bits(out, ref)
+    assert _same_bits(out, K.power_cone_eval(mode, *args))
+    assert K.power_cone_eval.launches == before + 2
+    by_mode[mode] += 2
     assert K.power_cone_eval.mode_launches == by_mode
 
 
