@@ -2,14 +2,16 @@
 """Smoke run of the PyTorch port (mgbtpu_torch) on one CUDA card.
 
     python3 chip_smoke.py                 # the check: kernels + solves
-    python3 chip_smoke.py --level 7       # also K1/K2 and one solve at L=7
+    python3 chip_smoke.py --level 7       # also K1/K2/K6 and one solve at L=7
     python3 chip_smoke.py --profile       # also profile one L=5 solve
 
 In order: prints the card's name and power limit; builds the seven CUDA
 kernels from ``mgbtpu_torch/kernels/csrc`` (one nvcc per source, in
-parallel); prints the launch floor (the device time of an empty kernel,
-timed as the kernels are); holds each kernel against its plain PyTorch
-version on the card at the fem2d_P2 L=5 top-level shapes (seeded inputs;
+parallel, with ``-Xptxas -v``) and prints K6's build seconds and the
+registers, stack and spills of each of its functions; prints the launch
+floor (the device time of an empty kernel, timed as the kernels are);
+holds each kernel against its plain PyTorch version on the card at the
+fem2d_P2 L=5 top-level shapes (seeded inputs;
 K3 and K4 also at the coarsest level, where a column has hundreds of
 slots; K3, K4 and K5a
 called twice, the repeat bitwise equal; the front kernels on every tree
@@ -35,10 +37,12 @@ bitwise equal to the first); zoo.two_sided_obstacle and parabolic_solve
 six zoo problems at L=3 and p_harmonic at L=3 from an infeasible start
 (phase I over 11 rows); K2's launches in the second p=1 L=5 solve are
 also printed by mode. K6 must launch in every solve of a piece table, in
-the cobarrier form in every phase I. Each ``--level L`` then holds K1 and
-K2 against their plain versions and times them at level L's top-level
-shapes, and solves fem2d_P2 p=1 at L once, printing that solve's launches
-per kernel (K2's by mode). Each solution and its Newton
+the cobarrier form in every phase I. Each ``--level L`` then holds K1, K2
+and K6 against their plain versions and times them at level L's top-level
+shapes (K6 on the obstacle table and parabolic_solve's pair on random rows,
+bitwise in all six calls, timed on the obstacle's Hessian and the pair's
+phase-I Hessian), and solves fem2d_P2 p=1 at L once, printing that
+solve's launches per kernel (K2's by mode). Each solution and its Newton
 iterations are held against the stored JAX x64 run
 (``mgbtpu_torch/data/*.npz``): relative 2-norm error <= 1e-6; Newton
 iterations within 5 % (for the zoo and parabolic solves: the main ramp's
@@ -54,6 +58,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -309,11 +314,12 @@ def top_level_ops(prob, tag, torch):
     return ops
 
 
-def level_phases(prob, L, torch, K):
-    """K1 and K2 against their plain versions and timed at level L's
+def level_phases(mg, prob, L, torch, K):
+    """K1, K2 and K6 against their plain versions and timed at level L's
     top-level shapes."""
     ops = top_level_ops(prob, f"L={L}", torch)
     fwd_cone_phases(prob, ops, torch, K, np.random.default_rng(L), f"L={L}")
+    node_barrier_level(mg, prob, L, torch, K)
     torch.cuda.synchronize()
 
 
@@ -648,88 +654,159 @@ def _feasible_rows(M, z0, rng):
     return Dz
 
 
-def node_barrier_phases(tables, torch, K):
-    """K6 against its plain version at the L=5 top-level shapes, on each
-    piece table in modes 0/1/2 and in the phase-I cobarrier form (slack
-    and component rows with the box). A piecewise table's select grid
-    switches each piece off at every other node where the piece is
-    infinite, so both the dropped and the non-finite cases run. Returns the
-    kernel record (timed on the parabolic pair's phase-I Hessian, the
-    heaviest call of the slice's path)."""
-    from mgbtpu_torch.kernels.node_barrier import POWER
+def _obstacle_rows(m, rng):
+    """Seeded rows (u, grad u, s) inside two_sided_obstacle's set (u in
+    (-0.1, 1), s > |grad u|^2) at most nodes; about 1 % of the nodes get a
+    negative s."""
+    Dz = np.zeros((m, 4))
+    Dz[:, 0] = rng.uniform(-0.09, 0.99, m)
+    Dz[:, 1:3] = 0.5 * rng.standard_normal((m, 2))
+    Dz[:, 3] = (Dz[:, 1:3] ** 2).sum(axis=1) + rng.uniform(1e-3, 1.0, m)
+    bad = rng.choice(m, m // 100, replace=False)
+    Dz[bad, 3] = -rng.uniform(0.0, 1.0, len(bad))
+    return Dz
+
+
+def k6_calls(Q, Dz, nu, w, torch, K, rng):
+    """K6's six calls on a piece table at the rows Dz: modes 0/1/2 as the
+    barrier and in the phase-I cobarrier form (slack and nu component rows
+    with the box). A piecewise table's select grid switches each piece off
+    at every other node where the piece is infinite, so both the dropped
+    and the non-finite cases run. Returns {label: the call's arguments}."""
     from mgbtpu_torch.solver.mgb import barrier_weights
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(99)
-    f8, errs, rows = 8, [], {}
 
     def t(a):
         return torch.as_tensor(a, dtype=torch.float64, device=dev)
 
+    m, nD = Dz.shape
+    args = tuple(t(a) for a in Q.args)
+    sel = args[0] if Q.select else None
+    if sel is not None:
+        sel = sel.clone()
+        for k, pc in enumerate(Q.pieces):
+            v = K.node_barrier_plain(0, Dz, (pc,), args, None,
+                                     torch.ones(m, dtype=torch.float64,
+                                                device=dev),
+                                     torch.zeros_like(Dz))
+            off = torch.nonzero(~torch.isfinite(v)).flatten()[::2]
+            sel[off, k] = 0.0
+        args = (sel,) + args[1:]
+    bw = t(barrier_weights(w, None))
+    wc = t(w[:, None] * rng.standard_normal((m, nD)))
+    yhat = torch.cat([Dz, t(rng.uniform(-0.5, 0.5, (m, 1))),
+                      t(rng.standard_normal((m, nu)))], dim=1)
+    yhat[:: 97, nD + 1] = 12.0                      # outside the box
+    wch = t(w[:, None] * rng.standard_normal((m, nD + 1 + nu)))
+    box = (t(np.full(m, 4.0)), t(np.full(m, 10.0)))
+    calls = {}
+    for mode in (0, 1, 2):
+        calls[f"mode {mode}"] = (mode, Dz, Q.pieces, args, sel, bw, wc, None,
+                                 None)
+        calls[f"co mode {mode}"] = (mode, yhat, Q.pieces, args, sel, bw, wch,
+                                    nD + 1, box)
+    return calls
+
+
+def k6_check(tag, calls, K):
+    """Each call against the plain version, bitwise; returns the largest
+    error."""
+    errs = []
+    for label, call in calls.items():
+        out = K.node_barrier(*call)
+        ref = K.node_barrier_plain(*call)
+        errs.append(compare(f"node_barrier {tag} {label}", out, ref))
+        same_bits(f"node_barrier {tag} {label}", out, ref,
+                  "the plain version")
+    return max(errs)
+
+
+def k6_time(tag, call, K):
+    """Device ms of one K6 call, its plain version's, and its bound: the
+    rows, bw, the pieces' grids, sel and the box read once, the output
+    written once (wc read in modes 0 and 1); a few flops per entry of each
+    piece's affine map and products."""
+    from mgbtpu_torch.kernels.node_barrier import POWER, instance
+
+    mode, y, pieces, args, sel, bw, wc, co, box = call
+    m, ny = y.shape
+    npc = len(pieces)
+    grids = sum(g.numel() for pc in pieces for g in pc.grids(args))
+    nbytes = 8 * (m * ny + m + grids + (m * npc if sel is not None else 0)
+                  + (2 * m if box else 0) + (1, ny, ny * ny)[mode]
+                  * m + (m * ny if mode < 2 else 0))
+    nops = m * (sum(2 * pc.width * len(pc.idx) + 30
+                    + (3 * len(pc.idx) ** 4 if pc.kind == POWER
+                       else 3 * pc.width * len(pc.idx) ** 2)
+                    for pc in pieces) + npc * (1, ny, ny * ny)[mode])
+    bnd, by = bound_ms(nbytes, nops)
+    print(f"[instance] node_barrier {tag}: "
+          f"{instance(pieces, mode, ny, co, box is not None)}")
+    row = dict(bound_ms=bnd, bound_by=by, **timings(
+        f"node_barrier {tag} (ny={ny}, {npc} pieces)",
+        lambda: K.node_barrier(*call), lambda: K.node_barrier_plain(*call),
+        plain_reps=2))
+    print(f"[bound] node_barrier {tag}: {bnd!r} ms ({by})")
+    return row
+
+
+def node_barrier_phases(tables, torch, K):
+    """K6 against its plain version at the L=5 top-level shapes, on each
+    piece table in modes 0/1/2 and in the phase-I cobarrier form
+    (``k6_calls``), each mode 2 call timed. Returns the kernel record
+    (timed on the parabolic pair's phase-I Hessian, the heaviest call of
+    the slice's path)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(99)
+    errs, rows = [], {}
     for name, M, Q, z0 in tables:
-        m, nu = M.n_nodes, M.nu
-        Dz = t(_feasible_rows(M, z0, rng))
-        nD = Dz.shape[1]
-        args = tuple(t(a) for a in Q.args)
-        sel = args[0] if Q.select else None
-        if sel is not None:
-            sel = sel.clone()
-            for k, pc in enumerate(Q.pieces):
-                v = K.node_barrier_plain(0, Dz, (pc,), args, None,
-                                         torch.ones(m, dtype=torch.float64,
-                                                    device=dev),
-                                         torch.zeros_like(Dz))
-                off = torch.nonzero(~torch.isfinite(v)).flatten()[::2]
-                sel[off, k] = 0.0
-            args = (sel,) + args[1:]
-        w = np.asarray(M.w, np.float64)
-        bw = t(barrier_weights(w, None))
-        wc = t(w[:, None] * rng.standard_normal((m, nD)))
-        yhat = torch.cat([Dz, t(rng.uniform(-0.5, 0.5, (m, 1))),
-                          t(rng.standard_normal((m, nu)))], dim=1)
-        yhat[:: 97, nD + 1] = 12.0                      # outside the box
-        wch = t(w[:, None] * rng.standard_normal((m, nD + 1 + nu)))
-        box = (t(np.full(m, 4.0)), t(np.full(m, 10.0)))
-        calls = {}
-        for mode in (0, 1, 2):
-            calls[f"mode {mode}"] = (mode, Dz, wc, None, None)
-            calls[f"co mode {mode}"] = (mode, yhat, wch, nD + 1, box)
-        for label, (mode, y, wcx, co, bx) in calls.items():
-            out = K.node_barrier(mode, y, Q.pieces, args, sel, bw, wcx, co,
-                                 bx)
-            ref = K.node_barrier_plain(mode, y, Q.pieces, args, sel, bw, wcx,
-                                       co, bx)
-            errs.append(compare(f"node_barrier {name} {label}", out, ref))
-            same_bits(f"node_barrier {name} {label}", out, ref,
-                      "the plain version")
-        grids = sum(g.numel() for pc in Q.pieces for g in pc.grids(args))
-        npc = len(Q.pieces)
+        Dz = torch.as_tensor(_feasible_rows(M, z0, rng), dtype=torch.float64,
+                             device=dev)
+        calls = k6_calls(Q, Dz, M.nu, np.asarray(M.w, np.float64), torch, K,
+                         rng)
+        errs.append(k6_check(name, calls, K))
         for label in ("mode 2", "co mode 2"):
-            mode, y, wcx, co, bx = calls[label]
-            ny = y.shape[1]
-            nbytes = f8 * (m * ny + m + grids + (m * npc if sel is not None
-                                                 else 0)
-                           + (2 * m if bx else 0) + m * ny * ny)
-            nops = m * (sum(2 * pc.width * len(pc.idx) + 30
-                            + (3 * len(pc.idx) ** 4 if pc.kind == POWER
-                               else 3 * pc.width * len(pc.idx) ** 2)
-                            for pc in Q.pieces) + npc * ny * ny)
-            bnd, by = bound_ms(nbytes, nops)
-            fn = (lambda mode=mode, y=y, wcx=wcx, co=co, bx=bx:
-                  K.node_barrier(mode, y, Q.pieces, args, sel, bw, wcx, co,
-                                 bx))
-            plain = (lambda mode=mode, y=y, wcx=wcx, co=co, bx=bx:
-                     K.node_barrier_plain(mode, y, Q.pieces, args, sel, bw,
-                                          wcx, co, bx))
-            rows[(name, label)] = dict(bound_ms=bnd, bound_by=by, **timings(
-                f"node_barrier {name} {label} (ny={ny}, {npc} pieces)", fn,
-                plain, plain_reps=2))
-            print(f"[bound] node_barrier {name} {label}: {bnd!r} ms ({by})")
+            rows[(name, label)] = k6_time(f"{name} {label}", calls[label], K)
     torch.cuda.synchronize()
     return dict(name="node_barrier",
                 source="mgbtpu_torch/kernels/csrc/node_barrier.cu",
                 replaces="mgbtpu/ops/pallas_dd.py:258", max_abs_err=max(errs),
                 **rows[("parabolic", "co mode 2")])
+
+
+def node_barrier_level(mg, prob, L, torch, K):
+    """K6 at level L's top-level shapes on random rows: the obstacle table
+    and parabolic_solve's pair, each bitwise against its plain version in
+    all six calls of ``k6_calls``; timed on the obstacle's Hessian (mode
+    2) and the pair's phase-I Hessian (co mode 2)."""
+    import mgbtpu_torch.solver.parabolic as P
+    from mgbtpu_torch import intersect
+    from mgbtpu_torch.convex import convex_euclidian_power, convex_linear
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(100 + L)
+    M = prob.M[0]
+    m, w = M.n_nodes, np.asarray(M.w, np.float64)
+    obstacle = intersect(
+        mg, convex_euclidian_power(mg, idx=(1, 2, 3), p=2.0),
+        convex_linear(mg, idx=(0,), A=lambda x: np.array([[1.0], [-1.0]]),
+                      b=lambda x: np.array([0.1, 1.0])))
+    pair = intersect(mg, convex_euclidian_power(mg, idx=P.parabolic_idx1(2),
+                                                p=2.0),
+                     convex_euclidian_power(mg, idx=P.parabolic_idx2(2),
+                                            p=1.0))
+    errs = []
+    for name, Q, rows, nu, label in (
+            ("obstacle", obstacle, _obstacle_rows(m, rng), 2, "mode 2"),
+            ("parabolic", pair, _feasible_rows(M, None, rng), 3,
+             "co mode 2")):
+        Dz = torch.as_tensor(rows, dtype=torch.float64, device=dev)
+        calls = k6_calls(Q, Dz, nu, w, torch, K, rng)
+        errs.append(k6_check(f"L={L} {name}", calls, K))
+        k6_time(f"L={L} {name} {label}", calls[label], K)
+    torch.cuda.synchronize()
+    return max(errs)
 
 
 def k6_tables(mg5):
@@ -965,7 +1042,7 @@ def slice2_solves(torch, K, smi, mg5):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--level", type=int, action="append", default=[],
-                    help="also time K1/K2 at this level's top-level "
+                    help="also time K1/K2/K6 at this level's top-level "
                     "shapes and solve fem2d_P2 there once")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one L=5 solve (torch.profiler)")
@@ -986,6 +1063,7 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda}")
     secs = K.build_all(force=True)
     print(f"[build] {len(K.WRAPPERS)} kernels in {secs!r} s")
+    print_ptxas(*K._build.PTXAS["node_barrier"])
     floor_ms, _ = device_ms(lambda: torch.cuda._sleep(0))
     print(f"[time] launch floor: device ms per call of an empty kernel "
           f"(torch.cuda._sleep(0), one thread) {floor_ms!r}")
@@ -1033,8 +1111,8 @@ def main(argv=None) -> int:
                          else launches)[r["name"]]
 
     for L in args.level:
-        _, probL, run_L = solve(L, torch)
-        level_phases(probL, L, torch, K)
+        mgL, probL, run_L = solve(L, torch)
+        level_phases(mgL, probL, L, torch, K)
         _, (sL, solL, syL), la, _ = counted(torch, K, run_L)
         report(f"L={L}", sL, solL, syL)
         print(f"[kernels] launches in the L={L} solve: {la}; power_cone by "
@@ -1051,6 +1129,20 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def print_ptxas(secs, info):
+    """K6's functions as ptxas reports them (registers, stack, spills):
+    its kernels, and any callee that was not inlined."""
+    print(f"[ptxas] node_barrier.cu built in {secs!r} s (nvcc, beside the "
+          f"other kernels' builds)")
+    for fn, r in sorted(info.items()):
+        m = re.search(r"node_barrier_kernelILi(\d+)ELi(\d+)E", fn)
+        label = (f"node_barrier_kernel<mode {m[1]}, form {m[2]}>" if m
+                 else fn)
+        print(f"[ptxas] {label}: {r.get('registers')} registers, "
+              f"{r.get('stack')} bytes stack, {r.get('spill_stores')} / "
+              f"{r.get('spill_loads')} bytes spill stores / loads")
 
 
 def profile(run, wall):

@@ -10,79 +10,133 @@
 // cobarrier, as mgbtpu/convex/linear.py (F0/F1/F2 :84-100, C0/C1/C2
 // :102-137) writes them; every sum is a left fold in the reference's order.
 // Used by node_barrier.cu (K6).
+//
+// Each helper is a template on the block's shape NC x NI. A fixed shape
+// unrolls every loop to it; NC = NI = 0 is the runtime-width form, whose
+// loops unroll to the limits LN_MAXC x LN_MAXI with a guard on the runtime
+// nc and ni passed in. Either way every small array is indexed only by
+// unrolled loop counters, so it stays in registers, and the sums run in the
+// same order.
 #pragma once
 #include <math.h>
 
-#include "power_cone.cuh"  // log_barrier, PC_MAXNZ
+#include "power_cone.cuh"  // log_barrier
 
 #define LN_MAXC 4
 #define LN_MAXI 5
 
+template <int NC>
+struct LnRows {
+    static constexpr int M = NC > 0 ? NC : LN_MAXC;
+};
+template <int NI>
+struct LnCols {
+    static constexpr int M = NI > 0 ? NI : LN_MAXI;
+};
+
 // Ar = A (nc x ni, row-major), F = A y[idx] + b.
+template <int NC, int NI>
 __device__ __forceinline__ void ln_affine(const double* A, const double* b,
                                           const double* y, const int* idx,
                                           int nc, int ni,
                                           double Ar[LN_MAXC][LN_MAXI],
                                           double* F) {
-    for (int i = 0; i < nc; ++i)
-        for (int j = 0; j < ni; ++j) Ar[i][j] = A[i * ni + j];
-    for (int i = 0; i < nc; ++i) {
+    constexpr int MC = LnRows<NC>::M, MI = LnCols<NI>::M;
+#pragma unroll
+    for (int i = 0; i < MC; ++i)
+#pragma unroll
+        for (int j = 0; j < MI; ++j)
+            if (i < nc && j < ni) Ar[i][j] = A[i * ni + j];
+#pragma unroll
+    for (int i = 0; i < MC; ++i) {
+        if (i >= nc) continue;
         double acc = Ar[i][0] * y[idx[0]];
-        for (int j = 1; j < ni; ++j) acc = acc + Ar[i][j] * y[idx[j]];
+#pragma unroll
+        for (int j = 1; j < MI; ++j)
+            if (j < ni) acc = acc + Ar[i][j] * y[idx[j]];
         F[i] = acc + b[i];
     }
 }
 
+template <int NC>
 __device__ __forceinline__ double ln_value(const double* F, int nc,
                                            double floor) {
     double acc = log_barrier(F[0], floor);
-    for (int i = 1; i < nc; ++i) acc = acc + log_barrier(F[i], floor);
+#pragma unroll
+    for (int i = 1; i < LnRows<NC>::M; ++i)
+        if (i < nc) acc = acc + log_barrier(F[i], floor);
     return -acc;
 }
 
 // g = A' (-1/F) and its slack entry gl = -sum 1/F
+template <int NC, int NI>
 __device__ __forceinline__ void ln_grad(const double Ar[LN_MAXC][LN_MAXI],
                                         const double* F, int nc, int ni,
                                         double* g, double* gl) {
+    constexpr int MC = LnRows<NC>::M, MI = LnCols<NI>::M;
     double invF[LN_MAXC];
-    for (int k = 0; k < nc; ++k) invF[k] = 1.0 / F[k];
-    for (int i = 0; i < ni; ++i) {
+#pragma unroll
+    for (int k = 0; k < MC; ++k)
+        if (k < nc) invF[k] = 1.0 / F[k];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+        if (i >= ni) continue;
         double acc = Ar[0][i] * invF[0];
-        for (int k = 1; k < nc; ++k) acc = acc + Ar[k][i] * invF[k];
+#pragma unroll
+        for (int k = 1; k < MC; ++k)
+            if (k < nc) acc = acc + Ar[k][i] * invF[k];
         g[i] = -acc;
     }
     double acc = invF[0];
-    for (int k = 1; k < nc; ++k) acc = acc + invF[k];
+#pragma unroll
+    for (int k = 1; k < MC; ++k)
+        if (k < nc) acc = acc + invF[k];
     *gl = -acc;
 }
 
-// H (ni x ni), and in the cobarrier form the cross column cr and corner cn
+// H (ni x ni), and in the cobarrier form (CO) the cross column cr and
+// corner cn
+template <int NC, int NI, bool CO>
 __device__ __forceinline__ void ln_hess(const double Ar[LN_MAXC][LN_MAXI],
                                         const double* F, int nc, int ni,
-                                        bool co, double H[][PC_MAXNZ],
+                                        double H[LN_MAXI][LN_MAXI],
                                         double* cr, double* cn) {
+    constexpr int MC = LnRows<NC>::M, MI = LnCols<NI>::M;
     double iF2[LN_MAXC];
-    for (int k = 0; k < nc; ++k) {
-        if (co) {
+#pragma unroll
+    for (int k = 0; k < MC; ++k) {
+        if (k >= nc) continue;
+        if (CO) {
             const double inv = 1.0 / F[k];
             iF2[k] = inv * inv;
         } else {
             iF2[k] = 1.0 / (F[k] * F[k]);
         }
     }
-    for (int i = 0; i < ni; ++i)
-        for (int j = 0; j < ni; ++j) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < MI; ++j) {
+            if (i >= ni || j >= ni) continue;
             double acc = Ar[0][i] * Ar[0][j] * iF2[0];
-            for (int k = 1; k < nc; ++k) acc = acc + Ar[k][i] * Ar[k][j] * iF2[k];
+#pragma unroll
+            for (int k = 1; k < MC; ++k)
+                if (k < nc) acc = acc + Ar[k][i] * Ar[k][j] * iF2[k];
             H[i][j] = acc;
         }
-    if (!co) return;
-    for (int i = 0; i < ni; ++i) {
+    if (!CO) return;
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+        if (i >= ni) continue;
         double acc = Ar[0][i] * iF2[0];
-        for (int k = 1; k < nc; ++k) acc = acc + Ar[k][i] * iF2[k];
+#pragma unroll
+        for (int k = 1; k < MC; ++k)
+            if (k < nc) acc = acc + Ar[k][i] * iF2[k];
         cr[i] = acc;
     }
     double acc = iF2[0];
-    for (int k = 1; k < nc; ++k) acc = acc + iF2[k];
+#pragma unroll
+    for (int k = 1; k < MC; ++k)
+        if (k < nc) acc = acc + iF2[k];
     *cn = acc;
 }

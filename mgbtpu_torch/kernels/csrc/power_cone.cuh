@@ -12,11 +12,9 @@
 // (NaN included), safe_pow gives 0 for s <= 0.
 //
 // Each helper is a template on the cone's size NZ (and the value ones on
-// the alpha specialisation SPEC). K2 (power_cone.cu) instantiates them with
-// both fixed, so every loop unrolls and the small arrays stay in registers;
-// K6 (node_barrier.cu) calls them with the defaults, NZ = 0 and SPEC = -1,
-// which take the runtime nz and spec it passes. The arithmetic is the same
-// either way.
+// the alpha specialisation SPEC). K2 (power_cone.cu) and K6
+// (node_barrier.cu) instantiate them with both fixed, so every loop unrolls
+// and the small arrays stay in registers.
 #pragma once
 #include <math.h>
 
@@ -34,7 +32,7 @@ __device__ __forceinline__ double pow_alpha(double s, double alpha, int spec,
 }
 
 // Ar = A (nz x nz, row-major), z = A y[idx] + b.
-template <int NZ = 0>
+template <int NZ>
 __device__ __forceinline__ void pc_affine(const double* A, const double* b,
                                           const double* y, const int* idx,
                                           int nz_,
@@ -54,7 +52,7 @@ __device__ __forceinline__ void pc_affine(const double* A, const double* b,
     }
 }
 
-template <int NZ = 0>
+template <int NZ>
 __device__ __forceinline__ double pc_qsq(const double* z, int nq_) {
     const int nq = NZ > 0 ? NZ - 1 : nq_;
     double q_sq = z[0] * z[0];
@@ -63,7 +61,7 @@ __device__ __forceinline__ double pc_qsq(const double* z, int nq_) {
     return q_sq;
 }
 
-template <int NZ = 0, int SPEC = -1>
+template <int NZ, int SPEC>
 __device__ __forceinline__ double pc_value(const double* z, int nz_,
                                            double alpha, double mu, int spec_,
                                            double floor) {
@@ -76,7 +74,7 @@ __device__ __forceinline__ double pc_value(const double* z, int nz_,
 }
 
 // gradient wrt z (_core_grad)
-template <int NZ = 0, int SPEC = -1>
+template <int NZ, int SPEC>
 __device__ __forceinline__ void pc_grad(const double* z, int nz_, double alpha,
                                         double mu, int spec_, double floor,
                                         double* gz) {
@@ -94,7 +92,7 @@ __device__ __forceinline__ void pc_grad(const double* z, int nz_, double alpha,
 }
 
 // Hessian wrt z (_core_hess)
-template <int NZ = 0, int SPEC = -1>
+template <int NZ, int SPEC>
 __device__ __forceinline__ void pc_hess(const double* z, int nz_, double alpha,
                                         double mu, int spec_, double floor,
                                         double Hz[PC_MAXNZ][PC_MAXNZ]) {
@@ -128,7 +126,7 @@ __device__ __forceinline__ void pc_hess(const double* z, int nz_, double alpha,
 }
 
 // g = A' gz
-template <int NZ = 0>
+template <int NZ>
 __device__ __forceinline__ void pc_at_g(const double Ar[PC_MAXNZ][PC_MAXNZ],
                                         const double* gz, int nz_, double* g) {
     const int nz = NZ > 0 ? NZ : nz_;
@@ -141,26 +139,31 @@ __device__ __forceinline__ void pc_at_g(const double Ar[PC_MAXNZ][PC_MAXNZ],
     }
 }
 
-// H = A' Hz A (_AtHA: the (k, l) pairs summed k-major, from (0, 0))
-template <int NZ = 0>
+// Entry (i, j) of A' Hz A (_AtHA: the (k, l) pairs summed k-major, from
+// (0, 0)); i and j are unrolled loop counters at every call.
+template <int NZ>
+__device__ __forceinline__ double pc_at_h_a_ij(
+    const double Ar[PC_MAXNZ][PC_MAXNZ], const double Hz[PC_MAXNZ][PC_MAXNZ],
+    int i, int j) {
+    double acc = Ar[0][i] * Hz[0][0] * Ar[0][j];
+#pragma unroll
+    for (int l = 1; l < NZ; ++l) acc = acc + Ar[0][i] * Hz[0][l] * Ar[l][j];
+#pragma unroll
+    for (int k = 1; k < NZ; ++k)
+#pragma unroll
+        for (int l = 0; l < NZ; ++l)
+            acc = acc + Ar[k][i] * Hz[k][l] * Ar[l][j];
+    return acc;
+}
+
+// H = A' Hz A
+template <int NZ>
 __device__ __forceinline__ void pc_at_h_a(const double Ar[PC_MAXNZ][PC_MAXNZ],
                                           const double Hz[PC_MAXNZ][PC_MAXNZ],
                                           int nz_,
                                           double H[PC_MAXNZ][PC_MAXNZ]) {
-    const int nz = NZ > 0 ? NZ : nz_;
 #pragma unroll
-    for (int i = 0; i < nz; ++i)
+    for (int i = 0; i < NZ; ++i)
 #pragma unroll
-        for (int j = 0; j < nz; ++j) {
-            double acc = Ar[0][i] * Hz[0][0] * Ar[0][j];
-#pragma unroll
-            for (int l = 1; l < nz; ++l)
-                acc = acc + Ar[0][i] * Hz[0][l] * Ar[l][j];
-#pragma unroll
-            for (int k = 1; k < nz; ++k)
-#pragma unroll
-                for (int l = 0; l < nz; ++l)
-                    acc = acc + Ar[k][i] * Hz[k][l] * Ar[l][j];
-            H[i][j] = acc;
-        }
+        for (int j = 0; j < NZ; ++j) H[i][j] = pc_at_h_a_ij<NZ>(Ar, Hz, i, j);
 }

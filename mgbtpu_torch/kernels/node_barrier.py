@@ -30,13 +30,22 @@ over the rows NC.. of y.
 
 CUDA design (``csrc/node_barrier.cu``; the closed forms in
 ``csrc/power_cone.cuh``, shared with K2, and ``csrc/linear.cuh``): one
-thread per node, the piece table passed by value as a kernel parameter, the
-pieces' small results in registers and local memory, each output entry a
-left fold over the pieces written straight to global memory; ny <= 12.
+kernel per (mode, form), the form the barrier, the cobarrier or the
+cobarrier with the box; one thread per node in blocks of 32 nodes (64 above
+8,448 nodes, 16 where ny x ny rows would pass 48 KB of shared memory). A
+block stages its nodes' rows and every piece's grids in shared memory with
+coalesced ``cp.async`` copies, then loops over the pieces, switching per
+piece to the instance of its shape that ``instance`` picks: a power cone on
+(nz, spec), a linear block on (nc, ni) for the shapes the constructors
+build, a runtime-width linear block for the rest. Every instance keeps its
+small arrays in registers (no kernel has a stack frame). Modes 1 and 2
+build each node's row or ny x ny block in shared memory as the left fold
+over the pieces (an exact +0.0 added where a piece leaves an earlier
+piece's entry alone) and store the block's rows contiguous; ny <= 12.
 Built with ``--fmad=false`` and following the plain version below operation
-by operation. What bounds it on an H100: bytes (a few hundred flops per
-node against the pieces' grids and the ny + ny^2 doubles in and out); at
-L=5 the call is launch-bound.
+by operation, so it gives the plain version's bits. What bounds it on an
+H100: bytes (a few hundred flops per node against the pieces' grids and the
+ny + ny^2 doubles in and out); at L=5 the call is launch-bound.
 """
 from __future__ import annotations
 
@@ -193,15 +202,88 @@ def node_barrier_plain(mode, Dz, pieces, args, sel, bw, wc, co=None,
     return out + wc if mode == 1 else out
 
 
+# Instance codes of csrc/node_barrier.cu: a power cone (nz, spec) is
+# (nz - 2) * 3 + spec; the linear shapes the constructors build (nc, ni) in
+# LINEAR_SHAPES follow; every other linear block takes the runtime-width
+# instance.
+LINEAR_SHAPES = ((1, 1), (2, 1))
+LINEAR_ANY = 12 + len(LINEAR_SHAPES)
+FORMS = ("barrier", "cobarrier", "cobarrier + box")
+
+
+def instance_code(kind: int, width: int, ni: int, spec: int) -> int:
+    """The kernel instance of one piece shape, -1 outside the kernel's
+    limits (power cone 2 <= nz <= 5 reading nz rows, spec 0/1/2; linear
+    block nc <= 4, ni <= 5)."""
+    if kind == POWER:
+        if 2 <= width <= 5 and ni == width and spec in (0, 1, 2):
+            return (width - 2) * 3 + spec
+        return -1
+    if kind != LINEAR or not (1 <= width <= 4 and 1 <= ni <= 5):
+        return -1
+    if (width, ni) in LINEAR_SHAPES:
+        return 12 + LINEAR_SHAPES.index((width, ni))
+    return LINEAR_ANY
+
+
+def instance_name(code: int) -> str:
+    if code < 12:
+        return f"power<{code // 3 + 2}, {code % 3}>"
+    if code < LINEAR_ANY:
+        return "linear<%d, %d>" % LINEAR_SHAPES[code - 12]
+    return "linear<runtime>"
+
+
+@dataclass(frozen=True)
+class Instance:
+    """The kernel a call launches, (mode, form), and the instance code of
+    each piece (see ``instance``)."""
+    mode: int
+    form: int
+    codes: tuple
+
+    def __str__(self):
+        return (f"node_barrier_kernel<mode {self.mode}, {FORMS[self.form]}>"
+                f" [{', '.join(instance_name(c) for c in self.codes)}]")
+
+
+def instance(pieces, mode, ny, co=None, box=False) -> Instance:
+    """The kernel and per-piece instances that run ``pieces`` in ``mode``
+    over ny rows (``co`` the cobarrier width or None, ``box`` the phase-I
+    box); raises ValueError for a table outside the kernel's limits, on any
+    device."""
+    npc = len(pieces)
+    B.require(mode in (0, 1, 2), NAME, f"mode {mode}")
+    B.require(1 <= npc <= MAX_PIECES, NAME, f"{npc} pieces")
+    B.require(1 <= ny <= MAX_ROWS, NAME, f"{ny} rows exceed {MAX_ROWS}")
+    if co is None:
+        B.require(not box, NAME, "the box needs the cobarrier form")
+        nin = ny
+    else:
+        B.require(2 <= co <= ny and (box or co == ny), NAME,
+                  f"cobarrier width {co} of {ny} rows")
+        B.require(not box or co < ny, NAME,
+                  "the box needs at least one component row")
+        nin = co - 1
+    codes = []
+    for pc in pieces:
+        B.require(all(0 <= i < nin for i in pc.idx), NAME, f"idx {pc.idx}")
+        code = instance_code(pc.kind, pc.width, len(pc.idx), pc.spec)
+        B.require(code >= 0, NAME, f"piece {pc} outside the kernel's limits")
+        codes.append(code)
+    form = 0 if co is None else (2 if box else 1)
+    return Instance(mode, form, tuple(codes))
+
+
 # ctypes mirrors of NBPiece and NBTable in csrc/node_barrier.cu: the field
-# order and types must match the C structs (the table goes by value as the
-# kernel's parameter).
+# order and types must match the C structs (checked when the library loads,
+# ``check_layout``).
 class _Piece(ctypes.Structure):
     _fields_ = [("A", ctypes.c_void_p), ("b", ctypes.c_void_p),
                 ("p", ctypes.c_void_p), ("mu", ctypes.c_void_p),
                 ("kind", ctypes.c_int), ("nz", ctypes.c_int),
                 ("ni", ctypes.c_int), ("spec", ctypes.c_int),
-                ("idx", ctypes.c_int * 5)]
+                ("idx", ctypes.c_int * 5), ("inst", ctypes.c_int)]
 
 
 class _Table(ctypes.Structure):
@@ -215,20 +297,52 @@ class _Table(ctypes.Structure):
 
 
 _ARGS = [ctypes.POINTER(_Table), ctypes.c_void_p]
+# node_barrier_table_offset(field) of the C library, field by field
+LAYOUT = (("pc", _Table.pc.offset), ("y", _Table.y.offset),
+          ("nc_co", _Table.nc_co.offset), ("sizeof NBPiece",
+                                           ctypes.sizeof(_Piece)),
+          ("idx", _Piece.idx.offset), ("inst", _Piece.inst.offset))
 
 
-def _check_piece(pc, grids, m, nin):
+def check_layout(table_size, table_offset):
+    """Raise unless the C library's NBTable/NBPiece layout is the ctypes
+    mirror's: ``table_size()`` and ``table_offset(field)`` are its exported
+    entries. (The C entry refuses, at every launch, a piece whose instance
+    code is not the one it computes.)"""
+    bad = []
+    if table_size() != ctypes.sizeof(_Table):
+        bad.append(f"sizeof NBTable {table_size()} != "
+                   f"{ctypes.sizeof(_Table)}")
+    for field, (label, want) in enumerate(LAYOUT):
+        got = table_offset(field)
+        if got != want:
+            bad.append(f"{label} at {got} != {want}")
+    if bad:
+        raise RuntimeError(f"mgbtpu_torch.{NAME}: the library disagrees with"
+                           f" its ctypes mirror: {'; '.join(bad[:8])}")
+
+
+def _launcher():
+    """The kernel's C entry, its library's layout checked at first use."""
+    fn = _LAUNCH.get("fn")
+    if fn is None:
+        check_layout(
+            B.launcher(NAME, [], "node_barrier_table_size"),
+            B.launcher(NAME, [ctypes.c_int], "node_barrier_table_offset"))
+        fn = _LAUNCH["fn"] = B.launcher(NAME, _ARGS)
+    return fn
+
+
+_LAUNCH: dict = {}
+
+
+def _check_grids(pc, grids, m):
     ni = len(pc.idx)
-    B.require(all(0 <= i < nin for i in pc.idx), NAME, f"idx {pc.idx}")
     if pc.kind == POWER:
         nz = pc.width
-        B.require(2 <= nz <= 5 and ni == nz and pc.spec in (0, 1, 2), NAME,
-                  f"power cone nz={nz}, idx {pc.idx}, spec {pc.spec}")
         shapes = ((m, nz * nz), (m, nz), (m,), (m,))
     else:
         nc = pc.width
-        B.require(1 <= nc <= 4 and 1 <= ni <= 5, NAME,
-                  f"linear block nc={nc}, ni={ni}")
         shapes = ((m, nc * ni), (m, nc))
     for t, shape, label in zip(grids, shapes, ("A", "b", "p", "mu")):
         B.cuda_f64(NAME, t, shape, label)
@@ -241,39 +355,30 @@ def node_barrier(mode, Dz, pieces, args, sel, bw, wc, co=None, box=None):
     ``box`` the phase-I (b, R) grids, (m,) each, or None. Returns the mode's
     per-node output (see the module docstring)."""
     pieces = tuple(pieces)
+    inst = instance(pieces, mode, Dz.shape[1], co, box is not None)
     grids = [g for pc in pieces for g in pc.grids(args)]
     if not B.on_cuda(NAME, Dz, sel, bw, wc, *(box or ()), *grids):
         return node_barrier_plain(mode, Dz, pieces, args, sel, bw, wc, co, box)
     m, ny = Dz.shape
     npc = len(pieces)
-    B.require(mode in (0, 1, 2), NAME, f"mode {mode}")
-    B.require(1 <= npc <= MAX_PIECES, NAME, f"{npc} pieces")
-    B.require(ny <= MAX_ROWS, NAME, f"{ny} rows exceed {MAX_ROWS}")
-    if co is None:
-        B.require(box is None, NAME, "the box needs the cobarrier form")
-        nin = ny
-    else:
-        B.require(2 <= co <= ny and (box is not None or co == ny), NAME,
-                  f"cobarrier width {co} of {ny} rows")
-        nin = co - 1
     B.cuda_f64(NAME, Dz, (m, ny), "Dz")
     B.cuda_f64(NAME, bw, (m,), "bw")
     B.cuda_f64(NAME, wc, (m, ny), "wc")
     if sel is not None:
         B.cuda_f64(NAME, sel, (m, npc), "sel")
     if box is not None:
-        B.require(co < ny, NAME, "the box needs at least one component row")
         for t, label in zip(box, ("b", "R")):
             B.cuda_f64(NAME, t, (m,), label)
     t = _Table()
-    for k, pc in enumerate(pieces):
+    for k, (pc, code) in enumerate(zip(pieces, inst.codes)):
         g = pc.grids(args)
-        _check_piece(pc, g, m, nin)
+        _check_grids(pc, g, m)
         P = t.pc[k]
         P.A, P.b = g[0].data_ptr(), g[1].data_ptr()
         if pc.kind == POWER:
             P.p, P.mu = g[2].data_ptr(), g[3].data_ptr()
         P.kind, P.nz, P.ni, P.spec = pc.kind, pc.width, len(pc.idx), pc.spec
+        P.inst = code
         for j, i in enumerate(pc.idx):
             P.idx[j] = i
     shape = ((m,), (m, ny), (m, ny, ny))[mode]
@@ -285,8 +390,7 @@ def node_barrier(mode, Dz, pieces, args, sel, bw, wc, co=None, box=None):
     t.floor = barrier_floor(torch.float64)
     t.npc, t.mode, t.m, t.ny = npc, mode, m, ny
     t.nc_co = 0 if co is None else co
-    fn = B.launcher(NAME, _ARGS)
-    err = fn(ctypes.byref(t), B.stream(Dz.device))
+    err = _launcher()(ctypes.byref(t), B.stream(Dz.device))
     B.check(NAME, err)
     node_barrier.launches += 1
     if co is not None:

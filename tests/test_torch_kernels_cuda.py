@@ -14,8 +14,8 @@ otherwise), so they agree to a few ulps, not bitwise; 1e-13 relative to
 the largest entry. They use no atomics, so a repeat call must give the
 same bits.
 The per-node barrier kernels (K2, K6) follow the plain versions operation
-by operation (built with --fmad=false) and must give the same non-finite
-pattern; K2 is held to the plain version's bits.
+by operation (built with --fmad=false) and are held to the plain versions'
+bits (int64 views, so the sign of a zero counts).
 """
 import numpy as np
 import pytest
@@ -267,9 +267,165 @@ def test_node_barrier(dev, table, mode, form):
     call = (mode, t(y), Q.pieces, args, sel, t(bw),
             t(rng.standard_normal(y.shape)), co, box)
     before = (K.node_barrier.launches, K.node_barrier.co_launches)
-    assert _rel(K.node_barrier(*call), K.node_barrier_plain(*call)) <= TOL
+    out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
+    assert _rel(out, ref) <= TOL
+    assert _same_bits(out, ref)
     assert K.node_barrier.launches == before[0] + 1
     assert K.node_barrier.co_launches == before[1] + (co is not None)
+
+
+def _phase_one_call(mode, Q, Dz, rng, t, nu=3, wc=None):
+    """K6's phase-I call (cobarrier + box over nu component rows) on the
+    rows Dz."""
+    m, nD = Dz.shape
+    y = np.concatenate([Dz, rng.uniform(-0.5, 0.5, (m, 1)),
+                        rng.uniform(-5.0, 5.0, (m, nu))], axis=1)
+    y[:5, nD + 1] = 12.0                                  # outside the box
+    bw = np.full(m, 1.0 / m)
+    bw[10:20] = 0.0
+    args = tuple(t(a) for a in Q.args)
+    sel = args[0] if Q.select else None
+    wc = rng.standard_normal(y.shape) if wc is None else wc
+    return (mode, t(y), Q.pieces, args, sel, t(bw), t(wc), nD + 1,
+            (t(np.full(m, 4.0)), t(np.full(m, 10.0))))
+
+
+def _instance_table(code, m, rng):
+    """4 pieces of the shape of instance ``code`` over 8 rows (rows 6 and 7
+    the cones' s), with a select grid: the phase-I form's 8 + 1 + 3 rows are
+    the kernel's widest 12."""
+    from mgbtpu_torch.kernels.node_barrier import LINEAR_SHAPES
+
+    x = np.zeros((m, 2))
+    pieces = []
+    for k in range(4):
+        if code < 12:
+            nz, spec = code // 3 + 2, code % 3
+            p = {0: 1.5, 1: 2.0, 2: 1.0}[spec]
+            idx = tuple((k + j) % 6 for j in range(nz - 1)) + (6 + k % 2,)
+            A = np.tile(np.eye(nz).reshape(1, -1), (m, 1)) \
+                + 0.01 * rng.standard_normal((m, nz * nz))
+            pieces.append(mt.convex_euclidian_power(x=x, idx=idx, A_grid=A,
+                                                    p=p))
+        else:
+            nc, ni = (LINEAR_SHAPES + ((4, 5),))[code - 12]
+            idx = tuple((k + j) % 8 for j in range(ni))
+            pieces.append(mt.convex_linear(
+                x=x, idx=idx, A_grid=rng.standard_normal((m, nc * ni)),
+                b_grid=rng.uniform(2.0, 4.0, (m, nc))))
+    return mt.convex_piecewise(
+        tuple(pieces), select_grid=(rng.uniform(size=(m, 4)) < 0.8)
+        .astype(float), x=x)
+
+
+@pytest.mark.parametrize("code", list(range(15)))
+def test_node_barrier_instance_at_its_widest(dev, code):
+    """Each piece-shape instance (12 power cones by (nz, spec), the linear
+    (1, 1) and (2, 1) blocks, the runtime-width linear block at nc = 4,
+    ni = 5) as 4 pieces in the phase-I form over 12 rows, the kernel's
+    widest shared-memory use in mode 2, and in modes 0 and 1; 9,001 nodes,
+    above the 8,448 where the blocks would grow to 64 nodes. Bitwise equal
+    to the plain version."""
+    from mgbtpu_torch.kernels.node_barrier import instance
+
+    rng = np.random.default_rng(700 + code)
+    m = 9001
+    Q = _instance_table(code, m, rng)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    Dz = rng.uniform(-0.3, 0.3, (m, 8))
+    Dz[:, 6:] = rng.uniform(1.0, 3.0, (m, 2))
+    Dz[:60] *= rng.choice([-4.0, 4.0], (60, 8))          # infeasible nodes
+    for mode in (2, 1, 0):
+        call = _phase_one_call(mode, Q, Dz, rng, t)
+        inst = instance(Q.pieces, mode, 12, 9, True)
+        assert inst.form == 2 and inst.codes == (code,) * 4
+        out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
+        assert _rel(out, ref) <= TOL
+        assert _same_bits(out, ref)
+
+
+@pytest.mark.parametrize("form", ["barrier", "phase_one"])
+@pytest.mark.parametrize("mode", [1, 2])
+@pytest.mark.parametrize("order", ["linear_first", "cone_first"])
+def test_node_barrier_signed_zero_fold(dev, order, mode, form):
+    """A linear block whose A row holds -1 and 0 gives -0.0 at its gradient
+    entry 1 and Hessian entries (0, 1), (1, 0); a cone on rows 2 and 3
+    leaves them alone, so the fold over the pieces adds its exact +0.0 there
+    (-0.0 + 0.0 = +0.0) where the block comes first, and keeps the cone's
+    +0.0 + -0.0 = +0.0 where it comes last. A select grid switches each
+    piece off at some nodes (the inactive piece's +0.0). wc = -0.0, so the
+    sign of a zero shows in mode 1 too. Bitwise equal to the plain
+    version."""
+    rng = np.random.default_rng(31 + mode)
+    m, nD = 200, 4
+    x = np.zeros((m, 2))
+    lin = mt.convex_linear(x=x, idx=(0, 1), A=lambda _: np.array([[-1.0, 0.0]]),
+                           b=lambda _: np.array([5.0]))
+    cone = mt.convex_euclidian_power(x=x, idx=(2, 3), p=2.0)
+    pieces = (lin, cone) if order == "linear_first" else (cone, lin)
+    sel = np.ones((m, 2))
+    sel[::7, 0] = 0.0
+    sel[::5, 1] = 0.0
+    Q = mt.convex_piecewise(pieces, select_grid=sel, x=x)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    Dz = rng.uniform(-0.3, 0.3, (m, nD))
+    Dz[:, 3] = rng.uniform(1.0, 3.0, m)
+    if form == "barrier":
+        args = tuple(t(a) for a in Q.args)
+        call = (mode, t(Dz), Q.pieces, args, args[0], t(np.full(m, 0.5)),
+                t(np.full((m, nD), -0.0)), None, None)
+    else:
+        call = _phase_one_call(mode, Q, Dz, rng, t,
+                               wc=np.full((m, nD + 4), -0.0))
+    out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
+    assert _same_bits(out, ref)
+    # the block alone leaves -0.0 there (where bw != 0): the case is live
+    alone = K.node_barrier_plain(mode, call[1], lin.pieces,
+                                 tuple(t(a) for a in lin.args), None,
+                                 *call[5:])
+    live = call[5] != 0
+    entry = (live, 1) if mode == 1 else (live, 0, 1)
+    assert torch.signbit(alone[entry]).all()
+    assert not torch.signbit(ref[entry]).any()
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_node_barrier_repeated_rows(dev, mode):
+    """A piece that reads one row twice: the last occurrence's entry wins,
+    as the plain version's scatter gives it; barrier and phase-I form,
+    bitwise."""
+    rng = np.random.default_rng(55 + mode)
+    m = 300
+    x = np.zeros((m, 2))
+    Q = mt.intersect(
+        x, mt.convex_linear(x=x, idx=(1, 0, 1),
+                            A_grid=rng.standard_normal((m, 6)),
+                            b_grid=rng.uniform(2.0, 4.0, (m, 2))),
+        mt.convex_euclidian_power(x=x, idx=(0, 2, 3), p=1.0))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    Dz = rng.uniform(-0.3, 0.3, (m, 4))
+    Dz[:, 3] = rng.uniform(1.0, 3.0, m)
+    args = tuple(t(a) for a in Q.args)
+    for call in ((mode, t(Dz), Q.pieces, args, args[0], t(np.full(m, 0.5)),
+                  t(rng.standard_normal((m, 4))), None, None),
+                 _phase_one_call(mode, Q, Dz, rng, t)):
+        out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
+        assert _rel(out, ref) <= TOL
+        assert _same_bits(out, ref)
+
+
+def test_node_barrier_has_no_local_memory(dev):
+    """ptxas (-v, the committed flags) reports 0 bytes of stack and no
+    spills for every function of node_barrier.cu: K6's 9 kernels, one per
+    (mode, form), and any callee that was not inlined."""
+    from mgbtpu_torch.kernels import _build
+
+    _build.build_all(("node_barrier",), force=True)
+    _, info = _build.PTXAS["node_barrier"]
+    assert sum("node_barrier_kernel" in k for k in info) == 9
+    for name, r in info.items():
+        assert (r["stack"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), \
+            (name, r)
 
 
 def test_node_barrier_refuses_what_it_does_not_take(dev):
