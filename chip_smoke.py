@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # the check: kernels + solves
     python3 chip_smoke.py --level 7       # also K1/K2/K6 and one solve at L=7
+    python3 chip_smoke.py --fem3d-level 3 # the fem3d phases at L=3, not 4
     python3 chip_smoke.py --profile       # also profile one L=5 solve
 
 In order: prints the card's name and power limit; builds the seven CUDA
@@ -37,7 +38,16 @@ bitwise equal to the first); zoo.two_sided_obstacle and parabolic_solve
 six zoo problems at L=3 and p_harmonic at L=3 from an infeasible start
 (phase I over 11 rows); K2's launches in the second p=1 L=5 solve are
 also printed by mode. K6 must launch in every solve of a piece table, in
-the cobarrier form in every phase I. Each ``--level L`` then holds K1, K2
+the cobarrier form in every phase I. Then the tensor-product and P1
+slice, at the fem3d k=3 (Q3 hexes, p = 64) level ``--fem3d-level`` (4 by
+default): K1 and K4 against their plain versions and timed at its top
+level's shapes (nD = 5) and its phase-I system's (nD = 8), where their
+wide forms run, and K5a on every tree level of its nested dissection
+(per level and per ``nd_factor``, against the plain version and the
+library composition); then fem3d k=3 p=1 solves at L=3 and at that level
+(the slice's path: K1-K5 must launch; launches, Newton and CG counts,
+host syncs and wall printed), fem2d_P1 p=1 at L=5 and the fem1d golden
+vector of ``tests/test_golden.py`` (to 1e-6). Each ``--level L`` then holds K1, K2
 and K6 against their plain versions and times them at level L's top-level
 shapes (K6 on the obstacle table and parabolic_solve's pair on random rows,
 bitwise in all six calls, timed on the obstacle's Hessian and the pair's
@@ -47,7 +57,10 @@ iterations are held against the stored JAX x64 run
 (``mgbtpu_torch/data/*.npz``): relative 2-norm error <= 1e-6; Newton
 iterations within 5 % (for the zoo and parabolic solves: the main ramp's
 steps but the last within 5 %, the last, an exact-stopping polish decided
-at the objective's roundoff floor, within +-4; phase I within 5 %); and the
+at the objective's roundoff floor, within +-4; phase I within 5 %; for
+fem2d_P1 the steps but the last within 5 %, the last within 7 of x64's:
+a trace on the card counted 7 iterations of its polish at the roundoff
+floor, ROADMAP Queue 3); and the
 zoo's behavioural checks (obstacles respected, |grad u| <= smax, s^2 >=
 |grad u|^2 + 1). Prints one JSON line of kernel records, then ``{"ok":
 true, "device": {...}}`` as the last line. Exits non-zero, before that
@@ -66,7 +79,8 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
-F64_FLOPS = 34e12             # H100 SXM FP64, non-tensor (NVIDIA data sheet)
+F64_FLOPS = 67e12             # H100 SXM FP64 peak, tensor cores (DMMA; 34e12
+                              # outside them; NVIDIA data sheet)
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "mgbtpu_torch", "data")
 REF = os.path.join(DATA, "ref_fem2d_p2_L5.npz")
@@ -74,9 +88,14 @@ TOL_KERNEL = 1e-12
 TOL_Z = 1e-6
 TOL_ITS = 0.05
 FLOOR_ITS = 4     # the exact-stopping polish at the roundoff floor
+# fem2d_P1 L=5's polish: a trace on the card counted 7 iterations in it
+# with every Newton decrement below one ulp of f0 (ROADMAP Queue 3)
+P1_FLOOR_ITS = 7
 ZOO = ("p_harmonic", "norton_hoff", "rof", "two_sided_obstacle",
        "elastoplastic_torsion", "minimal_surface")
 LONE_CONE = ("p_harmonic", "norton_hoff", "minimal_surface")   # K2, not K6
+MESH = ["panel_fwd", "panel_adj", "gram_matvec", "front_factor",
+        "front_solve"]      # every kernel of a level solved by ND-CG
 
 
 def wall_ms(fn, reps=200, warm=5):
@@ -214,15 +233,11 @@ def csr_of_panels(ops, transpose=False):
                                    shape).coalesce().to_sparse_csr()
 
 
-def fwd_cone_phases(prob, ops, torch, K, rng, tag):
-    """K1 and K2 at a level's top-level shapes (``ops``, the problem's
-    cone grids), each against its plain version (K2 bitwise, every mode;
-    K1's repeat call bitwise) and timed: K1 against its plain version and
-    ``torch.addmv`` on G in CSR, K2 in each mode. Returns their records."""
-    from mgbtpu_torch.solver.mgb import barrier_weights
-
+def panel_fwd_phase(ops, torch, K, rng, tag):
+    """K1 at a level's shapes (``ops``) against its plain version (the
+    repeat call bitwise), timed against its plain version and
+    ``torch.addmv`` on G in CSR. Returns its record."""
     dev = torch.device("cuda")
-    M = prob.M[0]
     nD, N, p, C = ops.panels.shape
     n_J, m = ops.n_J, ops.N * ops.p
 
@@ -230,9 +245,6 @@ def fwd_cone_phases(prob, ops, torch, K, rng, tag):
         return torch.as_tensor(a, dtype=torch.float64, device=dev)
 
     f8 = 8
-    panel_bytes = f8 * (nD * N * p * C + N * C)
-
-    # K1 panel_fwd
     s = t(rng.standard_normal(n_J))
     dz0 = t(rng.standard_normal((m, nD)))
     out = K.panel_fwd(ops.panels, ops.cols, s, dz0)
@@ -244,9 +256,9 @@ def fwd_cone_phases(prob, ops, torch, K, rng, tag):
     dzf = dz0.reshape(-1)
     compare(f"panel_fwd {tag} library", torch.addmv(dzf, G, s).reshape(m, nD),
             K.panel_fwd_plain(ops.panels, ops.cols, s, dz0))
-    b, o = bound_ms(panel_bytes + f8 * (n_J + 2 * m * nD),
+    b, o = bound_ms(f8 * (nD * N * p * C + N * C + n_J + 2 * m * nD),
                     2 * nD * m * C + m * nD)
-    k1 = dict(
+    rec = dict(
         name="panel_fwd", source="mgbtpu_torch/kernels/csrc/panel_fwd.cu",
         replaces="mgbtpu/ops/pallas_dd.py:186", max_abs_err=err,
         bound_ms=b, bound_by=o, **timings(
@@ -255,6 +267,26 @@ def fwd_cone_phases(prob, ops, torch, K, rng, tag):
             lambda: K.panel_fwd_plain(ops.panels, ops.cols, s, dz0),
             lambda: torch.addmv(dzf, G, s)))
     print(f"[bound] panel_fwd {tag}: {b!r} ms ({o})")
+    return rec
+
+
+def fwd_cone_phases(prob, ops, torch, K, rng, tag):
+    """K1 (``panel_fwd_phase``) and K2 at a level's top-level shapes
+    (``ops``, the problem's cone grids), K2 against its plain version
+    (bitwise, every mode) and timed in each mode. Returns their
+    records."""
+    from mgbtpu_torch.solver.mgb import barrier_weights
+
+    dev = torch.device("cuda")
+    M = prob.M[0]
+    nD = ops.nD
+    m = ops.N * ops.p
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    f8 = 8
+    k1 = panel_fwd_phase(ops, torch, K, rng, tag)
 
     # K2 power_cone_eval, every mode (the record: mode 2, the Hessians)
     A, bb, pp, mu = (t(a) for a in prob.Q.args)
@@ -299,11 +331,10 @@ def fwd_cone_phases(prob, ops, torch, K, rng, tag):
     return k1, k2
 
 
-def top_level_ops(prob, tag, torch):
-    """The panel operators of the problem's top level, on the card."""
+def top_level_ops(M, tag, torch):
+    """The panel operators of system M's top level, on the card."""
     from mgbtpu_torch.solver.levelops import build_panel_ops
 
-    M = prob.M[0]
     t0 = time.time()
     ops = build_panel_ops(M.D_fine, M.nu, M.R_fine[-1],
                           M.geometry.x.shape[0], torch.device("cuda"))
@@ -317,7 +348,7 @@ def top_level_ops(prob, tag, torch):
 def level_phases(mg, prob, L, torch, K):
     """K1, K2 and K6 against their plain versions and timed at level L's
     top-level shapes."""
-    ops = top_level_ops(prob, f"L={L}", torch)
+    ops = top_level_ops(prob.M[0], f"L={L}", torch)
     fwd_cone_phases(prob, ops, torch, K, np.random.default_rng(L), f"L={L}")
     node_barrier_level(mg, prob, L, torch, K)
     torch.cuda.synchronize()
@@ -329,7 +360,7 @@ def kernel_phases(prob, torch, K):
 
     dev = torch.device("cuda")
     M = prob.M[0]
-    ops = top_level_ops(prob, "L=5", torch)
+    ops = top_level_ops(prob.M[0], "L=5", torch)
     nD, N, p, C = ops.panels.shape
     n_J, m = ops.n_J, ops.N * ops.p
     rng = np.random.default_rng(1234)
@@ -369,23 +400,8 @@ def kernel_phases(prob, torch, K):
     # K4 gram_matvec: the top level (the record) and the coarsest level
     errs, rows = [], {}
     for tag, lv in (("top level", ops), ("coarsest level", ops0)):
-        Ln = t(np.tril(rng.standard_normal((m, nD, nD))))
-        v = t(rng.standard_normal(lv.n_J))
-        args = (lv.panels, lv.cols, lv.inv, Ln, v)
-        before = K.gram_matvec.launches
-        out = K.gram_matvec(*args)
-        errs.append(compare(f"gram_matvec {tag}", out,
-                            K.gram_matvec_plain(*args)))
-        same_bits(f"gram_matvec {tag}", out, K.gram_matvec(*args))
-        if K.gram_matvec.launches != before + 2:
-            raise RuntimeError("gram_matvec: not one count per call")
-        b, o = bound_ms(f8 * (nD * N * p * lv.C + N * lv.C
-                              + m * nD * (nD + 1) // 2 + 2 * lv.n_J),
-                        4 * nD * m * lv.C + 4 * m * nD * nD)
-        rows[tag] = dict(bound_ms=b, bound_by=o, **timings(
-            f"gram_matvec {tag}", lambda: K.gram_matvec(*args),
-            lambda: K.gram_matvec_plain(*args)))
-        print(f"[bound] gram_matvec {tag}: {b!r} ms ({o})")
+        err, rows[tag] = gram_matvec_phase(lv, torch, K, rng, tag)
+        errs.append(err)
     records.append(dict(
         name="gram_matvec", source="mgbtpu_torch/kernels/csrc/gram_matvec.cu",
         replaces="mgbtpu/ops/pallas_dd.py:142", max_abs_err=max(errs),
@@ -395,19 +411,63 @@ def kernel_phases(prob, torch, K):
     return records
 
 
+def gram_matvec_phase(lv, torch, K, rng, tag):
+    """K4 at a level's shapes (``lv``) against its plain version (one count
+    a call, the repeat call bitwise), timed against its plain version.
+    Returns (max abs error, its timing row with the bound)."""
+    dev = torch.device("cuda")
+    nD, N, p, C = lv.panels.shape
+    m = N * p
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    Ln = t(np.tril(rng.standard_normal((m, nD, nD))))
+    v = t(rng.standard_normal(lv.n_J))
+    args = (lv.panels, lv.cols, lv.inv, Ln, v)
+    before = K.gram_matvec.launches
+    out = K.gram_matvec(*args)
+    err = compare(f"gram_matvec {tag}", out, K.gram_matvec_plain(*args))
+    same_bits(f"gram_matvec {tag}", out, K.gram_matvec(*args))
+    if K.gram_matvec.launches != before + 2:
+        raise RuntimeError("gram_matvec: not one count per call")
+    b, o = bound_ms(8 * (nD * N * p * C + N * C + m * nD * (nD + 1) // 2
+                         + 2 * lv.n_J),
+                    4 * nD * m * C + 4 * m * nD * nD)
+    row = dict(bound_ms=b, bound_by=o, **timings(
+        f"gram_matvec {tag}", lambda: K.gram_matvec(*args),
+        lambda: K.gram_matvec_plain(*args)))
+    print(f"[bound] gram_matvec {tag}: {b!r} ms ({o})")
+    return err, row
+
+
 def front_phases(prob, ops, torch, K, rng):
     """K5a/K5b on the top level's nested-dissection fronts: one
     ``nd_factor`` through the plain fronts records each tree level's
     assembled fronts, and each level's kernel call is held against the
     plain version on the same fronts (factor) and factors (solves)."""
-    from mgbtpu_torch.ops.ndchol import nd_factor
     from mgbtpu_torch.solver.mgb import ProblemKernels, nd_plan
 
-    dev = torch.device("cuda")
-    nd = nd_plan(prob.M[0], ops, ProblemKernels.ND_LEAF_ELEMS, dev)
-    N, C = ops.N, ops.C
+    nd = nd_plan(prob.M[0], ops, ProblemKernels.ND_LEAF_ELEMS,
+                 torch.device("cuda"))
+    levels, fact = recorded_fronts(nd, ops.N, ops.C, torch, K, rng)
+    err, row = factor_levels_phase("L=5", levels, torch, K)
+    records = [dict(
+        name="front_factor", source="mgbtpu_torch/kernels/csrc/front_factor.cu",
+        replaces="mgbtpu/ops/pallas_dd.py:446",
+        max_abs_err=max(err, front_l7_phases(torch, K)), **row)]
+    records.append(solve_phases(nd, fact, torch, K, rng))
+    return records
+
+
+def recorded_fronts(nd, N, C, torch, K, rng):
+    """Each tree level's assembled fronts [(F, amax, bmax)] of one
+    ``nd_factor`` (through the plain version) of seeded SPD element blocks
+    (N, C, C), and the factors it returns."""
+    from mgbtpu_torch.ops.ndchol import nd_factor
+
     X = rng.standard_normal((N, C, 2 * C))
-    He = torch.as_tensor(X @ X.transpose(0, 2, 1) / C, device=dev)
+    He = torch.as_tensor(X @ X.transpose(0, 2, 1) / C, device="cuda")
     levels = []
 
     def record(F, a, b):
@@ -418,42 +478,56 @@ def front_phases(prob, ops, torch, K, rng):
                      factor=record)
     print("[shapes] ND fronts (nk, amax, bmax) leaf..root: "
           f"{[(F.shape[0], a, b) for F, a, b in levels]}")
-    records, errs = [], []
+    return levels, fact
+
+
+def factor_levels_phase(tag, levels, torch, K, reps=50, plain_reps=50):
+    """K5a on each tree level's fronts [(F, a, b)] against its plain
+    version, the repeat call bitwise; one ``nd_factor``'s worth of calls
+    timed against the plain version and the library composition. Returns
+    (max abs error, the timing row with the bound)."""
+    errs = []
     for li, (F, a, b) in enumerate(levels):
         outs = K.front_factor(F, a, b)
         for part, out, ref, again in zip(("Lf", "U", "S"), outs,
                                          K.front_factor_plain(F, a, b),
                                          K.front_factor(F, a, b)):
-            errs.append(compare(f"front_factor level {li} {part}", out, ref))
-            same_bits(f"front_factor level {li} {part}", out, again)
+            name = f"front_factor {tag} level {li} {(F.shape[0], a, b)} {part}"
+            errs.append(compare(name, out, ref))
+            same_bits(name, out, again)
+    for li, (F, a, b) in enumerate(levels):
+        ms, _ = device_ms(lambda: K.front_factor(F, a, b), 10)
+        pms, phid = device_ms(lambda: K.front_factor_plain(F, a, b), 10)
+        lms, lhid = device_ms(lambda: factor_library(torch, F, a, b), 10)
+        print(f"[time] front_factor {tag} level {li} {(F.shape[0], a, b)}: "
+              f"device ms per call {ms!r}; plain {pms!r}"
+              + ("" if phid else " (host not hidden: an upper bound)")
+              + f"; library composition {lms!r}"
+              + ("" if lhid else " (host not hidden: an upper bound)")
+              + f"; bound {factor_bound([(F, a, b)])[0]!r} ms")
     bnd, by = factor_bound(levels)
-    print(f"[bound] front_factor L=5: {bnd!r} ms per nd_factor ({by})")
+    print(f"[bound] front_factor {tag}: {bnd!r} ms per nd_factor ({by})")
     row = timings(
-        f"front_factor ({len(levels)} levels, one nd_factor)",
+        f"front_factor {tag} ({len(levels)} levels, one nd_factor)",
         lambda: [K.front_factor(F, a, b) for F, a, b in levels],
-        lambda: [K.front_factor_plain(F, a, b) for F, a, b in levels])
-    factor_library_ms(torch, "L=5", levels)
-    errs.append(front_l7_phases(torch, K))
-    records.append(dict(
-        name="front_factor", source="mgbtpu_torch/kernels/csrc/front_factor.cu",
-        replaces="mgbtpu/ops/pallas_dd.py:446", max_abs_err=max(errs),
-        bound_ms=bnd, bound_by=by, **row))
-
-    records.append(solve_phases(nd, fact, torch, K, rng))
-    return records
+        lambda: [K.front_factor_plain(F, a, b) for F, a, b in levels],
+        plain_reps=plain_reps, reps=reps)
+    factor_library_ms(torch, tag, levels)   # printed: three calls, not one
+    return max(errs), dict(bound_ms=bnd, bound_by=by, **row)
 
 
 def factor_bound(levels):
     """K5a's bound for one ``nd_factor`` over ``levels`` [(F, a, b)]: each
     front's entries read once, Lf, U and S written once; the flops of the
-    column-by-column elimination."""
+    column-by-column elimination, each symmetric update (A's trailing
+    block, S) on its lower triangle only, as the kernel computes it."""
     nbytes = nops = 0
     for F, a, b in levels:
         f, nk = a + b, F.shape[0]
         nbytes += 8 * nk * (f * f + a * a + a * b + b * b)
         for j in range(a):
             w = a - 1 - j
-            nops += nk * (w * (w + 1) + 2 * b * w + 2 * b * b + w + b + 1)
+            nops += nk * (w * (w + 1) + 2 * b * w + b * (b + 1) + w + b + 1)
     return bound_ms(nbytes, nops)
 
 
@@ -504,19 +578,9 @@ def front_l7_phases(torch, K):
                         device="cuda")
         F[:, :f, :f] = X @ X.mT / f + 0.5 * torch.eye(f, device="cuda")
         levels.append((F, a, b))
-    errs = []
-    for (F, a, b), sh in zip(levels, shapes):
-        for part, out, ref in zip(("Lf", "U", "S"), K.front_factor(F, a, b),
-                                  K.front_factor_plain(F, a, b)):
-            errs.append(compare(f"front_factor L=7 {sh} {part}", out, ref))
-    bnd, by = factor_bound(levels)
-    timings(f"front_factor L=7 ({len(levels)} levels, one nd_factor)",
-            lambda: [K.front_factor(F, a, b) for F, a, b in levels],
-            lambda: [K.front_factor_plain(F, a, b) for F, a, b in levels],
-            plain_reps=10, reps=20)
-    factor_library_ms(torch, "L=7", levels)
-    print(f"[bound] front_factor L=7: {bnd!r} ms per nd_factor ({by})")
-    return max(errs)
+    err, _ = factor_levels_phase("L=7", levels, torch, K, reps=20,
+                                 plain_reps=10)
+    return err
 
 
 def solve_phases(nd, fact, torch, K, rng):
@@ -977,15 +1041,13 @@ def slice2_solves(torch, K, smi, mg5):
     from mgbtpu_torch import amg, fem2d_P2, mgb_solve, subdivide, zoo
 
     cuda = dict(device="cuda")
-    mesh = ["panel_fwd", "panel_adj", "gram_matvec", "front_factor",
-            "front_solve"]
 
     prob = zoo.two_sided_obstacle(mg5, **cuda)
     secs, sol, la, co = counted(torch, K, lambda: mgb_solve(prob, **cuda))
     report("zoo.two_sided_obstacle L=5", secs, sol, "n/a")
     print(f"[solve] zoo.two_sided_obstacle L=5 wall {secs!r} s on {smi}; "
           f"launches {la}")
-    require_launches("two_sided_obstacle L=5", la, mesh + ["node_barrier"])
+    require_launches("two_sided_obstacle L=5", la, MESH + ["node_barrier"])
     check_record("two_sided_obstacle L=5", sol,
                  ref_record("ref_obstacle_L5.npz", "two_sided_obstacle"))
     behaviour("two_sided_obstacle", mg5, sol.z)
@@ -1005,7 +1067,7 @@ def slice2_solves(torch, K, smi, mg5):
     print(f"[solve] parabolic_solve L=5 h=0.5 ({len(steps)} steps) wall "
           f"{secs!r} s on {smi}; launches {la_par}, K6 in cobarrier form "
           f"{co}")
-    require_launches("parabolic_solve L=5", la_par, mesh + ["node_barrier"])
+    require_launches("parabolic_solve L=5", la_par, MESH + ["node_barrier"])
     if co == 0:
         raise RuntimeError("parabolic_solve L=5: no phase-I K6 launch")
     data = np.load(os.path.join(DATA, "ref_parabolic_L5.npz"))
@@ -1038,12 +1100,158 @@ def slice2_solves(torch, K, smi, mg5):
         behaviour(name, mg3, sol.z)
     return la_par
 
+def check_totals(tag, sol, ref, polish_its=None):
+    """A p-Laplace solve against its x64 record: the solution within TOL_Z,
+    the total Newton its within 5 %; prints the CG counts beside them.
+    With ``polish_its`` given, the last ramp step, whose exact-stopping
+    polish runs at the objective's roundoff floor, is held apart: within
+    ``polish_its`` of x64's, the steps before it within 5 %."""
+    z_ref = ref["z"]
+    zerr = float(np.linalg.norm(sol.z - z_ref) / np.linalg.norm(z_ref))
+    S = sol.SOL_main
+    n = None if polish_its is None else -1
+    its, its_ref = int(S["its"][:, :n].sum()), int(ref["its"][:, :n].sum())
+    last, last_ref = int(S["its"][:, -1].sum()), int(ref["its"][:, -1].sum())
+    cg_ref = int(ref["cg"].sum()) if "cg" in ref else None
+    print(f"[reference] {tag}: |z - z_ref|/|z_ref| = {zerr!r}; its "
+          f"{int(S['its'].sum())} vs {int(ref['its'].sum())} (x64); per "
+          f"level {S['its'].sum(axis=1).tolist()} vs "
+          f"{ref['its_per_level'].tolist()}; last ramp step "
+          f"{last} vs {last_ref}; cg {int(S['cg'].sum())} vs {cg_ref}"
+          + ("" if polish_its is None else f"; held: the steps before the "
+             f"last, {its} vs {its_ref}, the last within {polish_its}"))
+    if not zerr <= TOL_Z:
+        raise RuntimeError(f"{tag}: solution differs from the x64 "
+                           f"reference: {zerr}")
+    if abs(its - its_ref) > TOL_ITS * its_ref:
+        raise RuntimeError(f"{tag}: Newton its {its} not within 5% of "
+                           f"{its_ref}")
+    if polish_its is not None and abs(last - last_ref) > polish_its:
+        raise RuntimeError(f"{tag}: last ramp step's its {last} not within "
+                           f"{polish_its} of {last_ref}")
+
+
+def timed_setup(tag, build):
+    """build() (a problem's subdivide + amg + assemble), its seconds
+    printed."""
+    t0 = time.time()
+    prob = build()
+    print(f"[setup] {tag}: subdivide + amg + assemble {time.time() - t0!r} s")
+    return prob
+
+
+def p_laplace_solve(tag, prob, torch, K, smi, need, ref=None,
+                    polish_its=None):
+    """One p=1 ``mgb_solve`` of ``prob`` on the card, with
+    the launch counters set to 0 just before it and read just after:
+    prints its wall, counts, host syncs and launches, requires the kernels
+    ``need`` to have launched, and holds it to the x64 record in the file
+    ``ref`` (under ``mgbtpu_torch/data``) where given (``check_totals``).
+    Returns the solution and the launches."""
+    from mgbtpu_torch import mgb_solve
+    from mgbtpu_torch.solver.newton import SYNCS
+
+    SYNCS["n"] = 0
+    secs, sol, la, _ = counted(torch, K,
+                               lambda: mgb_solve(prob, device="cuda"))
+    report(tag, secs, sol, SYNCS["n"])
+    print(f"[kernels] launches in the {tag} solve ({secs!r} s wall on "
+          f"{smi}): {la}; power_cone by mode 0/1/2: "
+          f"{K.power_cone_eval.mode_launches}")
+    require_launches(tag, la, need)
+    if ref is not None:
+        check_totals(tag, sol, np.load(os.path.join(DATA, ref)),
+                     polish_its)
+    return sol, la
+
+
+def fem3d_kernel_phases(prob, L, torch, K):
+    """K1, K4 and K5a at the fem3d k=3 (Q3, p = 64) level-L shapes, where
+    the wide forms take them: K1 and K4 against their plain versions and
+    timed on the top level of the main system (nD = 5) and of the phase-I
+    system (nD = 8); K5a on every tree level of the top level's nested
+    dissection (seeded SPD element blocks), one ``nd_factor``'s worth
+    timed. Returns their records (launches to be filled in)."""
+    from mgbtpu_torch.solver.mgb import ProblemKernels, nd_plan
+
+    tag = f"fem3d L={L}"
+    rng = np.random.default_rng(3000 + L)
+    ops = top_level_ops(prob.M[0], tag, torch)
+    k1 = panel_fwd_phase(ops, torch, K, rng, tag)
+    err4, row4 = gram_matvec_phase(ops, torch, K, rng, tag)
+    ops1 = top_level_ops(prob.M[1], f"{tag} phase I", torch)
+    k1["max_abs_err"] = max(k1["max_abs_err"], panel_fwd_phase(
+        ops1, torch, K, rng, f"{tag} phase I")["max_abs_err"])
+    err4 = max(err4, gram_matvec_phase(ops1, torch, K, rng,
+                                       f"{tag} phase I")[0])
+    del ops1
+    t0 = time.time()
+    nd = nd_plan(prob.M[0], ops, ProblemKernels.ND_LEAF_ELEMS,
+                 torch.device("cuda"))
+    print(f"[setup] {tag} ND plan {time.time() - t0!r} s")
+    levels, _ = recorded_fronts(nd, ops.N, ops.C, torch, K, rng)
+    err5, row5 = factor_levels_phase(tag, levels, torch, K, reps=10,
+                                     plain_reps=5)
+    torch.cuda.synchronize()
+    name = f" (fem3d k=3 L={L})"
+    k1["name"] += name
+    return [k1, dict(
+        name="gram_matvec" + name,
+        source="mgbtpu_torch/kernels/csrc/gram_matvec.cu",
+        replaces="mgbtpu/ops/pallas_dd.py:142", max_abs_err=err4, **row4),
+        dict(name="front_factor" + name,
+             source="mgbtpu_torch/kernels/csrc/front_factor.cu",
+             replaces="mgbtpu/ops/pallas_dd.py:446", max_abs_err=err5,
+             **row5)]
+
+
+def fem3d_problem(L):
+    from mgbtpu_torch import amg, assemble, fem3d, subdivide
+
+    return assemble(amg(subdivide(fem3d(k=3), L)), p=1.0, device="cuda")
+
+
+def slice7_solves(prob3d, L3d, torch, K, smi):
+    """The solves of the tensor-product and P1 slice on the card: fem3d
+    k=3 p=1 at L=3 and at L3d (``prob3d``, the slice's path; L3d = 4 by
+    default), fem2d_P1 p=1 at L=5, each held to its x64 record (fem3d at
+    L3d where one is stored), and the fem1d golden vector of
+    ``tests/test_golden.py``. Returns the L3d solve's launches."""
+    from mgbtpu_torch import amg, assemble, fem1d, fem2d_P1, subdivide
+
+    cone_mesh = ["power_cone"] + MESH
+    p_laplace_solve("fem3d k=3 L=3",
+                    timed_setup("fem3d k=3 L=3", lambda: fem3d_problem(3)),
+                    torch, K, smi, cone_mesh, "ref_fem3d_k3_L3.npz")
+    ref = f"ref_fem3d_k3_L{L3d}.npz"
+    if not os.path.exists(os.path.join(DATA, ref)):
+        print(f"[reference] fem3d k=3 L={L3d}: no stored x64 record")
+        ref = None
+    _, la = p_laplace_solve(f"fem3d k=3 L={L3d}", prob3d, torch, K, smi,
+                            cone_mesh, ref)
+    p_laplace_solve("fem2d_P1 L=5", timed_setup("fem2d_P1 L=5", lambda: (
+        assemble(amg(subdivide(fem2d_P1(), 5)), p=1.0, device="cuda"))),
+        torch, K, smi, cone_mesh, "ref_fem2d_p1_L5.npz", P1_FLOOR_ITS)
+    gold = np.asarray([-1, -1, -1, 1, 0, 0, 2, 2.0]).reshape(2, -1).T
+    sol, _ = p_laplace_solve(
+        "fem1d golden", assemble(amg(fem1d(nodes=np.linspace(-1, 1, 3))),
+                                 p=1.0, device="cuda"),
+        torch, K, smi, ["panel_fwd", "power_cone", "panel_adj"])
+    gerr = float(np.linalg.norm(sol.z - gold))
+    print(f"[reference] fem1d golden: |z - z_gold| = {gerr!r}")
+    if not gerr < 1e-6:
+        raise RuntimeError(f"fem1d golden: error {gerr}")
+    return la
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--level", type=int, action="append", default=[],
                     help="also time K1/K2/K6 at this level's top-level "
                     "shapes and solve fem2d_P2 there once")
+    ap.add_argument("--fem3d-level", type=int, default=4,
+                    help="the level of the fem3d k=3 solve and of the wide "
+                    "kernel shapes (default 4)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one L=5 solve (torch.profiler)")
     args = ap.parse_args(argv)
@@ -1092,23 +1300,20 @@ def main(argv=None) -> int:
     require_launches("fem2d_P2 p=1 L=5", launches,
                      [n for n in launches if n != "node_barrier"])
 
-    ref = np.load(REF)
-    z_ref = ref["z"]
-    zerr = float(np.linalg.norm(sol.z - z_ref) / np.linalg.norm(z_ref))
-    its = int(sol.SOL_main["its"].sum())
-    its_ref = int(ref["its_per_level"].sum())
-    print(f"[reference] |z - z_ref|/|z_ref| = {zerr!r}; its {its} vs "
-          f"{its_ref} (x64); per level {sol.SOL_main['its'].sum(axis=1).tolist()}"
-          f" vs {ref['its_per_level'].tolist()}")
-    if not zerr <= TOL_Z:
-        raise RuntimeError(f"solution differs from the x64 reference: {zerr}")
-    if abs(its - its_ref) > TOL_ITS * its_ref:
-        raise RuntimeError(f"Newton its {its} not within 5% of {its_ref}")
+    check_totals("fem2d_P2 p=1 L=5", sol, np.load(REF))
 
     launches_par = slice2_solves(torch, K, smi, mg5)
     for r in records:
         r["launches"] = (launches_par if r["name"] == "node_barrier"
                          else launches)[r["name"]]
+
+    L3d = args.fem3d_level
+    prob3d = timed_setup(f"fem3d k=3 L={L3d}", lambda: fem3d_problem(L3d))
+    wide = fem3d_kernel_phases(prob3d, L3d, torch, K)
+    launches3d = slice7_solves(prob3d, L3d, torch, K, smi)
+    for r in wide:
+        r["launches"] = launches3d[r["name"].split()[0]]
+    records += wide
 
     for L in args.level:
         mgL, probL, run_L = solve(L, torch)

@@ -1,9 +1,11 @@
 """mgbtpu_torch — the PyTorch/CUDA port of mgbtpu (multigrid barrier).
 
 A second package beside the JAX one, in float64 throughout, with the same
-layout and names: ``subdivide(fem2d_P2(), L)`` -> ``amg`` -> ``assemble`` ->
-``mgb_solve``, plus ``parabolic_solve`` and the ``zoo`` problems over the
-power cone, linear, piecewise and intersected convex sets. The level
+layout and names: ``subdivide(geometry, L)`` -> ``amg`` -> ``assemble`` ->
+``mgb_solve`` on the tensor-product Q_k elements (``fem1d``, ``fem2d``,
+``fem3d``) and the P1/P2 triangles (``fem2d_P1``, ``fem2d_P2``), plus
+``parabolic_solve`` and the ``zoo`` problems over the power cone, linear,
+piecewise and intersected convex sets. The level
 operators and the per-node barriers run through hand-written CUDA kernels
 (``kernels/``) on the card, which is the default device; ``device="cpu"``
 runs the plain PyTorch versions instead. Imports neither JAX nor
@@ -11,9 +13,10 @@ runs the plain PyTorch versions instead. Imports neither JAX nor
 """
 from .convex import (Convex, convex_euclidian_power, convex_Euclidian_power,
                      convex_linear, convex_piecewise, intersect)
-from .discretize import Geometry, fem2d_P2
+from .discretize import (Geometry, fem1d, fem2d, fem2d_P1, fem2d_P2, fem3d,
+                         tensor_dofmap)
 from .hierarchy import (MultiGrid, amg, amg_ruge_stuben, find_boundary,
-                        prepare_amg, subdivide)
+                        geometric_mg, prepare_amg, subdivide)
 from .solver import (MGBProblem, MGBSOL, assemble, default_D, default_f,
                      default_g, default_idx, linesearch_backtracking,
                      linesearch_illinois, mgb_solve, stopping_exact,
@@ -25,8 +28,10 @@ from . import zoo
 __all__ = [
     "Convex", "convex_euclidian_power", "convex_Euclidian_power",
     "convex_linear", "convex_piecewise", "intersect", "Geometry",
-    "fem2d_P2", "MultiGrid", "amg", "amg_ruge_stuben", "find_boundary",
-    "prepare_amg", "subdivide", "MGBProblem", "MGBSOL", "assemble", "default_D", "default_f", "default_g", "default_idx",
+    "fem1d", "fem2d", "fem3d", "fem2d_P1", "fem2d_P2", "tensor_dofmap",
+    "MultiGrid", "amg", "amg_ruge_stuben", "find_boundary", "geometric_mg",
+    "prepare_amg", "subdivide", "MGBProblem", "MGBSOL", "assemble",
+    "default_D", "default_f", "default_g", "default_idx",
     "linesearch_backtracking", "linesearch_illinois", "mgb_solve",
     "stopping_exact", "stopping_inexact", "parabolic_solve", "ParabolicSOL",
     "Log", "MGBConvergenceFailure", "zoo",

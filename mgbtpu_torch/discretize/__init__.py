@@ -1,4 +1,8 @@
 from .geometry import Geometry, dedupe
+from .fem2d_p1 import FEM2DP1, fem2d_P1
 from .fem2d_p2 import FEM2DP2, fem2d_P2
+from .tensorfem import TensorFEM, fem1d, fem2d, fem3d, tensor_dofmap
 
-__all__ = ["Geometry", "dedupe", "FEM2DP2", "fem2d_P2"]
+__all__ = ["Geometry", "dedupe", "FEM2DP1", "fem2d_P1", "FEM2DP2",
+           "fem2d_P2", "TensorFEM", "fem1d", "fem2d", "fem3d",
+           "tensor_dofmap"]

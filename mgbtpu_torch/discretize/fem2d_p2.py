@@ -10,9 +10,9 @@ automatically. Capability parity with reference ``src/fem2d_P2.jl``; all
 reference-element tables are derived here from the nodal basis (exact
 monomial algebra on the unit triangle) rather than hard-coded.
 
-Host numpy/scipy, a copy of ``mgbtpu/discretize/fem2d_p2.py`` with the two
-helpers it borrows from the P1 and tensor-FEM modules (``p1_stiffness``,
-``_first_occurrence_ids``) copied in, so the port needs neither module.
+Host numpy/scipy, a copy of ``mgbtpu/discretize/fem2d_p2.py``; it borrows
+``p1_stiffness`` and ``_first_occurrence_ids`` from the port's P1 and
+tensor-FEM modules, as the reference does.
 """
 from __future__ import annotations
 
@@ -22,49 +22,9 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..ops.blockdiag import BlockDiagHost
+from .fem2d_p1 import p1_stiffness
 from .geometry import Geometry
-
-
-def p1_stiffness(corners: np.ndarray, tri_conn: np.ndarray) -> sp.csr_matrix:
-    """Continuous P1 Dirichlet-energy (Neumann) stiffness on the corner mesh."""
-    n_v = corners.shape[0]
-    tri = tri_conn
-    P = corners[tri]                                        # (N, 3, 2)
-    x1, y1 = P[:, 0, 0], P[:, 0, 1]
-    x2, y2 = P[:, 1, 0], P[:, 1, 1]
-    x3, y3 = P[:, 2, 0], P[:, 2, 1]
-    det2 = (x2 - x1) * (y3 - y1) - (x3 - x1) * (y2 - y1)
-    b = np.stack([y2 - y3, y3 - y1, y1 - y2], axis=1)       # (N, 3)
-    c = np.stack([x3 - x2, x1 - x3, x2 - x1], axis=1)
-    scale = 1.0 / (2 * np.abs(det2))
-    vals = (b[:, :, None] * b[:, None, :] + c[:, :, None] * c[:, None, :]) \
-        * scale[:, None, None]
-    rows = np.repeat(tri, 3, axis=1).reshape(-1)
-    cols = np.tile(tri, (1, 3)).reshape(-1)
-    return sp.csr_matrix((vals.reshape(-1), (rows, cols)), shape=(n_v, n_v))
-
-
-def _first_occurrence_ids(keys: np.ndarray, base: int) -> np.ndarray:
-    """Sequential ids for key rows: each distinct row gets ``base + r`` where
-    r is the rank of its FIRST occurrence in row order — exactly the
-    numbering a sequential dict-registry pass would produce."""
-    M = len(keys)
-    if M == 0:
-        return np.empty(0, dtype=np.int64)
-    order = np.lexsort(keys.T[::-1])
-    sk = keys[order]
-    new = np.empty(M, dtype=bool)
-    new[0] = True
-    np.any(sk[1:] != sk[:-1], axis=1, out=new[1:])
-    gid_sorted = np.cumsum(new) - 1
-    starts = np.flatnonzero(new)
-    first_idx = order[starts]                  # first-occurrence row per group
-    rank = np.empty(len(starts), dtype=np.int64)
-    rank[np.argsort(first_idx, kind="stable")] = np.arange(len(starts))
-    ids_sorted = rank[gid_sorted]
-    ids = np.empty(M, dtype=np.int64)
-    ids[order] = ids_sorted
-    return base + ids
+from .tensorfem import _first_occurrence_ids
 
 
 class FEM2DP2:

@@ -1,19 +1,23 @@
-"""amg(geom) / geometric_mg(geom, L) for fem2d_P2.
+"""amg(geom) / geometric_mg(geom, L) per discretization.
 
-Host numpy/scipy, a copy of the fem2d_P2 branch of
-``mgbtpu/hierarchy/amg_build.py`` (the reference's ``amg`` for P2 is
-``src/fem2d_P2.jl:400-455``):
+Host numpy/scipy, a copy of ``mgbtpu/hierarchy/amg_build.py`` for the
+tensor-product (fem1d/fem2d/fem3d), fem2d_P1 and fem2d_P2 discretizations
+(the reference's ``amg``: ``src/TensorFEM.jl:727-796``,
+``src/fem2d_P1.jl:83-126``, ``src/fem2d_P2.jl:400-455``):
 
 1. corner labels from the cached connectivity t;
-2. an auxiliary all-corners Neumann P1 stiffness on the corner mesh;
+2. an auxiliary all-corners Neumann P1/Q1 stiffness (Galerkin restriction of
+   the true broken operator for tensor elements, direct P1 assembly for
+   triangles);
 3. a pluggable prolongator coarsens it;
-4. a "bridge" level lifts interior corners into the broken P2 basis via
-   P1 weights;
+4. a "bridge" level lifts interior corners into the broken basis via
+   multilinear / P1 weights;
 5. the fine cap is the subspace embedding itself (identity for :full, the
    continuous zero-trace embedding for Dirichlet classes); bridge rows are
    masked at every Dirichlet node so coarse spaces stay nested in the
    constrained fine space.
 
+The spectral discretizations are not ported (ROADMAP Queue 1 item 4).
 Everything here is one-time host-side setup; only the resulting level
 operators reach the device (``solver/levelops.py``).
 """
@@ -23,6 +27,10 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..discretize.geometry import Geometry
+from ..discretize.tensorfem import (TensorFEM, build_geometry, corner_local,
+                                    find_boundary_tensorfem, q1_lift,
+                                    refine_connectivity, refine_local,
+                                    tf_reference)
 from .multigrid import MultiGrid
 from .prolongators import amg_ruge_stuben
 
@@ -155,47 +163,227 @@ def assemble_amg_dicts(geom: Geometry, n_broken: int, dirichlet_nodes: dict,
 
 
 # ---------------------------------------------------------------------------
-# Dispatch: the fem2d_P2 branch only
+# find_boundary dispatch
 # ---------------------------------------------------------------------------
 
-def _require_p2(geom: Geometry, what: str):
-    from ..discretize.fem2d_p2 import FEM2DP2
-
-    if not isinstance(geom.discretization, FEM2DP2):
+def _refuse_spectral(disc, what: str):
+    """The spectral discretizations (``Spectral1D``/``Spectral2D``, matched
+    by name: the port has no copy of them) are not ported."""
+    name = type(disc).__name__
+    if name in ("Spectral1D", "Spectral2D"):
         raise NotImplementedError(
-            f"{what}: only fem2d_P2 is ported; other discretizations "
-            f"({type(geom.discretization).__name__}) are ROADMAP Queue 1 "
-            "item 10 (standalone host setup)")
+            f"{what}: {name} is not ported (ROADMAP Queue 1 item 4, "
+            "spectral1d/spectral2d)")
 
 
 def find_boundary(geom: Geometry):
     """(v, e) pairs (0-based) of the mesh nodes on the domain boundary."""
-    from ..discretize.fem2d_p2 import find_boundary_p2
+    disc = geom.discretization
+    if isinstance(disc, TensorFEM):
+        return find_boundary_tensorfem(geom)
+    _refuse_spectral(disc, "find_boundary")
+    from ..discretize.fem2d_p1 import FEM2DP1, find_boundary_p1
+    from ..discretize.fem2d_p2 import FEM2DP2, find_boundary_p2
 
-    _require_p2(geom, "find_boundary")
-    return find_boundary_p2(geom)
+    if isinstance(disc, FEM2DP1):
+        return find_boundary_p1(geom)
+    if isinstance(disc, FEM2DP2):
+        return find_boundary_p2(geom)
+    raise TypeError(f"find_boundary: unsupported discretization {type(disc)}")
 
 
-def amg(geom: Geometry, *, prolongator=None, dirichlet_nodes=None) -> MultiGrid:
+# ---------------------------------------------------------------------------
+# amg() dispatch
+# ---------------------------------------------------------------------------
+
+def amg(geom: Geometry, *, prolongator=None, dirichlet_nodes=None,
+        auxiliary_postprocess=None) -> MultiGrid:
     """Attach an algebraic-multigrid hierarchy to a single-level Geometry."""
-    from ..discretize.fem2d_p2 import amg_p2
-
-    _require_p2(geom, "amg")
+    disc = geom.discretization
+    _refuse_spectral(disc, "amg")
     if prolongator is None:
         prolongator = amg_ruge_stuben(max_coarse=2)
     if dirichlet_nodes is None:
         dirichlet_nodes = {"dirichlet": find_boundary(geom)}
-    return amg_p2(geom, prolongator, dirichlet_nodes)
+    if isinstance(disc, TensorFEM):
+        return _amg_tensorfem(geom, prolongator, dirichlet_nodes,
+                              auxiliary_postprocess)
+    from ..discretize.fem2d_p1 import FEM2DP1, amg_p1
+    from ..discretize.fem2d_p2 import FEM2DP2, amg_p2
 
+    if isinstance(disc, FEM2DP1):
+        return amg_p1(geom, prolongator, dirichlet_nodes, auxiliary_postprocess)
+    if isinstance(disc, FEM2DP2):
+        return amg_p2(geom, prolongator, dirichlet_nodes)
+    raise TypeError(f"amg: unsupported discretization {type(disc)}")
+
+
+def _interior_q1_lift(node_map_q1: np.ndarray, k: int, d: int, n_v: int,
+                      interior: np.ndarray, dtype) -> sp.csr_matrix:
+    """Lift interior Q1 corners -> broken Q_k basis via the per-element
+    multilinear corner weights (boundary-corner pushes dropped)."""
+    s = k + 1
+    ref = tf_reference(d, k)
+    n = ref.n
+    nc = 1 << d
+    L = q1_lift(ref, d)                         # (n, nc)
+    N = len(node_map_q1) // nc
+    interior_idx = -np.ones(n_v, dtype=np.int64)
+    interior_idx[np.asarray(interior, dtype=np.int64)] = np.arange(len(interior))
+    rows, cols, vals = [], [], []
+    nzr, nzc = np.nonzero(L)
+    for e in range(N):
+        cui = interior_idx[node_map_q1[e * nc:(e + 1) * nc]]
+        ok = cui[nzc] >= 0
+        rows.append(e * n + nzr[ok])
+        cols.append(cui[nzc[ok]])
+        vals.append(L[nzr[ok], nzc[ok]])
+    rows = np.concatenate(rows) if rows else np.empty(0, dtype=np.int64)
+    cols = np.concatenate(cols) if cols else np.empty(0, dtype=np.int64)
+    vals = np.concatenate(vals) if vals else np.empty(0)
+    return sp.csr_matrix((vals.astype(dtype), (rows, cols)),
+                         shape=(N * n, len(interior)))
+
+
+def _amg_tensorfem(geom, prolongator, dirichlet_nodes, auxiliary_postprocess):
+    disc = geom.discretization
+    d, k = disc.d, disc.k
+    dtype = geom.dtype
+    s = k + 1
+    n = s ** d
+    N = geom.x.shape[1]
+    n_broken = n * N
+    nc = 1 << d
+
+    full_labels = geom.t.reshape(-1, order="F")
+    n_full_unique = int(full_labels.max()) + 1
+    cornerlocal = [corner_local(c, s, d) for c in range(nc)]
+    node_map_q1, n_v = corner_labels_from_t(geom.t, cornerlocal)
+
+    # all-corners auxiliary stiffness from the broken operators:
+    # A = sum_a Da' W Da over the ambient gradient components
+    W = sp.diags(geom.w.astype(np.float64))
+    A = sp.csr_matrix((n_broken, n_broken))
+    for a in range(geom.x.shape[2]):
+        Da = geom.operators[AXIS_SYMS[a]].to_sparse().astype(np.float64)
+        A = A + Da.T @ W @ Da
+
+    full_to_corner = {}
+    for e in range(N):
+        for c in range(nc):
+            full_to_corner[int(full_labels[n * e + cornerlocal[c]])] = \
+                int(node_map_q1[nc * e + c])
+
+    S_full = _interior_q1_lift(node_map_q1, k, d, n_v, np.arange(n_v), dtype)
+    K_full = sp.csr_matrix((S_full.astype(np.float64).T @ A @ S_full))
+    if auxiliary_postprocess is not None:
+        K_full = sp.csr_matrix(auxiliary_postprocess(K_full))
+
+    P_full = run_prolongator(K_full, prolongator)
+    refine_full, sizes_full = assemble_ladder(P_full, S_full, n_broken)
+
+    def build_dirichlet(nodes):
+        dd_set = set(int(full_labels[r]) for r in pairs_to_linear(nodes, n))
+        dc_set = set(full_to_corner[f] for f in dd_set if f in full_to_corner)
+        interior = np.array(sorted(set(range(n_v)) - dc_set), dtype=np.int64)
+        K_int = K_full[interior][:, interior] if len(interior) else \
+            sp.csr_matrix((0, 0))
+        P_dir = run_prolongator(K_int, prolongator)
+        bridge = _interior_q1_lift(node_map_q1, k, d, n_v, interior, dtype)
+        bridge = mask_dirichlet_rows(bridge, full_labels, dd_set)
+        refine_dir, sizes_dir = assemble_ladder(P_dir, bridge, n_broken)
+        K_amg = len(refine_dir) - 1
+        sub = [sp.identity(sizes_dir[l], format="csr", dtype=dtype)
+               for l in range(K_amg)]
+        sub.append(continuous_subspace(full_labels, n_full_unique, dd_set, dtype))
+        return refine_dir, sub
+
+    return assemble_amg_dicts(geom, n_broken, dirichlet_nodes,
+                              refine_full, sizes_full, build_dirichlet)
+
+
+# ---------------------------------------------------------------------------
+# geometric_mg dispatch
+# ---------------------------------------------------------------------------
 
 def geometric_mg(geom: Geometry, L: int) -> MultiGrid:
     """Geometric-subdivision hierarchy of L levels (fine = L-1 subdivisions)."""
-    from ..discretize.fem2d_p2 import geometric_mg_p2
+    disc = geom.discretization
+    if isinstance(disc, TensorFEM):
+        return _geometric_mg_tensorfem(geom, L)
+    _refuse_spectral(disc, "geometric_mg")
+    from ..discretize.fem2d_p1 import FEM2DP1, geometric_mg_p1
+    from ..discretize.fem2d_p2 import FEM2DP2, geometric_mg_p2
 
-    _require_p2(geom, "geometric_mg")
-    return geometric_mg_p2(geom, L)
+    if isinstance(disc, FEM2DP1):
+        return geometric_mg_p1(geom, L)
+    if isinstance(disc, FEM2DP2):
+        return geometric_mg_p2(geom, L)
+    raise TypeError(f"geometric_mg: unsupported discretization {type(disc)}")
 
 
 def subdivide(geom: Geometry, L: int) -> Geometry:
     """Refine by L-1 levels of geometric subdivision (operators rebuilt)."""
     return geometric_mg(geom, L).geometry
+
+
+def _block_refine_sparse(P_local: np.ndarray, n_elems: int, n: int,
+                         nc: int, dtype) -> sp.csr_matrix:
+    """Per-element broken refine: each parent's n dofs map to its nc children."""
+    blocks = [sp.csr_matrix(P_local.astype(dtype)) for _ in range(n_elems)]
+    return sp.block_diag(blocks, format="csr")
+
+
+def _geometric_mg_tensorfem(geom, L):
+    disc = geom.discretization
+    d, k = disc.d, disc.k
+    dtype = geom.dtype
+    if L < 1:
+        raise ValueError("L must be >= 1")
+    s = k + 1
+    n = s ** d
+    nc = 1 << d
+    P_local = refine_local(k, d)
+
+    meshes = [np.asarray(geom.x, dtype=dtype)]
+    topos = [geom.t.copy()]
+    for l in range(L - 1):
+        Xc = meshes[l]
+        Nl = Xc.shape[1]
+        Xf = np.empty((n, Nl * nc, Xc.shape[2]), dtype=dtype)
+        for ch in range(nc):
+            blk = P_local[ch * n:(ch + 1) * n, :]
+            Xf[:, ch::nc, :] = np.einsum("im,mNe->iNe", blk, Xc)
+        meshes.append(Xf)
+        topos.append(refine_connectivity(topos[l], k, d))
+
+    geomL = geom if L == 1 else build_geometry(d, disc.e, k, meshes[-1],
+                                               t=topos[-1])
+    refine = []
+    for l in range(L - 1):
+        refine.append(_block_refine_sparse(P_local, meshes[l].shape[1],
+                                           n, nc, dtype))
+    refine.append(sp.identity(n * meshes[-1].shape[1], format="csr",
+                              dtype=dtype))
+
+    subspaces = {"dirichlet": [], "full": [], "uniform": []}
+    for l in range(L):
+        labels = topos[l].reshape(-1, order="F")
+        n_unique = int(labels.max()) + 1
+        gl = Geometry.__new__(Geometry)
+        gl.discretization = disc
+        gl.x = meshes[l]
+        gl.t = topos[l]
+        gl.w = np.zeros(meshes[l].shape[0] * meshes[l].shape[1], dtype=dtype)
+        gl.operators = {}
+        pairs = find_boundary_tensorfem(gl)
+        bset = set(int(labels[v + e * n]) for v, e in pairs)
+        nl = n * meshes[l].shape[1]
+        subspaces["dirichlet"].append(
+            continuous_subspace(labels, n_unique, bset, dtype))
+        subspaces["full"].append(sp.identity(nl, format="csr", dtype=dtype))
+        subspaces["uniform"].append(
+            sp.csr_matrix(np.ones((nl, 1), dtype=dtype)))
+
+    return MultiGrid.from_subspaces(geomL, subspaces,
+                                    {k2: refine for k2 in subspaces})

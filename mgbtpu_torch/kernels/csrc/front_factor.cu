@@ -44,6 +44,20 @@
 // update. The products use fma on the plain f64 units; mma.sync (DMMA) is
 // not used: at these sizes the chain, not the flops, bounds the kernel.
 // The launch bound asks for two blocks an SM (128 registers a thread).
+//
+// The panel in shared memory is f x 34 doubles: with the rest, a front of
+// f > 790 does not fit a block (232,448 bytes). Such a front takes the
+// wide form (front_factor_wide_kernel): the same panels in the same order,
+// but each panel's rows pass through shared memory RC at a time. The first
+// chunk holds the diagonal tile, which is factored into its own buffer
+// (T) and serves every later chunk's row solves; each chunk is staged,
+// symmetrized, updated by the earlier panels, solved and written out as
+// the whole panel is above. S's update then stages the panel's U rows
+// back from device memory (L2: just written), 32 rows for a tile's rows
+// and 32 for its columns, and runs the same tile products. Every entry is
+// computed by the same operations in the same order as in the one-panel
+// form, so a front that both forms take comes out with the same bits; the
+// wide form takes any f (the L=4 fem3d leaf fronts: f = 855).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -57,6 +71,7 @@
 #define WRS 4     // rows a warp takes in a 32 x 32 tile product
 #define XS 34     // a warp's staged row stride (even: 16-byte loads)
 #define FULL 0xffffffffu
+#define RC 256    // the wide form: panel rows a chunk stages
 
 // Row r of the front's stacked factor X = [Lf; U] (both row-major, a wide).
 __device__ __forceinline__ const double* xrow(const double* Ln,
@@ -326,18 +341,240 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
     }
 }
 
-extern "C" int front_factor_launch(const void* F, void* Lf, void* U, void* S,
-                                   int nk, int a, int b, int ld,
-                                   void* stream) {
-    const size_t smem =
-        ((size_t)(a + b) * PS + TILE * TLD + FF_WARPS * WRS * XS + TILE) *
-        sizeof(double);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            front_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
+// The wide form (see the note at the top): one block per front, panels of
+// 32 columns as above, each panel's rows RC at a time.
+__global__ void __launch_bounds__(FF_THREADS, 2)
+    front_factor_wide_kernel(const double* __restrict__ F, double* Lf,
+                             double* U, double* __restrict__ S, int a, int b,
+                             int ld) {
+    extern __shared__ __align__(16) double sm[];
+    const int f = a + b;
+    double* P = sm;                        // RC x PS: a chunk of the panel
+    double* LT = P + (size_t)RC * PS;      // TILE x TLD: the update's rows
+    double* T = LT + TILE * TLD;           // TILE x TLD: the factored tile
+    double* XW = T + TILE * TLD;  // FF_WARPS x WRS x XS; the tile's columns
+    double* D = XW + FF_WARPS * WRS * XS;  // 1 / the tile's pivots
+    __shared__ int bad;
+    const int n = blockIdx.x, tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const double* Fn = F + (size_t)n * ld * ld;
+    double* Ln = Lf + (size_t)n * a * a;
+    double* Un = U + (size_t)n * b * a;
+    double* Sn = S + (size_t)n * b * b;
+    const int ldodd = ld & 1, nt = (b + TILE - 1) / TILE;
+    if (tid == 0) bad = 0;
+
+    for (int j0 = 0; j0 < a; j0 += TILE) {
+        const int w = min(TILE, a - j0), R = f - j0, RA = a - j0;
+        for (int i0 = 0; i0 < R; i0 += RC) {  // panel rows i0 .. i0+nr-1
+            const int nr = min(RC, R - i0);
+            const int off0 = odd8(Fn + (size_t)(j0 + i0) * ld + j0);
+#define PIX(i) ((i) * PS + (off0 ^ ((i) & ldodd)))
+            const int np = cp_pieces(w, 1);
+            for (int t = tid; t < nr * np; t += FF_THREADS) {
+                const int i = t / np, q = t - i * np;
+                const int h = off0 ^ (i & ldodd);
+                if (q < cp_pieces(w, h))
+                    cp_piece(P + i * PS + h,
+                             Fn + (size_t)(j0 + i0 + i) * ld + j0, w, h, q);
+            }
+            cp_async_wait_all();
+            __syncthreads();
+            // A_s's lower part in the chunk's rows of A
+            const int na = min(nr, RA - i0);
+#pragma unroll 4
+            for (int t = tid; t < w * max(na, 0); t += FF_THREADS) {
+                const int c = t / na, i = t - c * na;
+                if (i0 + i >= c) {
+                    double* x = P + PIX(i) + c;
+                    *x = (*x + Fn[(size_t)(j0 + c) * ld + j0 + i0 + i]) / 2;
+                }
+            }
+            __syncthreads();
+            for (int k0 = 0; k0 < j0; k0 += TILE) {  // the left-looking update
+                for (int t = tid; t < TILE * TILE; t += FF_THREADS) {
+                    const int c = t >> 5, k = t & 31;
+                    LT[k * TLD + c] =
+                        c < w ? Ln[(size_t)(j0 + c) * a + k0 + k] : 0.0;
+                }
+                __syncthreads();
+                double* xw = XW + warp * WRS * XS;
+                double xr[WRS];
+#pragma unroll
+                for (int u = 0; u < WRS; ++u) {
+                    const int r = warp * WRS + u;
+                    xr[u] = r < nr ? xrow(Ln, Un, a, j0 + i0 + r)[k0 + lane]
+                                   : 0.0;
+                }
+                for (int r0 = warp * WRS; r0 < nr; r0 += FF_WARPS * WRS) {
+#pragma unroll
+                    for (int u = 0; u < WRS; ++u) xw[u * XS + lane] = xr[u];
+                    __syncwarp();
+#pragma unroll
+                    for (int u = 0; u < WRS; ++u) {
+                        const int r = r0 + FF_WARPS * WRS + u;
+                        xr[u] = r < nr
+                                    ? xrow(Ln, Un, a, j0 + i0 + r)[k0 + lane]
+                                    : 0.0;
+                    }
+                    double acc[WRS] = {};
+#pragma unroll 4
+                    for (int k = 0; k < TILE; k += 2) {
+                        const double b0 = LT[k * TLD + lane];
+                        const double b1 = LT[(k + 1) * TLD + lane];
+#pragma unroll
+                        for (int u = 0; u < WRS; ++u) {
+                            const double2 x = *reinterpret_cast<const double2*>(
+                                xw + u * XS + k);
+                            acc[u] = fma(x.x, b0, acc[u]);
+                            acc[u] = fma(x.y, b1, acc[u]);
+                        }
+                    }
+#pragma unroll
+                    for (int u = 0; u < WRS; ++u) {
+                        const int i = r0 + u;
+                        if (i < nr && lane < w) P[PIX(i) + lane] -= acc[u];
+                    }
+                    __syncwarp();
+                }
+                __syncthreads();
+            }
+            if (i0 == 0) {  // the diagonal tile: the chunk's first w rows
+                if (warp == 0) {
+                    double* prow = P + PIX(lane);
+                    const int nb =
+                        w <= 8    ? factor_tile<8>(prow, w, lane, T, D, XW)
+                        : w <= 16 ? factor_tile<16>(prow, w, lane, T, D, XW)
+                                  : factor_tile<32>(prow, w, lane, T, D, XW);
+                    if (lane == 0 && nb) bad = 1;
+                }
+                __syncthreads();
+                if (bad) break;  // block-uniform
+            }
+            for (int i = (i0 == 0 ? w : 0) + tid; i < nr; i += FF_THREADS) {
+                double* prow = P + PIX(i);
+                if (w <= 8) solve_row<8>(prow, w, T, D);
+                else if (w <= 16) solve_row<16>(prow, w, T, D);
+                else solve_row<32>(prow, w, T, D);
+            }
+            __syncthreads();
+            for (int t = tid; t < nr * TILE; t += FF_THREADS) {
+                const int i = t >> 5, c = t & 31, pi = i0 + i;
+                if (c < w) {
+                    const double v = P[PIX(i) + c];
+                    if (pi < RA) Ln[(size_t)(j0 + pi) * a + j0 + c] = v;
+                    else Un[(size_t)(pi - RA) * a + j0 + c] = v;
+                }
+            }
+            if (i0 == 0) {
+                const int zw = a - j0 - w;
+                for (int t = tid; t < w * zw; t += FF_THREADS) {
+                    const int i = t / zw, c = t - i * zw;
+                    Ln[(size_t)(j0 + i) * a + j0 + w + c] = 0.0;
+                }
+            }
+            __syncthreads();  // the chunk is out: P is free
+#undef PIX
+        }
+        if (bad) break;
+        // S -= U_J U_J^T (S = C - U_J U_J^T on the first panel), as above,
+        // from this panel's U rows staged back: UR (tile rows) and UC (tile
+        // columns), rows of stride PS
+        double* UR = P;
+        double* UC = P + TILE * PS;
+        for (int it = 0; it < nt; ++it) {
+            for (int t = tid; t < TILE * TILE; t += FF_THREADS) {
+                const int i = t >> 5, k = t & 31, r = it * TILE + i;
+                UR[i * PS + k] =
+                    r < b && k < w ? Un[(size_t)r * a + j0 + k] : 0.0;
+            }
+            const int r0 = it * TILE + warp * WRS;
+            for (int jt = 0; jt <= it; ++jt) {
+                for (int t = tid; t < TILE * TILE; t += FF_THREADS) {
+                    const int i = t >> 5, k = t & 31, r = jt * TILE + i;
+                    UC[i * PS + k] =
+                        r < b && k < w ? Un[(size_t)r * a + j0 + k] : 0.0;
+                }
+                __syncthreads();
+                if (r0 < b) {  // warp-uniform
+                    const int c = jt * TILE + lane;
+                    double base[WRS], mirr[WRS], acc[WRS];
+                    const double* pr[WRS];
+#pragma unroll
+                    for (int u = 0; u < WRS; ++u) {
+                        const int r = r0 + u;
+                        const bool on = r < b && c <= r, off = on && c < r;
+                        base[u] = !on      ? 0.0
+                                  : j0 == 0 ? Fn[(size_t)(a + r) * ld + a + c]
+                                            : Sn[(size_t)r * b + c];
+                        mirr[u] = !off     ? 0.0
+                                  : j0 == 0 ? Fn[(size_t)(a + c) * ld + a + r]
+                                            : Sn[(size_t)c * b + r];
+                        acc[u] = 0.0;
+                        pr[u] = UR + (warp * WRS + u) * PS;
+                    }
+                    const double* pc = UC + lane * PS;
+#pragma unroll 4
+                    for (int k = 0; k < w; ++k) {
+                        const double bc = pc[k];
+#pragma unroll
+                        for (int u = 0; u < WRS; ++u)
+                            acc[u] = fma(pr[u][k], bc, acc[u]);
+                    }
+#pragma unroll
+                    for (int u = 0; u < WRS; ++u) {
+                        const int r = r0 + u;
+                        if (r < b && c <= r) {
+                            Sn[(size_t)r * b + c] = base[u] - acc[u];
+                            if (c < r)
+                                Sn[(size_t)c * b + r] = mirr[u] - acc[u];
+                        }
+                    }
+                }
+                __syncthreads();  // UC (and, after the last jt, UR) free
+            }
+        }
+        __syncthreads();  // the panel is in L2 for the next one's update
     }
+    if (bad) {
+        const double nan = __longlong_as_double(0x7ff8000000000000LL);
+        for (int t = tid; t < a * a; t += FF_THREADS) Ln[t] = nan;
+        for (int t = tid; t < b * a; t += FF_THREADS) Un[t] = nan;
+        for (int t = tid; t < b * b; t += FF_THREADS) Sn[t] = nan;
+    }
+}
+
+static int fit_smem(const void* kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// form: 0 by shape (the one-panel form where the front fits it), 1 the
+// one-panel form, 2 the wide form; the one-panel form refuses a front it
+// cannot take (cudaErrorInvalidValue).
+extern "C" int front_factor_launch(const void* F, void* Lf, void* U, void* S,
+                                   int nk, int a, int b, int ld, int form,
+                                   void* stream) {
+    if (form < 0 || form > 2) return (int)cudaErrorInvalidValue;
+    const size_t tail = TILE * TLD + FF_WARPS * WRS * XS + TILE;
+    const size_t smem = ((size_t)(a + b) * PS + tail) * sizeof(double);
+    const bool fits = smem <= 232448;
+    if (form == 1 && !fits) return (int)cudaErrorInvalidValue;
+    if (form == 2 || !fits) {
+        const size_t wide =
+            ((size_t)RC * PS + TILE * TLD + tail) * sizeof(double);
+        int e = fit_smem((const void*)front_factor_wide_kernel, wide);
+        if (e) return e;
+        if (nk > 0)
+            front_factor_wide_kernel<<<nk, FF_THREADS, wide,
+                                       (cudaStream_t)stream>>>(
+                (const double*)F, (double*)Lf, (double*)U, (double*)S, a, b,
+                ld);
+        return (int)cudaGetLastError();
+    }
+    int e = fit_smem((const void*)front_factor_kernel, smem);
+    if (e) return e;
     if (nk > 0) {
         front_factor_kernel<<<nk, FF_THREADS, smem, (cudaStream_t)stream>>>(
             (const double*)F, (double*)Lf, (double*)U, (double*)S, a, b, ld);

@@ -19,8 +19,12 @@ A is not positive definite comes back all NaN (the reference's cholesky
 semantics, which ``nd_finite`` reads). What bounds it on an H100: at the
 front sizes of the fem2d_P2 levels (f = a + b <= 190 at L=7) neither bytes
 nor flops but the chain of its ceil(a/32) panels, a few block barriers
-each; the shared memory, f x 34 doubles and 17 KB, takes fronts up to
-f = 790.
+each. That form holds a whole panel, f x 34 doubles and 17 KB, in shared
+memory, so it takes fronts up to f = 790; a wider front (the fem3d Q3 L=4
+leaves: f = 855) takes the wide form, which passes each panel's rows
+through shared memory 256 at a time and stages S's U rows back from L2,
+with the same operations in the same order (the same bits), and takes
+any f. The C entry picks the form by f.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ import torch
 from . import _build as B
 
 NAME = "front_factor"
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FORM = 0   # the C entry's form: 0 by shape; the card tests set 1 or 2
 
 
 def cholesky_nan(A):
@@ -70,7 +75,7 @@ def front_factor(F, amax, bmax):
     S = torch.empty((nk, bmax, bmax), **kw)
     fn = B.launcher(NAME, _ARGS)
     err = fn(B.ptr(F), B.ptr(Lf), B.ptr(U), B.ptr(S), nk, amax, bmax, ld,
-             B.stream(F.device))
+             _FORM, B.stream(F.device))
     B.check(NAME, err)
     front_factor.launches += 1
     return Lf, U, S

@@ -18,6 +18,13 @@ the same bits on every run. The panels leave device memory once and W
 never does. What bounds it on an H100: bytes (panels and node factors read
 once, a few flops per 8 bytes); at L=5 the working set sits in L2 and the
 call is bound by its two launches and the latency of its loads.
+
+An element whose panels and factors do not fit in a block's shared memory
+(the fem3d Q3 levels: p = 64, C = 128 and more) takes the wide form: one
+element a block, its panel rows staged a chunk of columns at a time for
+P v, the slots' sums read from device memory; the same sums in the same
+order, so the same bits. The C entry picks the form by shape. The wide
+form takes p*nD <= 1024.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ from . import _build as B
 from ..ops.scatter import scatter_add
 
 NAME = "gram_matvec"
-_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_FORM = 0   # the C entry's form: 0 by shape; the card tests set 1 or 2
 
 
 def gram_matvec_plain(panels, cols, inv, Lnode, v):
@@ -49,8 +57,7 @@ def gram_matvec_plain(panels, cols, inv, Lnode, v):
 def gram_matvec(panels, cols, inv, Lnode, v):
     """panels (nD, N, p, C), cols (N, C) int64, inv (n_J, K) int64 (see
     ``solver.levelops.inverse_incidence``), Lnode (N*p, nD, nD), v (n_J,)
-    -> H v (n_J,). On the card the launch fails (RuntimeError) when one
-    element's panels and node factors exceed a block's shared memory."""
+    -> H v (n_J,)."""
     if not B.on_cuda(NAME, panels, cols, inv, Lnode, v):
         return gram_matvec_plain(panels, cols, inv, Lnode, v)
     nD, N, p, C = panels.shape
@@ -66,7 +73,7 @@ def gram_matvec(panels, cols, inv, Lnode, v):
     out = torch.empty(v.shape, dtype=torch.float64, device=v.device)
     fn = B.launcher(NAME, _ARGS)
     err = fn(B.ptr(panels), B.ptr(cols), B.ptr(inv), B.ptr(Lnode), B.ptr(v),
-             B.ptr(contrib), B.ptr(out), nD, N, p, C, n_J, K,
+             B.ptr(contrib), B.ptr(out), nD, N, p, C, n_J, K, _FORM,
              B.stream(v.device))
     B.check(NAME, err)
     gram_matvec.launches += 1

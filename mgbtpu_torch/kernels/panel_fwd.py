@@ -17,6 +17,13 @@ sums run in the order of the one-thread-per-node kernel it replaced (from
 on an H100: bytes -- the panels (nD*N*p*C doubles) are read once for 2
 flops per 8 bytes, far below the f64 rate; at fem2d_P2 L=5 the ~2 MB it
 moves sit in the 50 MB L2, so the call is launch-bound.
+
+An element whose nD slabs do not fit in a block's shared memory together
+(the fem3d Q3 levels: p = 64, C = 128 and more) takes the wide form: one
+element a block, its panel rows staged a chunk of columns at a time, each
+sum carried across the chunks in the same order, so the same bits. The C
+entry picks the form by shape. Limits: nD <= 12 and p*nD <= 1024 (one
+thread an output of an element).
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ import torch
 from . import _build as B
 
 NAME = "panel_fwd"
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FORM = 0   # the C entry's form: 0 by shape; the card tests set 1 or 2
 
 
 def panel_fwd_plain(panels, cols, s, dz0=None):
@@ -39,7 +47,7 @@ def panel_fwd_plain(panels, cols, s, dz0=None):
 
 def panel_fwd(panels, cols, s, dz0=None):
     """panels (nD, N, p, C) f64, cols (N, C) int64, s (n_J,), dz0 optional
-    (N*p, nD) -> (N*p, nD). The plain version on CPU tensors; the CUDA
+    (N*p, nD) -> (N*p, nD). The plain version on CPU tensors, the CUDA
     kernel on CUDA tensors."""
     if not B.on_cuda(NAME, panels, cols, s, dz0):
         return panel_fwd_plain(panels, cols, s, dz0)
@@ -55,7 +63,7 @@ def panel_fwd(panels, cols, s, dz0=None):
     fn = B.launcher(NAME, _ARGS)
     err = fn(B.ptr(panels), B.ptr(cols), B.ptr(s),
              None if dz0 is None else B.ptr(dz0), B.ptr(out),
-             nD, N, p, C, B.stream(s.device))
+             nD, N, p, C, _FORM, B.stream(s.device))
     B.check(NAME, err)
     panel_fwd.launches += 1
     return out

@@ -26,6 +26,18 @@ def solve_record(sol) -> dict:
                           else np.asarray(F["its"], np.int64)))
 
 
+def p_laplace_reference(geometry, L, p=1.0) -> dict:
+    """Record of the JAX x64 p-Laplace solve (the default f, g and D) on
+    ``mgbtpu.subdivide(mgbtpu.<geometry>(), L)``, with its CG iterations
+    per ramp step and L."""
+    import mgbtpu
+
+    mg = mgbtpu.amg(mgbtpu.subdivide(getattr(mgbtpu, geometry)(), L))
+    sol = mgbtpu.mgb_solve(mgbtpu.assemble(mg, p=p))
+    return dict(solve_record(sol), cg=np.asarray(sol.SOL_main["cg"], np.int64),
+                L=np.array(L))
+
+
 def zoo_reference(name, L, **kw) -> dict:
     """Record of the JAX x64 solve of ``mgbtpu.zoo.<name>`` on fem2d_P2 L."""
     import mgbtpu

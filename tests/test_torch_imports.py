@@ -30,8 +30,10 @@ def _imported_roots(path):
 def test_scan_covers_the_port():
     files = _port_files()
     assert len(files) > 20
-    assert any(f.endswith(os.path.join("kernels", "power_cone.py"))
-               for f in files)
+    for module in (("kernels", "power_cone.py"),
+                   ("discretize", "tensorfem.py"),
+                   ("discretize", "fem2d_p1.py")):
+        assert any(f.endswith(os.path.join(*module)) for f in files)
 
 
 @pytest.mark.parametrize("path", _port_files(),

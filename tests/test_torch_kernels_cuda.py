@@ -1,5 +1,6 @@
 """PyTorch port, the seven CUDA kernels against their plain PyTorch versions
-on the card, at small ragged shapes and in every mode the wrappers take.
+on the card, at small ragged shapes and in every mode the wrappers take,
+and K1, K4 and K5a at the fem3d Q3 shapes that take their wide forms.
 
 Marked ``cuda``: each test skips without a card. The file imports neither
 JAX nor ``mgbtpu``, so it runs on a machine without them:
@@ -17,6 +18,8 @@ The per-node barrier kernels (K2, K6) follow the plain versions operation
 by operation (built with --fmad=false) and are held to the plain versions'
 bits (int64 views, so the sign of a zero counts).
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -91,9 +94,75 @@ def test_panel_fwd(dev, nD, C):
     assert K.panel_fwd.launches == before + 4
 
 
+STAGED, WIDE = 1, 2   # the C entries' forced forms
+
+
+def _in_form(kernel, form, *args):
+    """``kernel(*args)`` with its C entry forced to ``form`` (STAGED: the
+    element- or panel-staged form; WIDE: the wide form) through the
+    wrapper module's private ``_FORM``."""
+    mod = sys.modules[kernel.__module__]
+    mod._FORM = form
+    try:
+        return kernel(*args)
+    finally:
+        mod._FORM = 0
+
+
 def _same_bits(a, b):
     return a.shape == b.shape and bool((a.view(torch.int64)
                                         == b.view(torch.int64)).all())
+
+
+# (nD, C) at p = 64, the fem3d Q3 element: the main system's top level
+# (5, 128) and the phase-I system's (8, 192), which one element's slabs
+# cannot hold in shared memory together (the wide forms); and at nD = 5
+# the last C each element-staged form takes and the first it does not:
+# K1's element-group form holds 5 slabs of 64 x C and C gathered values
+# up to C = 90, K4's fused form its panels, factors and work up to C = 82
+FEM3D = [(5, 128), (8, 192)]
+K1_EDGE = [(5, 90), (5, 91)]
+K4_EDGE = [(5, 82), (5, 83)]
+
+
+@pytest.mark.parametrize("nD,C", FEM3D + K1_EDGE)
+def test_panel_fwd_fem3d_shapes(dev, nD, C):
+    """K1 at the Q3 element's p = 64 against its plain version, by shape
+    (one count a call, repeat calls bitwise); where the element-group form
+    takes the shape, the wide form gives its bits, and where it does not,
+    it refuses the launch."""
+    rng = np.random.default_rng(nD * 1000 + C)
+    panels, cols, _, n_J = _panels(rng, dev, nD=nD, N=9, p=64, C=C, n_J=700)
+    N, p = panels.shape[1], panels.shape[2]
+    s = torch.as_tensor(rng.standard_normal(n_J), device=dev)
+    dz0 = torch.as_tensor(rng.standard_normal((N * p, nD)), device=dev)
+    before = K.panel_fwd.launches
+    out = K.panel_fwd(panels, cols, s, dz0)
+    assert _rel(out, K.panel_fwd_plain(panels, cols, s, dz0)) <= TOL
+    assert _same_bits(out, K.panel_fwd(panels, cols, s, dz0))
+    assert K.panel_fwd.launches == before + 2
+    args = (panels, cols, s, dz0)
+    wide = _in_form(K.panel_fwd, WIDE, *args)
+    if C <= 90:
+        assert _same_bits(wide, _in_form(K.panel_fwd, STAGED, *args))
+    else:
+        assert _same_bits(wide, out)
+        with pytest.raises(RuntimeError, match="panel_fwd launch failed"):
+            _in_form(K.panel_fwd, STAGED, *args)
+
+
+@pytest.mark.parametrize("p,nD,C", [(7, 4, 13), (3, 11, 14), (64, 12, 30)])
+def test_panel_fwd_forms_agree(dev, p, nD, C):
+    """The wide form gives the element-group form's bits wherever both
+    take the shape: the P2 element's, the widest phase-I rows, and
+    p*nD = 768 threads, Dz0 absent and given."""
+    rng = np.random.default_rng(p * nD + C)
+    panels, cols, _, n_J = _panels(rng, dev, nD=nD, N=11, p=p, C=C)
+    s = torch.as_tensor(rng.standard_normal(n_J), device=dev)
+    dz0 = torch.as_tensor(rng.standard_normal((11 * p, nD)), device=dev)
+    for d in (None, dz0):
+        assert _same_bits(_in_form(K.panel_fwd, WIDE, panels, cols, s, d),
+                          _in_form(K.panel_fwd, STAGED, panels, cols, s, d))
 
 
 # (n_J, N): coarse levels, each element touching half to all of the n_J
@@ -145,6 +214,51 @@ def test_gram_matvec(dev, nD, coarse, p):
     assert _rel(out, K.gram_matvec_plain(panels, cols, inv, Ln, v)) <= TOL
     assert _same_bits(out, K.gram_matvec(panels, cols, inv, Ln, v))
     assert K.gram_matvec.launches == before + 2
+
+
+def _gram_inputs(rng, dev, nD, C, N=9, p=64, n_J=700):
+    panels, cols, inv, n_J = _panels(rng, dev, nD=nD, N=N, p=p, C=C,
+                                     n_J=n_J)
+    Ln = torch.as_tensor(np.tril(rng.standard_normal((N * p, nD, nD))),
+                         device=dev)
+    v = torch.as_tensor(rng.standard_normal(n_J), device=dev)
+    return panels, cols, inv, Ln, v
+
+
+@pytest.mark.parametrize("nD,C", FEM3D + K4_EDGE)
+def test_gram_matvec_fem3d_shapes(dev, nD, C):
+    """K4 at the Q3 element's p = 64 against its plain version, by shape
+    (one count a call, repeat calls bitwise); where the fused form takes
+    the shape, the wide form gives its bits, and where it does not, it
+    refuses the launch."""
+    rng = np.random.default_rng(nD * 1000 + C + 1)
+    args = _gram_inputs(rng, dev, nD, C)
+    before = K.gram_matvec.launches
+    out = K.gram_matvec(*args)
+    assert _rel(out, K.gram_matvec_plain(*args)) <= TOL
+    assert _same_bits(out, K.gram_matvec(*args))
+    assert K.gram_matvec.launches == before + 2
+    wide = _in_form(K.gram_matvec, WIDE, *args)
+    if C <= 82:
+        assert _same_bits(wide, _in_form(K.gram_matvec, STAGED, *args))
+    else:
+        assert _same_bits(wide, out)
+        with pytest.raises(RuntimeError, match="gram_matvec launch failed"):
+            _in_form(K.gram_matvec, STAGED, *args)
+
+
+@pytest.mark.parametrize("p,nD,C", [(7, 4, 13), (3, 11, 14), (64, 12, 20),
+                                    (64, 13, 10)])
+def test_gram_matvec_forms_agree(dev, p, nD, C):
+    """The wide form gives the fused form's bits wherever both take the
+    shape: the P2 element (the fused form's p = 7 instance), the widest
+    phase-I rows, and at p = 64 with nD = 12 and 13 (three and four Pv
+    sums a thread, the node factors too large for the wide form's usual
+    budget)."""
+    rng = np.random.default_rng(p * nD + C + 2)
+    args = _gram_inputs(rng, dev, nD, C, N=11, p=p, n_J=101)
+    assert _same_bits(_in_form(K.gram_matvec, WIDE, *args),
+                      _in_form(K.gram_matvec, STAGED, *args))
 
 
 # nz -> (nD, idx, m): the main path's cone (nz = 3 over rows 1..3 of 4),
@@ -498,6 +612,59 @@ def test_front_factor_bad_pivot_in_second_panel(dev):
         assert torch.isnan(out[1]).all()
         assert torch.isfinite(out[[0, 2]]).all()
         assert _rel(out[[0, 2]], ref[[0, 2]]) <= TOL
+
+
+# (nk, amax, bmax): the seven tree levels of the fem3d Q3 L=4 plan, leaf
+# (f = 855, past the one-panel form's 790) to root, nk cut to 4 (the
+# shapes matter, not the batch); a front at the one-panel form's last f
+# and its first wide one; f = 2,400, as wide as the L=5 plan's fronts
+FEM3D_FRONTS = [(4, 637, 218), (4, 55, 403), (4, 25, 313), (4, 121, 397),
+                (4, 121, 529), (2, 253, 529), (1, 529, 0), (2, 700, 90),
+                (2, 700, 91), (2, 1600, 800)]
+
+
+@pytest.mark.parametrize("nk,a,b", FEM3D_FRONTS)
+def test_front_factor_wide_fronts(dev, nk, a, b):
+    """K5a on the fem3d fronts against its plain version (1e-12 relative:
+    at f = 2,400 each entry sums up to 2,400 products), front 1 not
+    positive definite where there is one (all NaN), repeat calls bitwise;
+    the wide form gives the one-panel form's bits where both take the
+    front, and the one-panel form refuses the others."""
+    rng = np.random.default_rng(a * 7 + b)
+    F = _fronts(rng, nk, a, b)
+    if nk > 1:
+        F[1, a - 3, a - 3] = -1e3                 # in the last panel
+    F = torch.as_tensor(F, device=dev)
+    outs = K.front_factor(F, a, b)
+    for out, ref in zip(outs, K.front_factor_plain(F, a, b)):
+        assert _rel(out, ref) <= 1e-12
+        if nk > 1:
+            assert torch.isnan(out[1]).all()
+    for out, again in zip(outs, K.front_factor(F, a, b)):
+        assert _same_bits(out, again)
+    wide = _in_form(K.front_factor, WIDE, F, a, b)
+    if a + b <= 790:
+        for x, y in zip(wide, _in_form(K.front_factor, STAGED, F, a, b)):
+            assert _same_bits(x, y)
+    else:
+        for x, y in zip(wide, outs):
+            assert _same_bits(x, y)
+        with pytest.raises(RuntimeError, match="front_factor launch failed"):
+            _in_form(K.front_factor, STAGED, F, a, b)
+
+
+@pytest.mark.parametrize("nk,a,b", [(64, 73, 16), (3, 33, 20), (5, 40, 0),
+                                    (4, 91, 190)])
+def test_front_factor_forms_agree(dev, nk, a, b):
+    """The wide form gives the one-panel form's bits on the fem2d_P2
+    fronts, with a bad front in the batch."""
+    rng = np.random.default_rng(a + 2 * b)
+    F = _fronts(rng, nk, a, b)
+    F[nk // 2, a // 2, a // 2] = -1e3
+    F = torch.as_tensor(F, device=dev)
+    for x, y in zip(_in_form(K.front_factor, WIDE, F, a, b),
+                    _in_form(K.front_factor, STAGED, F, a, b)):
+        assert _same_bits(x, y)
 
 
 def _sweep(rng, dev, nk, a, b):

@@ -107,5 +107,10 @@ def test_interop_defaults_to_the_card():
 
 
 def test_other_discretizations_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mgbtpu_torch.amg(mgbtpu.fem2d_P1())
+    """The spectral discretizations are not ported: amg, geometric_mg and
+    find_boundary refuse them, naming the ROADMAP item."""
+    for geom in (mgbtpu.spectral1d(n=4), mgbtpu.spectral2d(n=4)):
+        for fn in (mgbtpu_torch.amg, mgbtpu_torch.find_boundary,
+                   lambda g: mgbtpu_torch.geometric_mg(g, 2)):
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+                fn(geom)
