@@ -47,7 +47,22 @@ wide forms run, and K5a on every tree level of its nested dissection
 library composition); then fem3d k=3 p=1 solves at L=3 and at that level
 (the slice's path: K1-K5 must launch; launches, Newton and CG counts,
 host syncs and wall printed), fem2d_P1 p=1 at L=5 and the fem1d golden
-vector of ``tests/test_golden.py`` (to 1e-6). Each ``--level L`` then holds K1, K2
+vector of ``tests/test_golden.py`` (to 1e-6); K5b's fused level calls
+and a whole ``nd_solve`` on the fem3d plan's factors, timed. Then the
+spectral slice, at spectral2d n=32 (one element of 1,024 nodes, every
+level dense): K1 and K3 in their spread forms (the C entries' choice is
+printed and must be the spread form) against their plain versions and
+timed at its top level (nD = 4, C = 1,924) and at parabolic_solve's
+phase-I rows there (nD = 9), beside one ``torch.addmv``/``torch.mv`` on
+the element's dense panel view; K2 and K6 at those 1,024 nodes, bitwise;
+then the spectral solves: spectral2d n=32 p=1 (the slice's path: K1, K2
+and K3 must launch, K4 and K5 must not), spectral1d n=128, the golden
+spectral1d n=5 and spectral2d n=5 cases and parabolic_solve on
+spectral1d and spectral2d n=4 (h=0.5), each held to its stored x64
+record and the golden ones to their ``tests/test_golden.py`` vectors
+(to 1e-6), each printing one ``assemble_dense`` and one
+``equilibrated_solve`` at its top level (device ms; the einsum's peak
+memory). Each ``--level L`` then holds K1, K2
 and K6 against their plain versions and times them at level L's top-level
 shapes (K6 on the obstacle table and parabolic_solve's pair on random rows,
 bitwise in all six calls, timed on the obstacle's Hessian and the pair's
@@ -60,7 +75,8 @@ steps but the last within 5 %, the last, an exact-stopping polish decided
 at the objective's roundoff floor, within +-4; phase I within 5 %; for
 fem2d_P1 the steps but the last within 5 %, the last within 7 of x64's:
 a trace on the card counted 7 iterations of its polish at the roundoff
-floor, ROADMAP Queue 3); and the
+floor, ROADMAP Queue 3; for the golden spectral n=5 cases the steps but
+the last within 5 %, the last within +-4); and the
 zoo's behavioural checks (obstacles respected, |grad u| <= smax, s^2 >=
 |grad u|^2 + 1). Prints one JSON line of kernel records, then ``{"ok":
 true, "device": {...}}`` as the last line. Exits non-zero, before that
@@ -233,10 +249,24 @@ def csr_of_panels(ops, transpose=False):
                                    shape).coalesce().to_sparse_csr()
 
 
+def forms(ops, K, tag):
+    """The forms K1's and K3's C entries take at a level's shapes (K1: 1
+    element-group, 2 wide, 3 spread; K3's phase A: 1 staged, 3 spread)."""
+    fwd = sys.modules[K.panel_fwd.__module__].form
+    adj = sys.modules[K.panel_adj.__module__].form
+    shape = ops.panels.shape
+    out = (fwd(*shape), adj(*shape))
+    print(f"[form] {tag} (nD, N, p, C) = {tuple(shape)}: panel_fwd form "
+          f"{out[0]}, panel_adj form {out[1]}")
+    return out
+
+
 def panel_fwd_phase(ops, torch, K, rng, tag):
     """K1 at a level's shapes (``ops``) against its plain version (the
-    repeat call bitwise), timed against its plain version and
-    ``torch.addmv`` on G in CSR. Returns its record."""
+    repeat call bitwise), timed against its plain version and one library
+    call: ``torch.addmv`` on G in CSR, or on one element's dense (nD*p, C)
+    panel view (N = 1) with the gathered s[cols[0]] and Dz0 in its (k, q)
+    order. Returns its record."""
     dev = torch.device("cuda")
     nD, N, p, C = ops.panels.shape
     n_J, m = ops.n_J, ops.N * ops.p
@@ -248,14 +278,26 @@ def panel_fwd_phase(ops, torch, K, rng, tag):
     s = t(rng.standard_normal(n_J))
     dz0 = t(rng.standard_normal((m, nD)))
     out = K.panel_fwd(ops.panels, ops.cols, s, dz0)
-    err = compare(f"panel_fwd {tag}", out,
-                  K.panel_fwd_plain(ops.panels, ops.cols, s, dz0))
+    ref = K.panel_fwd_plain(ops.panels, ops.cols, s, dz0)
+    err = compare(f"panel_fwd {tag}", out, ref)
     same_bits(f"panel_fwd {tag}", out,
               K.panel_fwd(ops.panels, ops.cols, s, dz0))
-    G = csr_of_panels(ops)
-    dzf = dz0.reshape(-1)
-    compare(f"panel_fwd {tag} library", torch.addmv(dzf, G, s).reshape(m, nD),
-            K.panel_fwd_plain(ops.panels, ops.cols, s, dz0))
+    if N == 1:
+        P, c0 = ops.panels.reshape(nD * p, C), ops.cols[0]
+        dzf = dz0.t().contiguous().reshape(-1)
+
+        def library():
+            return torch.addmv(dzf, P, s[c0])
+
+        lib_out = library().reshape(nD, p).t()
+    else:
+        G, dzf = csr_of_panels(ops), dz0.reshape(-1)
+
+        def library():
+            return torch.addmv(dzf, G, s)
+
+        lib_out = library().reshape(m, nD)
+    compare(f"panel_fwd {tag} library", lib_out, ref)
     b, o = bound_ms(f8 * (nD * N * p * C + N * C + n_J + 2 * m * nD),
                     2 * nD * m * C + m * nD)
     rec = dict(
@@ -265,9 +307,53 @@ def panel_fwd_phase(ops, torch, K, rng, tag):
             f"panel_fwd {tag}",
             lambda: K.panel_fwd(ops.panels, ops.cols, s, dz0),
             lambda: K.panel_fwd_plain(ops.panels, ops.cols, s, dz0),
-            lambda: torch.addmv(dzf, G, s)))
+            library))
     print(f"[bound] panel_fwd {tag}: {b!r} ms ({o})")
     return rec
+
+
+def panel_adj_phase(lv, torch, K, rng, tag):
+    """K3 at a level's shapes (``lv``) against its plain version (the
+    repeat call bitwise), timed against its plain version and one library
+    call: ``torch.mv`` on G' in CSR, or on one element's dense (nD*p, C)
+    panel view transposed (N = 1) with Y in its (k, q) order (the per-slot
+    sums; their scatter into n_J is left out). Returns (max abs error, its
+    timing row with the bound)."""
+    dev = torch.device("cuda")
+    nD, N, p, C = lv.panels.shape
+    m = N * p
+    Y = torch.as_tensor(rng.standard_normal((m, nD)), dtype=torch.float64,
+                        device=dev)
+    print(f"[shapes] panel_adj {tag}: n_J={lv.n_J} C={C} K={lv.inv.shape[1]}")
+    args = (lv.panels, lv.cols, lv.inv, Y, lv.n_J)
+    out = K.panel_adj(*args)
+    ref = K.panel_adj_plain(*args)
+    err = compare(f"panel_adj {tag}", out, ref)
+    same_bits(f"panel_adj {tag}", out, K.panel_adj(*args))
+    if N == 1:
+        PT, c0 = lv.panels.reshape(nD * p, C).t(), lv.cols[0]
+        Yf = Y.t().contiguous().reshape(-1)
+
+        def library():
+            return torch.mv(PT, Yf)
+
+        lib_out = torch.zeros(lv.n_J, dtype=torch.float64,
+                              device=dev).index_add_(0, c0, library())
+    else:
+        GT, Yf = csr_of_panels(lv, transpose=True), Y.reshape(-1)
+
+        def library():
+            return torch.mv(GT, Yf)
+
+        lib_out = library()
+    compare(f"panel_adj {tag} library", lib_out, ref)
+    b, o = bound_ms(8 * (nD * N * p * C + N * C + m * nD + lv.n_J),
+                    2 * nD * m * C)
+    row = dict(bound_ms=b, bound_by=o, **timings(
+        f"panel_adj {tag}", lambda: K.panel_adj(*args),
+        lambda: K.panel_adj_plain(*args), library))
+    print(f"[bound] panel_adj {tag}: {b!r} ms ({o})")
+    return err, row
 
 
 def fwd_cone_phases(prob, ops, torch, K, rng, tag):
@@ -350,7 +436,7 @@ def level_phases(mg, prob, L, torch, K):
     top-level shapes."""
     ops = top_level_ops(prob.M[0], f"L={L}", torch)
     fwd_cone_phases(prob, ops, torch, K, np.random.default_rng(L), f"L={L}")
-    node_barrier_level(mg, prob, L, torch, K)
+    node_barrier_level(mg, prob, f"L={L}", 100 + L, torch, K)
     torch.cuda.synchronize()
 
 
@@ -361,37 +447,16 @@ def kernel_phases(prob, torch, K):
     dev = torch.device("cuda")
     M = prob.M[0]
     ops = top_level_ops(prob.M[0], "L=5", torch)
-    nD, N, p, C = ops.panels.shape
-    n_J, m = ops.n_J, ops.N * ops.p
     rng = np.random.default_rng(1234)
-
-    def t(a):
-        return torch.as_tensor(a, dtype=torch.float64, device=dev)
-
     records = list(fwd_cone_phases(prob, ops, torch, K, rng, "L=5"))
-    f8 = 8
 
     # K3 panel_adj: the top level (the record) and the coarsest level
     ops0 = build_panel_ops(M.D_fine, M.nu, M.R_fine[0],
                            M.geometry.x.shape[0], dev)
     errs, rows = [], {}
     for tag, lv in (("top level", ops), ("coarsest level", ops0)):
-        Yl = t(rng.standard_normal((m, nD)))
-        K_ = lv.inv.shape[1]
-        print(f"[shapes] panel_adj {tag}: n_J={lv.n_J} C={lv.C} K={K_}")
-        args = (lv.panels, lv.cols, lv.inv, Yl, lv.n_J)
-        out = K.panel_adj(*args)
-        errs.append(compare(f"panel_adj {tag}", out, K.panel_adj_plain(*args)))
-        same_bits(f"panel_adj {tag}", out, K.panel_adj(*args))
-        GT, Yf = csr_of_panels(lv, transpose=True), Yl.reshape(-1)
-        compare(f"panel_adj {tag} library", torch.mv(GT, Yf),
-                K.panel_adj_plain(*args))
-        b, o = bound_ms(f8 * (nD * N * p * lv.C + N * lv.C + m * nD
-                              + lv.n_J), 2 * nD * m * lv.C)
-        rows[tag] = dict(bound_ms=b, bound_by=o, **timings(
-            f"panel_adj {tag}", lambda: K.panel_adj(*args),
-            lambda: K.panel_adj_plain(*args), lambda: torch.mv(GT, Yf)))
-        print(f"[bound] panel_adj {tag}: {b!r} ms ({o})")
+        err, rows[tag] = panel_adj_phase(lv, torch, K, rng, tag)
+        errs.append(err)
     records.append(dict(
         name="panel_adj", source="mgbtpu_torch/kernels/csrc/panel_adj.cu",
         replaces="mgbtpu/ops/pallas_dd.py:228", max_abs_err=max(errs),
@@ -839,17 +904,18 @@ def node_barrier_phases(tables, torch, K):
                 **rows[("parabolic", "co mode 2")])
 
 
-def node_barrier_level(mg, prob, L, torch, K):
-    """K6 at level L's top-level shapes on random rows: the obstacle table
-    and parabolic_solve's pair, each bitwise against its plain version in
-    all six calls of ``k6_calls``; timed on the obstacle's Hessian (mode
-    2) and the pair's phase-I Hessian (co mode 2)."""
+def node_barrier_level(mg, prob, tag, seed, torch, K):
+    """K6 at a 2D level's top-level shapes (``tag``) on random rows: the
+    obstacle table and parabolic_solve's pair, each bitwise against its
+    plain version in all six calls of ``k6_calls``; timed on the
+    obstacle's Hessian (mode 2) and the pair's phase-I Hessian (co mode
+    2)."""
     import mgbtpu_torch.solver.parabolic as P
     from mgbtpu_torch import intersect
     from mgbtpu_torch.convex import convex_euclidian_power, convex_linear
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(100 + L)
+    rng = np.random.default_rng(seed)
     M = prob.M[0]
     m, w = M.n_nodes, np.asarray(M.w, np.float64)
     obstacle = intersect(
@@ -867,8 +933,8 @@ def node_barrier_level(mg, prob, L, torch, K):
              "co mode 2")):
         Dz = torch.as_tensor(rows, dtype=torch.float64, device=dev)
         calls = k6_calls(Q, Dz, nu, w, torch, K, rng)
-        errs.append(k6_check(f"L={L} {name}", calls, K))
-        k6_time(f"L={L} {name} {label}", calls[label], K)
+        errs.append(k6_check(f"{tag} {name}", calls, K))
+        k6_time(f"{tag} {name} {label}", calls[label], K)
     torch.cuda.synchronize()
     return max(errs)
 
@@ -899,10 +965,11 @@ def parabolic_systems(mg):
     import mgbtpu_torch.solver.parabolic as P
     from mgbtpu_torch import prepare_amg
 
-    sp = mg.geometry.discretization.default_slack_space()
+    disc = mg.geometry.discretization
+    sp = disc.default_slack_space()
     return prepare_amg(mg, state_variables=[("u", "dirichlet"), ("s1", sp),
                                             ("s2", sp)],
-                       D=P.default_D_parabolic(2))
+                       D=P.default_D_parabolic(disc.dim))
 
 
 def phase1_systems(mg5):
@@ -1132,11 +1199,11 @@ def check_totals(tag, sol, ref, polish_its=None):
 
 
 def timed_setup(tag, build):
-    """build() (a problem's subdivide + amg + assemble), its seconds
+    """build() (a problem's geometry, amg and assemble), its seconds
     printed."""
     t0 = time.time()
     prob = build()
-    print(f"[setup] {tag}: subdivide + amg + assemble {time.time() - t0!r} s")
+    print(f"[setup] {tag}: geometry + amg + assemble {time.time() - t0!r} s")
     return prob
 
 
@@ -1145,9 +1212,9 @@ def p_laplace_solve(tag, prob, torch, K, smi, need, ref=None,
     """One p=1 ``mgb_solve`` of ``prob`` on the card, with
     the launch counters set to 0 just before it and read just after:
     prints its wall, counts, host syncs and launches, requires the kernels
-    ``need`` to have launched, and holds it to the x64 record in the file
-    ``ref`` (under ``mgbtpu_torch/data``) where given (``check_totals``).
-    Returns the solution and the launches."""
+    ``need`` to have launched, and holds it to the x64 record ``ref`` where
+    given (``check_totals``): a file under ``mgbtpu_torch/data``, or a
+    record (``ref_record``). Returns the solution and the launches."""
     from mgbtpu_torch import mgb_solve
     from mgbtpu_torch.solver.newton import SYNCS
 
@@ -1159,19 +1226,22 @@ def p_laplace_solve(tag, prob, torch, K, smi, need, ref=None,
           f"{smi}): {la}; power_cone by mode 0/1/2: "
           f"{K.power_cone_eval.mode_launches}")
     require_launches(tag, la, need)
+    if isinstance(ref, str):
+        ref = np.load(os.path.join(DATA, ref))
     if ref is not None:
-        check_totals(tag, sol, np.load(os.path.join(DATA, ref)),
-                     polish_its)
+        check_totals(tag, sol, ref, polish_its)
     return sol, la
 
 
 def fem3d_kernel_phases(prob, L, torch, K):
-    """K1, K4 and K5a at the fem3d k=3 (Q3, p = 64) level-L shapes, where
-    the wide forms take them: K1 and K4 against their plain versions and
-    timed on the top level of the main system (nD = 5) and of the phase-I
-    system (nD = 8); K5a on every tree level of the top level's nested
-    dissection (seeded SPD element blocks), one ``nd_factor``'s worth
-    timed. Returns their records (launches to be filled in)."""
+    """K1, K4, K5a and K5b at the fem3d k=3 (Q3, p = 64) level-L shapes,
+    where the wide forms take them: K1 and K4 against their plain versions
+    and timed on the top level of the main system (nD = 5) and of the
+    phase-I system (nD = 8); K5a on every tree level of the top level's
+    nested dissection (seeded SPD element blocks), one ``nd_factor``'s
+    worth timed; K5b (``solve_phases``) on those factors, one
+    ``nd_solve``'s worth timed. Returns their records (launches to be
+    filled in)."""
     from mgbtpu_torch.solver.mgb import ProblemKernels, nd_plan
 
     tag = f"fem3d L={L}"
@@ -1189,13 +1259,15 @@ def fem3d_kernel_phases(prob, L, torch, K):
     nd = nd_plan(prob.M[0], ops, ProblemKernels.ND_LEAF_ELEMS,
                  torch.device("cuda"))
     print(f"[setup] {tag} ND plan {time.time() - t0!r} s")
-    levels, _ = recorded_fronts(nd, ops.N, ops.C, torch, K, rng)
+    levels, fact = recorded_fronts(nd, ops.N, ops.C, torch, K, rng)
     err5, row5 = factor_levels_phase(tag, levels, torch, K, reps=10,
                                      plain_reps=5)
+    k5b = solve_phases(nd, fact, torch, K, rng)
     torch.cuda.synchronize()
     name = f" (fem3d k=3 L={L})"
     k1["name"] += name
-    return [k1, dict(
+    k5b["name"] += name
+    return [k1, k5b, dict(
         name="gram_matvec" + name,
         source="mgbtpu_torch/kernels/csrc/gram_matvec.cu",
         replaces="mgbtpu/ops/pallas_dd.py:142", max_abs_err=err4, **row4),
@@ -1237,11 +1309,176 @@ def slice7_solves(prob3d, L3d, torch, K, smi):
         "fem1d golden", assemble(amg(fem1d(nodes=np.linspace(-1, 1, 3))),
                                  p=1.0, device="cuda"),
         torch, K, smi, ["panel_fwd", "power_cone", "panel_adj"])
-    gerr = float(np.linalg.norm(sol.z - gold))
-    print(f"[reference] fem1d golden: |z - z_gold| = {gerr!r}")
-    if not gerr < 1e-6:
-        raise RuntimeError(f"fem1d golden: error {gerr}")
+    golden_check("fem1d golden", sol.z, gold)
     return la
+
+
+SPECTRAL_REF = "ref_spectral.npz"
+ND_ONLY = ("gram_matvec", "front_factor", "front_solve")  # ND-CG levels
+
+
+def spectral_problem(kind, n):
+    """``amg(<kind>(n=n))`` and its p=1 problem on the card."""
+    import mgbtpu_torch
+    from mgbtpu_torch import amg, assemble
+
+    mg = amg(getattr(mgbtpu_torch, kind)(n=n))
+    return mg, assemble(mg, p=1.0, device="cuda")
+
+
+def spectral_kernel_phases(mg, prob, torch, K):
+    """K1 and K3 at the spectral2d n=32 top level (one element of 1,024
+    nodes: nD = 4, C = 1,924) and at parabolic_solve's phase-I rows there
+    (nD = 9), where their spread forms run: against their plain versions
+    (max relative error, non-finite patterns, a repeat call bitwise) and
+    timed beside their bound, their plain versions and one library call
+    on the element's dense panel view; K2 (every mode, bitwise) and K6
+    (the obstacle table and the parabolic pair, every mode and the
+    cobarrier form, bitwise) at those 1,024 nodes. Returns K1's and K3's
+    records (launches to be filled in)."""
+    tag = "spectral2d n=32"
+    rng = np.random.default_rng(3200)
+    ops = top_level_ops(prob.M[0], tag, torch)
+    if forms(ops, K, tag) != (3, 3):
+        raise RuntimeError(f"{tag}: K1/K3 not in their spread forms")
+    k1, _ = fwd_cone_phases(prob, ops, torch, K, rng, tag)
+    err3, row3 = panel_adj_phase(ops, torch, K, rng, tag)
+    del ops
+    tag1 = f"{tag} parabolic phase I"
+    ops1 = top_level_ops(parabolic_systems(mg)[1], tag1, torch)
+    if forms(ops1, K, tag1) != (3, 3):
+        raise RuntimeError(f"{tag1}: K1/K3 not in their spread forms")
+    err1 = panel_fwd_phase(ops1, torch, K, rng, tag1)["max_abs_err"]
+    err3 = max(err3, panel_adj_phase(ops1, torch, K, rng, tag1)[0])
+    del ops1
+    node_barrier_level(mg, prob, tag, 3201, torch, K)
+    torch.cuda.synchronize()
+    name = f" ({tag})"
+    k1["name"] += name
+    k1["max_abs_err"] = max(k1["max_abs_err"], err1)
+    return [k1, dict(name="panel_adj" + name,
+                     source="mgbtpu_torch/kernels/csrc/panel_adj.cu",
+                     replaces="mgbtpu/ops/pallas_dd.py:228",
+                     max_abs_err=err3, **row3)]
+
+
+def dense_times(tag, M, torch):
+    """One ``assemble_dense`` and one ``equilibrated_solve`` (the dense
+    level's Newton system: LU and two refinement sweeps) at the top level
+    of system M, on the panel plan its solve built: device ms per call on
+    seeded SPD node blocks, the assembly's peak memory above its inputs,
+    and how ``torch.einsum`` picks its contraction order."""
+    from mgbtpu_torch.solver.newton import equilibrated_solve
+
+    dev = torch.device("cuda")
+    kern = next(iter(M._torch_kernel_cache.values()))
+    ops = kern.ops(M.depth - 1)
+    rng = np.random.default_rng(7)
+    B = torch.as_tensor(rng.standard_normal((ops.n_nodes, ops.nD, ops.nD)),
+                        device=dev)
+    Y = B @ B.transpose(1, 2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    H = ops.assemble_dense(Y)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    H = H + torch.diag(H.diagonal().abs() + 1.0)
+    g = torch.as_tensor(rng.standard_normal(ops.n_J), device=dev)
+    a_ms, a_hid = device_ms(lambda: ops.assemble_dense(Y), reps=10)
+    s_ms, s_hid = device_ms(lambda: equilibrated_solve(H, g), reps=10)
+    oe = torch.backends.opt_einsum
+    print(f"[time] {tag} top level (n_J={ops.n_J}, N={ops.N}, p={ops.p}, "
+          f"nD={ops.nD}): assemble_dense {a_ms!r} ms, equilibrated_solve "
+          f"{s_ms!r} ms (device ms per call"
+          + ("" if a_hid and s_hid else "; host not hidden: upper bounds")
+          + f"); the assembly's peak memory {extra} bytes above its inputs "
+          f"(H: {8 * ops.n_J ** 2}, one (N, p, C, nD) intermediate: "
+          f"{8 * ops.N * ops.p * ops.C * ops.nD}); torch.einsum path: "
+          f"opt_einsum available {oe.is_available()}, enabled "
+          f"{oe.enabled}, strategy {oe.strategy!r}")
+
+
+def no_mesh_kernels(tag, la):
+    """A solve of dense levels only (one element a level) launches no
+    kernel of the ND-CG levels."""
+    bad = [n for n in ND_ONLY if la[n]]
+    if bad:
+        raise RuntimeError(f"{tag}: launched {bad} on dense levels")
+
+
+def spectral_solves(prob32, torch, K, smi):
+    """The spectral slice's solves on the card: spectral2d n=32 p=1 (the
+    slice's path: K1, K2 and K3 must launch, K4 and K5 must not) and
+    spectral1d n=128, each held to its x64 record (``check_totals``), and
+    the golden cases of ``tests/test_golden.py``: spectral1d n=5 and
+    spectral2d n=5 (the last ramp step, their roundoff-floor polish,
+    within FLOOR_ITS), and parabolic_solve on spectral1d n=4 and
+    spectral2d n=4 (h=0.5; each step by ``check_record``), each within
+    1e-6 of its golden vector. Each prints its wall, counts, host syncs
+    and launches, and the dense level's assembly and solve times at its
+    top level. Returns the n=32 solve's launches."""
+    import mgbtpu_torch.solver.parabolic as P
+    from mgbtpu_torch.solver.newton import SYNCS
+
+    need = ["panel_fwd", "power_cone", "panel_adj"]
+    _, la32 = p_laplace_solve("spectral2d n=32", prob32, torch, K, smi, need,
+                              "ref_spectral2d_n32.npz")
+    no_mesh_kernels("spectral2d n=32", la32)
+    dense_times("spectral2d n=32", prob32.M[0], torch)
+    for kind, n, polish in (("spectral1d", 128, None),
+                            ("spectral1d", 5, FLOOR_ITS),
+                            ("spectral2d", 5, FLOOR_ITS)):
+        tag = f"{kind} n={n}"
+        _, prob = timed_setup(tag, lambda: spectral_problem(kind, n))
+        ref = ref_record(SPECTRAL_REF, f"{kind}_n{n}")
+        sol, la = p_laplace_solve(tag, prob, torch, K, smi, need, ref,
+                                  polish)
+        no_mesh_kernels(tag, la)
+        dense_times(tag, prob.M[0], torch)
+        if "gold" in ref:
+            golden_check(tag, sol.z, ref["gold"])
+    for kind in ("spectral1d", "spectral2d"):
+        tag = f"parabolic_solve {kind} n=4 h=0.5"
+        mg, _ = spectral_problem(kind, 4)
+        ref = ref_record(SPECTRAL_REF, f"parabolic_{kind}_n4")
+        steps, mgb = [], P.mgb_solve
+
+        def recording(prob, **kw):
+            steps.append(mgb(prob, **kw))
+            return steps[-1]
+
+        P.mgb_solve = recording     # records each implicit step's solve
+        SYNCS["n"] = 0
+        try:
+            secs, psol, la, co = counted(torch, K, lambda: P.parabolic_solve(
+                mg, h=0.5, p=1.0, device="cuda"))
+        finally:
+            P.mgb_solve = mgb
+        print(f"[solve] {tag} ({len(steps)} steps) wall {secs!r} s on {smi};"
+              f" host syncs {SYNCS['n']}; launches {la}, K6 in cobarrier "
+              f"form {co}")
+        require_launches(tag, la, ["panel_fwd", "panel_adj", "node_barrier"])
+        no_mesh_kernels(tag, la)
+        if co == 0:
+            raise RuntimeError(f"{tag}: no phase-I K6 launch")
+        for j, s in enumerate(steps, 1):
+            report(f"{tag} step {j} main ramp", None, s, "n/a")
+            check_record(f"{tag} step {j}", s, ref_record(
+                SPECTRAL_REF, f"parabolic_{kind}_n4/step{j}"))
+        dense_times(tag, parabolic_systems(mg)[0], torch)
+        golden_check(tag, np.stack(psol.u), ref["gold"])
+    return la32
+
+
+def golden_check(tag, got, gold):
+    """``tests/test_golden.py``'s bar: the 2-norm of the difference from
+    the golden vector below 1e-6."""
+    gerr = float(np.linalg.norm(got - gold))
+    print(f"[reference] {tag}: |z - z_gold| = {gerr!r} (golden vector of "
+          f"tests/test_golden.py)")
+    if not gerr < 1e-6:
+        raise RuntimeError(f"{tag}: golden error {gerr}")
 
 
 def main(argv=None) -> int:
@@ -1255,6 +1492,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one L=5 solve (torch.profiler)")
     args = ap.parse_args(argv)
+    t_start = time.time()
 
     import torch
 
@@ -1314,6 +1552,15 @@ def main(argv=None) -> int:
     for r in wide:
         r["launches"] = launches3d[r["name"].split()[0]]
     records += wide
+    del prob3d
+
+    mg32, prob32 = timed_setup("spectral2d n=32",
+                               lambda: spectral_problem("spectral2d", 32))
+    spread = spectral_kernel_phases(mg32, prob32, torch, K)
+    launches32 = spectral_solves(prob32, torch, K, smi)
+    for r in spread:
+        r["launches"] = launches32[r["name"].split()[0]]
+    records += spread
 
     for L in args.level:
         mgL, probL, run_L = solve(L, torch)
@@ -1324,6 +1571,7 @@ def main(argv=None) -> int:
               f"mode 0/1/2: {K.power_cone_eval.mode_launches}")
     if args.profile:
         profile(run, s2)
+    print(f"[time] chip_smoke: {time.time() - t_start!r} s in all")
 
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",

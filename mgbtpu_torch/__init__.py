@@ -3,7 +3,8 @@
 A second package beside the JAX one, in float64 throughout, with the same
 layout and names: ``subdivide(geometry, L)`` -> ``amg`` -> ``assemble`` ->
 ``mgb_solve`` on the tensor-product Q_k elements (``fem1d``, ``fem2d``,
-``fem3d``) and the P1/P2 triangles (``fem2d_P1``, ``fem2d_P2``), plus
+``fem3d``), the P1/P2 triangles (``fem2d_P1``, ``fem2d_P2``) and the
+Chebyshev spectral elements (``spectral1d``, ``spectral2d``), plus
 ``parabolic_solve`` and the ``zoo`` problems over the power cone, linear,
 piecewise and intersected convex sets. The level
 operators and the per-node barriers run through hand-written CUDA kernels
@@ -14,25 +15,30 @@ runs the plain PyTorch versions instead. Imports neither JAX nor
 from .convex import (Convex, convex_euclidian_power, convex_Euclidian_power,
                      convex_linear, convex_piecewise, intersect)
 from .discretize import (Geometry, fem1d, fem2d, fem2d_P1, fem2d_P2, fem3d,
-                         tensor_dofmap)
-from .hierarchy import (MultiGrid, amg, amg_ruge_stuben, find_boundary,
+                         spectral1d, spectral2d, tensor_dofmap)
+from .hierarchy import (MultiGrid, amg, amg_ruge_stuben,
+                        amg_smoothed_aggregation, find_boundary,
                         geometric_mg, prepare_amg, subdivide)
 from .solver import (MGBProblem, MGBSOL, assemble, default_D, default_f,
                      default_g, default_idx, linesearch_backtracking,
-                     linesearch_illinois, mgb_solve, stopping_exact,
-                     stopping_inexact)
+                     linesearch_illinois, mgb_cleanup, mgb_solve,
+                     stopping_exact, stopping_inexact)
 from .solver.parabolic import ParabolicSOL, parabolic_solve
-from .utils import Log, MGBConvergenceFailure
+from .utils import Log, MGBConvergenceFailure, chebfun, interpolate
+from .utils.checkpoint import load_solution, save_solution, warm_start_grid
 from . import zoo
 
 __all__ = [
     "Convex", "convex_euclidian_power", "convex_Euclidian_power",
     "convex_linear", "convex_piecewise", "intersect", "Geometry",
-    "fem1d", "fem2d", "fem3d", "fem2d_P1", "fem2d_P2", "tensor_dofmap",
-    "MultiGrid", "amg", "amg_ruge_stuben", "find_boundary", "geometric_mg",
+    "fem1d", "fem2d", "fem3d", "fem2d_P1", "fem2d_P2", "spectral1d",
+    "spectral2d", "tensor_dofmap", "MultiGrid", "amg", "amg_ruge_stuben",
+    "amg_smoothed_aggregation", "find_boundary", "geometric_mg",
     "prepare_amg", "subdivide", "MGBProblem", "MGBSOL", "assemble",
     "default_D", "default_f", "default_g", "default_idx",
-    "linesearch_backtracking", "linesearch_illinois", "mgb_solve",
-    "stopping_exact", "stopping_inexact", "parabolic_solve", "ParabolicSOL",
-    "Log", "MGBConvergenceFailure", "zoo",
+    "linesearch_backtracking", "linesearch_illinois", "mgb_cleanup",
+    "mgb_solve", "stopping_exact", "stopping_inexact", "parabolic_solve",
+    "ParabolicSOL", "Log", "MGBConvergenceFailure", "chebfun",
+    "interpolate", "save_solution", "load_solution", "warm_start_grid",
+    "zoo",
 ]

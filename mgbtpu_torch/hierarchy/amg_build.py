@@ -1,9 +1,10 @@
 """amg(geom) / geometric_mg(geom, L) per discretization.
 
 Host numpy/scipy, a copy of ``mgbtpu/hierarchy/amg_build.py`` for the
-tensor-product (fem1d/fem2d/fem3d), fem2d_P1 and fem2d_P2 discretizations
-(the reference's ``amg``: ``src/TensorFEM.jl:727-796``,
-``src/fem2d_P1.jl:83-126``, ``src/fem2d_P2.jl:400-455``):
+tensor-product (fem1d/fem2d/fem3d), fem2d_P1, fem2d_P2 and spectral
+(spectral1d/spectral2d) discretizations (the reference's ``amg``:
+``src/TensorFEM.jl:727-796``, ``src/fem2d_P1.jl:83-126``,
+``src/fem2d_P2.jl:400-455``):
 
 1. corner labels from the cached connectivity t;
 2. an auxiliary all-corners Neumann P1/Q1 stiffness (Galerkin restriction of
@@ -17,8 +18,9 @@ tensor-product (fem1d/fem2d/fem3d), fem2d_P1 and fem2d_P2 discretizations
    masked at every Dirichlet node so coarse spaces stay nested in the
    constrained fine space.
 
-The spectral discretizations are not ported (ROADMAP Queue 1 item 4).
-Everything here is one-time host-side setup; only the resulting level
+The spectral discretizations (``discretize/spectral.py``) bring their own
+hierarchy of polynomial degrees, which ``amg`` and ``geometric_mg`` return
+as they are. Everything here is one-time host-side setup; only the resulting level
 operators reach the device (``solver/levelops.py``).
 """
 from __future__ import annotations
@@ -27,6 +29,10 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..discretize.geometry import Geometry
+from ..discretize.spectral import (Spectral1D, Spectral2D,
+                                   find_boundary_spectral1d,
+                                   find_boundary_spectral2d,
+                                   spectral1d_multigrid, spectral2d_multigrid)
 from ..discretize.tensorfem import (TensorFEM, build_geometry, corner_local,
                                     find_boundary_tensorfem, q1_lift,
                                     refine_connectivity, refine_local,
@@ -166,22 +172,15 @@ def assemble_amg_dicts(geom: Geometry, n_broken: int, dirichlet_nodes: dict,
 # find_boundary dispatch
 # ---------------------------------------------------------------------------
 
-def _refuse_spectral(disc, what: str):
-    """The spectral discretizations (``Spectral1D``/``Spectral2D``, matched
-    by name: the port has no copy of them) are not ported."""
-    name = type(disc).__name__
-    if name in ("Spectral1D", "Spectral2D"):
-        raise NotImplementedError(
-            f"{what}: {name} is not ported (ROADMAP Queue 1 item 4, "
-            "spectral1d/spectral2d)")
-
-
 def find_boundary(geom: Geometry):
     """(v, e) pairs (0-based) of the mesh nodes on the domain boundary."""
     disc = geom.discretization
     if isinstance(disc, TensorFEM):
         return find_boundary_tensorfem(geom)
-    _refuse_spectral(disc, "find_boundary")
+    if isinstance(disc, Spectral1D):
+        return find_boundary_spectral1d(geom)
+    if isinstance(disc, Spectral2D):
+        return find_boundary_spectral2d(geom)
     from ..discretize.fem2d_p1 import FEM2DP1, find_boundary_p1
     from ..discretize.fem2d_p2 import FEM2DP2, find_boundary_p2
 
@@ -200,7 +199,10 @@ def amg(geom: Geometry, *, prolongator=None, dirichlet_nodes=None,
         auxiliary_postprocess=None) -> MultiGrid:
     """Attach an algebraic-multigrid hierarchy to a single-level Geometry."""
     disc = geom.discretization
-    _refuse_spectral(disc, "amg")
+    if isinstance(disc, Spectral1D):
+        return spectral1d_multigrid(disc.n, geom.dtype)
+    if isinstance(disc, Spectral2D):
+        return spectral2d_multigrid(disc.n, geom.dtype)
     if prolongator is None:
         prolongator = amg_ruge_stuben(max_coarse=2)
     if dirichlet_nodes is None:
@@ -309,9 +311,12 @@ def _amg_tensorfem(geom, prolongator, dirichlet_nodes, auxiliary_postprocess):
 def geometric_mg(geom: Geometry, L: int) -> MultiGrid:
     """Geometric-subdivision hierarchy of L levels (fine = L-1 subdivisions)."""
     disc = geom.discretization
+    if isinstance(disc, Spectral1D):
+        return spectral1d_multigrid(disc.n, geom.dtype)
+    if isinstance(disc, Spectral2D):
+        return spectral2d_multigrid(disc.n, geom.dtype)
     if isinstance(disc, TensorFEM):
         return _geometric_mg_tensorfem(geom, L)
-    _refuse_spectral(disc, "geometric_mg")
     from ..discretize.fem2d_p1 import FEM2DP1, geometric_mg_p1
     from ..discretize.fem2d_p2 import FEM2DP2, geometric_mg_p2
 

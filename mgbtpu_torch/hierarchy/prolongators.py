@@ -5,8 +5,9 @@ level prolongations finest -> coarsest; the list length sets the hierarchy
 depth. The reference delegates to AlgebraicMultigrid.jl
 (``src/amg_prolongators.jl``); here classical Ruge-Stuben is
 implemented directly on scipy (setup is one-time, host-side;
-only the resulting P matrices ever reach the device). A copy of the
-Ruge-Stuben part of ``mgbtpu/hierarchy/prolongators.py``. Solutions must be
+only the resulting P matrices ever reach the device), beside smoothed
+aggregation and an adapter for pyamg where it is installed. A copy of
+``mgbtpu/hierarchy/prolongators.py``. Solutions must be
 prolongator-independent (the reference's cross-prolongator test design), so
 exact parity with any particular AMG library is not required.
 """
@@ -174,5 +175,96 @@ def amg_ruge_stuben(*, theta: float = 0.25, max_coarse: int = 2,
             A = (P.T @ A @ P).tocsr()
             A.eliminate_zeros()
         return Ps
+
+    return prolongator
+
+
+def amg_smoothed_aggregation(*, theta: float = 0.0, omega: float = 4.0 / 3.0,
+                             max_coarse: int = 2, max_levels: int = 40):
+    """Smoothed-aggregation prolongator factory.
+
+    Greedy aggregation on the (symmetrized) strength graph; tentative 0/1
+    partition matrix smoothed by one weighted-Jacobi step
+    ``P = (I - omega/rho D^{-1} A) T``. Mirrors the role of the reference's
+    ``amg_smoothed_aggregation`` (``src/amg_prolongators.jl:27-29``).
+    """
+
+    def prolongator(K: sp.spmatrix):
+        A = sp.csr_matrix(K, dtype=np.float64)
+        Ps = []
+        while A.shape[0] > max_coarse and len(Ps) < max_levels:
+            n = A.shape[0]
+            # strength: symmetric |A_ij| >= theta sqrt(|Aii Ajj|)
+            d = np.abs(A.diagonal())
+            coo = A.tocoo()
+            mask = coo.row != coo.col
+            if theta > 0:
+                thr = theta * np.sqrt(d[coo.row] * d[coo.col])
+                mask &= np.abs(coo.data) >= thr
+            G = sp.csr_matrix((np.ones(mask.sum()),
+                               (coo.row[mask], coo.col[mask])), shape=A.shape)
+            G = G + G.T
+            agg = -np.ones(n, dtype=np.int64)
+            n_agg = 0
+            # pass 1: aggregate around unaggregated roots
+            for i in range(n):
+                if agg[i] >= 0:
+                    continue
+                nbrs = G.indices[G.indptr[i]:G.indptr[i + 1]]
+                if all(agg[j] < 0 for j in nbrs):
+                    agg[i] = n_agg
+                    for j in nbrs:
+                        agg[j] = n_agg
+                    n_agg += 1
+            # pass 2: attach leftovers to a neighbouring aggregate
+            for i in range(n):
+                if agg[i] >= 0:
+                    continue
+                nbrs = G.indices[G.indptr[i]:G.indptr[i + 1]]
+                for j in nbrs:
+                    if agg[j] >= 0:
+                        agg[i] = agg[j]
+                        break
+                if agg[i] < 0:
+                    agg[i] = n_agg
+                    n_agg += 1
+            if n_agg >= n:
+                break
+            T = sp.csr_matrix((np.ones(n), (np.arange(n), agg)),
+                              shape=(n, n_agg))
+            Dinv = sp.diags(1.0 / np.where(A.diagonal() != 0, A.diagonal(), 1.0))
+            DA = Dinv @ A
+            # cheap spectral-radius estimate (few power iterations)
+            v = np.random.default_rng(0).standard_normal(n)
+            for _ in range(8):
+                nv = np.linalg.norm(v)
+                if nv == 0:
+                    break
+                v = DA @ (v / nv)
+            rho = np.linalg.norm(v) or 1.0
+            P = (sp.eye(n) - (omega / rho) * DA) @ T
+            Ps.append(sp.csr_matrix(P))
+            A = (P.T @ A @ P).tocsr()
+            A.eliminate_zeros()
+        return Ps
+
+    return prolongator
+
+
+def amg_pyamg(*, solver: str = "rootnode", **kwargs):
+    """pyamg-backed prolongator (optional; pyamg is not in this image)."""
+    try:
+        import pyamg  # noqa: F401
+    except ImportError as e:  # pragma: no cover
+        raise ImportError("pyamg is not available in this environment") from e
+
+    def prolongator(K: sp.spmatrix):  # pragma: no cover - env-gated
+        import pyamg
+
+        fns = {"rootnode": pyamg.rootnode_solver,
+               "smoothed_aggregation": pyamg.smoothed_aggregation_solver,
+               "ruge_stuben": pyamg.ruge_stuben_solver}
+        ml = fns[solver](sp.csr_matrix(K), **kwargs)
+        return [lvl.P.tocsr() for lvl in ml.levels[:-1]]
 
     return prolongator

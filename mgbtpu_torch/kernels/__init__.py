@@ -20,6 +20,7 @@ sweeps share ``front_solve.launches``; K2 also counts them by mode in
 ``mode_launches``; K6 also counts those in the cobarrier form in
 ``co_launches``).
 """
+from . import _build, node_barrier as _node_barrier
 from ._build import build_all
 from .front_factor import cholesky_nan, front_factor, front_factor_plain
 from .front_solve import (front_backward, front_backward_plain,
@@ -43,11 +44,18 @@ def reset_launches():
     power_cone_eval.mode_launches = [0, 0, 0]
 
 
+def clear_caches():
+    """Forget the loaded kernel entries (ctypes functions of the built
+    libraries); the next launch loads them again (``mgb_cleanup()``)."""
+    _build._LIBS.clear()
+    _node_barrier._LAUNCH.clear()
+
+
 def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["WRAPPERS", "Piece", "build_all", "cholesky_nan",
+__all__ = ["WRAPPERS", "Piece", "build_all", "cholesky_nan", "clear_caches",
            "front_backward", "front_backward_plain", "front_factor",
            "front_factor_plain", "front_forward", "front_forward_plain",
            "front_solve",

@@ -8,6 +8,9 @@
 // goes out as a leading 8-byte copy, 16-byte pairs and a trailing 8-byte
 // copy. cp_async_wait_all() makes the calling thread's copies complete; a
 // block barrier after it publishes them to the other threads.
+// cp_async_commit() and cp_async_wait_group<N>() run a pipeline of stages
+// instead (K3's spread form): wait for the oldest stage while N newer ones
+// stay in flight.
 #pragma once
 #include <cstdint>
 
@@ -32,6 +35,17 @@ __device__ __forceinline__ void cp_async16(double* dst, const double* src) {
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                      : "memory");
+}
+
+// A pipeline of stages: commit the calling thread's copies issued so far as
+// one group; wait until at most N of its groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // 1 when p sits at an odd double (8 bytes past a 16-byte boundary)

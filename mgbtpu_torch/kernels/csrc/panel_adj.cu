@@ -7,7 +7,8 @@
 // the scatter into n_J to XLA. Here the same two steps run as two coalesced
 // phases of adjoint.cuh from one entry: per-slot contributions with the
 // slots on neighbouring threads, then each column's fixed-order sum over
-// its slots, by a thread or a block per column as K asks. No atomics, so
+// its slots, by a thread or a block per column as K asks; phase A spreads
+// a level of few elements over many blocks (adjoint.cuh). No atomics, so
 // the result has the same bits on every run.
 // Bound on an H100: bytes (panels read once, 2 flops per 8 bytes).
 #include <cstdint>
@@ -15,13 +16,20 @@
 
 #include "adjoint.cuh"
 
+// The phase-A form panel_adj_launch takes for this shape and request
+// (adjoint_form; 0: refused).
+extern "C" int panel_adj_form(int nD, int N, int p, int C, int form) {
+    return adjoint_form(nD, N, p, C, form);
+}
+
+// form: 0 by shape, 1 the staged phase A, 3 the spread phase A.
 extern "C" int panel_adj_launch(const void* panels, const void* inv,
                                 const void* Y, void* contrib, void* out,
                                 int nD, int N, int p, int C, int n_J, int K,
-                                void* stream) {
+                                int form, void* stream) {
     cudaError_t e = adjoint_launch(
         (const double*)panels, (const int64_t*)inv, (const double*)Y,
-        (double*)contrib, (double*)out, nD, N, p, C, n_J, K,
+        (double*)contrib, (double*)out, nD, N, p, C, n_J, K, form,
         (cudaStream_t)stream);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

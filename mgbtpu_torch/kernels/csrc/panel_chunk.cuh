@@ -1,7 +1,7 @@
 // Column chunks of one element's panel rows in shared memory: the wide
 // forms of K1 (panel_fwd.cu) and K4 (gram_matvec.cu), for an element whose
 // nD panel slabs (nD x p x C doubles) do not fit in a block's shared memory
-// together.
+// together; K1's spread form stages its rows in the same layout.
 //
 // Row r = q*nD + k of a chunk (the layout of the (N*p, nD) node values)
 // holds panels[k, e, q, c0 .. c0+n-1]. Each row is staged with cp.async at

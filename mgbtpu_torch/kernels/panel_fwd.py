@@ -21,9 +21,13 @@ moves sit in the 50 MB L2, so the call is launch-bound.
 An element whose nD slabs do not fit in a block's shared memory together
 (the fem3d Q3 levels: p = 64, C = 128 and more) takes the wide form: one
 element a block, its panel rows staged a chunk of columns at a time, each
-sum carried across the chunks in the same order, so the same bits. The C
-entry picks the form by shape. Limits: nD <= 12 and p*nD <= 1024 (one
-thread an output of an element).
+sum carried across the chunks in the same order, so the same bits. A level
+of few elements with many rows (the spectral levels: one element, p*nD
+from 384 to 9,216) takes the spread form: the wide form with an element's
+rows split over blocks of 32, so the card fills and any p*nD goes, with
+the same bits again. The C entry picks the form by shape (``form`` says
+which); the element-group and wide forms take p*nD <= 1024 (one thread an
+output of an element). Limit: nD <= 12.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ from . import _build as B
 
 NAME = "panel_fwd"
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_FORM = 0   # the C entry's form: 0 by shape; the card tests set 1 or 2
+_FORM = 0   # the C entry's form: 0 by shape; the card tests set 1, 2 or 3
 
 
 def panel_fwd_plain(panels, cols, s, dz0=None):
@@ -70,3 +74,11 @@ def panel_fwd(panels, cols, s, dz0=None):
 
 
 panel_fwd.launches = 0
+
+
+def form(nD, N, p, C, request=0):
+    """The form the C entry takes for this shape (1 element-group, 2 wide,
+    3 spread; ``request`` 0 by shape, or the form asked for), 0 when it
+    refuses the shape. Builds the library (a card's machine)."""
+    fn = B.launcher(NAME, [ctypes.c_int] * 5, "panel_fwd_form")
+    return int(fn(nD, N, p, C, request))

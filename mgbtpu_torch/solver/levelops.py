@@ -138,8 +138,12 @@ def build_panel_ops(D_fine, nu: int, R: sp.spmatrix, p: int,
         elems_all.append(nnz_rows // p)
         cols_all.append(Gk.indices)
     if elems_all:
-        ec = np.unique(np.stack([np.concatenate(elems_all),
-                                 np.concatenate(cols_all)], axis=1), axis=0)
+        # unique (element, column) pairs in lexicographic order, by one
+        # int64 key (np.unique over rows sorts a structured view: seconds
+        # at the spectral levels' millions of pairs)
+        key = np.unique(np.concatenate(elems_all).astype(np.int64) * n_J
+                        + np.concatenate(cols_all))
+        ec = np.stack([key // n_J, key % n_J], axis=1)
     else:
         ec = np.zeros((0, 2), dtype=np.int64)
     counts = np.bincount(ec[:, 0], minlength=N)

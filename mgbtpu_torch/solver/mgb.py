@@ -662,3 +662,32 @@ def mgb_solve(prob: MGBProblem, *, verbose=False, logfile=None, device=None,
         print()
     return MGBSOL(SOL["z"], SOL["SOL_feasibility"], SOL["SOL_main"],
                   logger.text(), prob.geometry)
+
+
+def mgb_cleanup(obj=None):
+    """Drop cached per-problem plans (the reference's ``mgb_cleanup``,
+    ``mgbtpu/solver/mgb.py:1265``).
+
+    Given an MGBProblem or an AMGSystem, drop the per-system solver cache
+    (``_torch_kernel_cache``: the per-level panel plans and
+    nested-dissection plans of every barrier solved on it); the next solve
+    builds them again. With no argument, drop the loaded kernel entries the
+    port keeps (``kernels.clear_caches``); the built libraries stay on disk
+    and are loaded again at the next launch. There is no JAX cache here.
+    """
+    if obj is None:
+        from .. import kernels
+
+        kernels.clear_caches()
+        return
+    if isinstance(obj, MGBProblem):
+        targets = list(obj.M)
+    elif isinstance(obj, AMGSystem):
+        targets = [obj]
+    else:
+        raise TypeError(f"mgb_cleanup: expected an MGBProblem or an "
+                        f"AMGSystem, got {type(obj)}")
+    for M in targets:
+        cache = getattr(M, "_torch_kernel_cache", None)
+        if cache is not None:
+            cache.clear()

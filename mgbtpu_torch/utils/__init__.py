@@ -1,6 +1,7 @@
 from .errors import MGBConvergenceFailure
+from .interpolate import chebfun, interpolate
 from .log import Log, Logger, safe_pow
 from .maps import sample_rows
 
-__all__ = ["Log", "Logger", "MGBConvergenceFailure", "safe_pow",
-           "sample_rows"]
+__all__ = ["Log", "Logger", "MGBConvergenceFailure", "chebfun",
+           "interpolate", "safe_pow", "sample_rows"]

@@ -7,6 +7,7 @@ the accepted/attempted ramp steps. The ``tests/test_torch_reference_*.py``
 files re-derive them from JAX in tier-1 and write them from their
 ``__main__``; this module holds what they share (not a test module).
 """
+import contextlib
 import os
 
 import numpy as np
@@ -46,11 +47,38 @@ def zoo_reference(name, L, **kw) -> dict:
     return solve_record(mgbtpu.mgb_solve(getattr(mgbtpu.zoo, name)(mg, **kw)))
 
 
-def parabolic_reference(L, ts) -> dict:
-    """``mgbtpu.parabolic_solve`` on fem2d_P2 L, p=1, over ``ts``: the states
-    u (steps + 1, m, 3) and, under ``step<j>/``, each implicit step's solve
-    record (captured around the solver's own ``mgb_solve`` calls)."""
+ZOO_L3 = os.path.join(DATA, "ref_zoo_L3.npz")
+
+
+def zoo_l3_reproduces(name):
+    """``zoo_reference(name, 3)`` equals its record in ``ref_zoo_L3.npz``
+    (one ``tests/test_torch_reference_zoo_l3_<name>.py`` a problem)."""
+    assert_same_record(zoo_reference(name, 3),
+                       record_of(np.load(ZOO_L3), name))
+
+
+def zoo_l3_update(name):
+    """Rewrite ``name``'s record in ``ref_zoo_L3.npz`` (a file's
+    ``__main__``)."""
+    main_setup()
+    update(ZOO_L3, {name: zoo_reference(name, 3)})
+
+
+def spectral_reference(kind, n) -> dict:
+    """Record of the JAX x64 p=1 solve (the default f, g and D) on
+    ``mgbtpu.amg(mgbtpu.<kind>(n=n))``, kind spectral1d or spectral2d:
+    every level is dense (one element), so there is no CG count."""
     import mgbtpu
+
+    mg = mgbtpu.amg(getattr(mgbtpu, kind)(n=n))
+    return dict(solve_record(mgbtpu.mgb_solve(mgbtpu.assemble(mg, p=1.0))),
+                n=np.array(n))
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """While active, each implicit step's ``mgb_solve`` solution of
+    ``mgbtpu.parabolic_solve`` is appended to the yielded list."""
     import mgbtpu.solver.parabolic as P
 
     sols, solve = [], P.mgb_solve
@@ -61,15 +89,29 @@ def parabolic_reference(L, ts) -> dict:
 
     P.mgb_solve = recording
     try:
-        sol = mgbtpu.parabolic_solve(
-            mgbtpu.amg(mgbtpu.subdivide(mgbtpu.fem2d_P2(), L)), ts=ts, p=1.0)
+        yield sols
     finally:
         P.mgb_solve = solve
-    out = dict(u=np.stack(sol.u).astype(np.float64),
-               ts=np.asarray(ts, np.float64))
-    for j, s in enumerate(sols, 1):
+
+
+def parabolic_record(sol, steps) -> dict:
+    """A ``parabolic_solve``'s states u (steps + 1, m, 3) and, under
+    ``step<j>/``, each implicit step's solve record (``recorded_steps``)."""
+    out = dict(u=np.stack(sol.u).astype(np.float64))
+    for j, s in enumerate(steps, 1):
         out.update({f"step{j}/{k}": v for k, v in solve_record(s).items()})
     return out
+
+
+def parabolic_reference(L, ts) -> dict:
+    """``mgbtpu.parabolic_solve`` on fem2d_P2 L, p=1, over ``ts``
+    (``parabolic_record``), with ``ts``."""
+    import mgbtpu
+
+    mg = mgbtpu.amg(mgbtpu.subdivide(mgbtpu.fem2d_P2(), L))
+    with recorded_steps() as steps:
+        sol = mgbtpu.parabolic_solve(mg, ts=ts, p=1.0)
+    return dict(parabolic_record(sol, steps), ts=np.asarray(ts, np.float64))
 
 
 def flatten(records: dict) -> dict:

@@ -1,8 +1,8 @@
 """What the port's CPU parity tests share (not a test module): closeness
-to 1e-14 of dense and sparse arrays, and the comparison of two packages'
+to 1e-14 of dense and sparse arrays, the comparison of two packages'
 prepared hierarchies level by level, panel plans included (the
 reference's plans reach the port through
-``mgbtpu_torch.interop.from_reference_arrays``)."""
+``mgbtpu_torch.interop.from_reference_arrays``), and of two solves' ramps."""
 import numpy as np
 import torch
 
@@ -49,3 +49,22 @@ def same_systems(pj, pt, p):
             assert torch.equal(ot.cols, ref.cols)
             assert torch.equal(ot.inv, ref.inv)
             close(ot.panels.numpy(), ref.panels.numpy())
+
+
+def same_ramp(sj, st, floor_from=-1, tol_z=1e-8):
+    """The same solution (to ``tol_z``) and the same accepted/attempted
+    steps; the same Newton its on every ramp step before ``floor_from``
+    (default: the last step, the exact-stopping polish). From
+    ``floor_from`` on, the steps run at the objective's roundoff floor:
+    each within +-1 and all of them within +-4 in total."""
+    assert st.z.shape == sj.z.shape
+    assert np.linalg.norm(st.z - sj.z) <= tol_z * np.linalg.norm(sj.z)
+    Sj, St = sj.SOL_main, st.SOL_main
+    assert St["steps_accepted"] == Sj["steps_accepted"]
+    assert St["steps_attempted"] == Sj["steps_attempted"]
+    ij, it = Sj["its"], St["its"]
+    np.testing.assert_array_equal(it[:, :floor_from], ij[:, :floor_from])
+    diff = it[:, floor_from:].sum(axis=0) - ij[:, floor_from:].sum(axis=0)
+    assert abs(int(diff.sum())) <= 4
+    if floor_from != -1:
+        assert np.abs(diff).max() <= 1

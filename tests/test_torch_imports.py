@@ -32,7 +32,11 @@ def test_scan_covers_the_port():
     assert len(files) > 20
     for module in (("kernels", "power_cone.py"),
                    ("discretize", "tensorfem.py"),
-                   ("discretize", "fem2d_p1.py")):
+                   ("discretize", "fem2d_p1.py"),
+                   ("discretize", "spectral.py"),
+                   ("utils", "interpolate.py"),
+                   ("utils", "checkpoint.py"),
+                   ("hierarchy", "prolongators.py")):
         assert any(f.endswith(os.path.join(*module)) for f in files)
 
 

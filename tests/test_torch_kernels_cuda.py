@@ -1,6 +1,7 @@
 """PyTorch port, the seven CUDA kernels against their plain PyTorch versions
 on the card, at small ragged shapes and in every mode the wrappers take,
-and K1, K4 and K5a at the fem3d Q3 shapes that take their wide forms.
+K1, K4 and K5a at the fem3d Q3 shapes that take their wide forms, and K1
+and K3 at the one-element spectral shapes that take their spread forms.
 
 Marked ``cuda``: each test skips without a card. The file imports neither
 JAX nor ``mgbtpu``, so it runs on a machine without them:
@@ -94,13 +95,13 @@ def test_panel_fwd(dev, nD, C):
     assert K.panel_fwd.launches == before + 4
 
 
-STAGED, WIDE = 1, 2   # the C entries' forced forms
+STAGED, WIDE, SPREAD = 1, 2, 3   # the C entries' forced forms
 
 
 def _in_form(kernel, form, *args):
     """``kernel(*args)`` with its C entry forced to ``form`` (STAGED: the
-    element- or panel-staged form; WIDE: the wide form) through the
-    wrapper module's private ``_FORM``."""
+    element- or panel-staged form; WIDE: the wide form; SPREAD: K1's and
+    K3's spread form) through the wrapper module's private ``_FORM``."""
     mod = sys.modules[kernel.__module__]
     mod._FORM = form
     try:
@@ -259,6 +260,117 @@ def test_gram_matvec_forms_agree(dev, p, nD, C):
     args = _gram_inputs(rng, dev, nD, C, N=11, p=p, n_J=101)
     assert _same_bits(_in_form(K.gram_matvec, WIDE, *args),
                       _in_form(K.gram_matvec, STAGED, *args))
+
+
+# (nD, C) at one element of p = 1,024 nodes (spectral2d n = 32): p*nD =
+# 1,024, 4,096 (the top level's 4 rows), 7,168 and 9,216 (parabolic's
+# phase-I rows); C = 1,924 (the top level's slots) and an odd 1,001
+SPECTRAL = [(nD, C) for nD in (1, 4, 7, 9) for C in (1924, 1001)]
+
+
+def _spectral_inputs(rng, dev, nD, C, nan=True):
+    """One element of 1,024 rows and C slots over n_J = C + 37 columns,
+    with one NaN panel entry (``nan``)."""
+    panels, cols, inv, n_J = _panels(rng, dev, nD=nD, N=1, p=1024, C=C,
+                                     n_J=C + 37)
+    if nan:
+        panels[nD - 1, 0, 517, 3] = float("nan")
+    s = torch.as_tensor(rng.standard_normal(n_J), device=dev)
+    dz0 = torch.as_tensor(rng.standard_normal((1024, nD)), device=dev)
+    Y = torch.as_tensor(rng.standard_normal((1024, nD)), device=dev)
+    return panels, cols, inv, n_J, s, dz0, Y
+
+
+def _form_of(kernel):
+    return sys.modules[kernel.__module__].form
+
+
+@pytest.mark.parametrize("nD,C", SPECTRAL)
+def test_spread_forms_at_spectral_shapes(dev, nD, C):
+    """K1 and K3 at one element of 1,024 rows take their spread forms by
+    shape and hold to their plain versions (the NaN entry's row or column
+    NaN in both, the rest to TOL); one count a call, repeat calls
+    bitwise; where the other forms take the shape (K1's wide form up to
+    p*nD = 1,024, K3's staged phase A up to 4,096) they give the same bits,
+    and where they do not, they refuse the launch."""
+    rng = np.random.default_rng(nD * 10000 + C)
+    panels, cols, inv, n_J, s, dz0, Y = _spectral_inputs(rng, dev, nD, C)
+    assert _form_of(K.panel_fwd)(nD, 1, 1024, C) == SPREAD
+    assert _form_of(K.panel_adj)(nD, 1, 1024, C) == SPREAD
+    f0, a0 = K.panel_fwd.launches, K.panel_adj.launches
+    fwd = K.panel_fwd(panels, cols, s, dz0)
+    assert _rel(fwd, K.panel_fwd_plain(panels, cols, s, dz0)) <= TOL
+    assert torch.isnan(fwd[517, nD - 1]) and torch.isnan(fwd).sum() == 1
+    assert _same_bits(fwd, K.panel_fwd(panels, cols, s, dz0))
+    adj = K.panel_adj(panels, cols, inv, Y, n_J)
+    assert _rel(adj, K.panel_adj_plain(panels, cols, inv, Y, n_J)) <= TOL
+    assert torch.isnan(adj).sum() == 1
+    assert _same_bits(adj, K.panel_adj(panels, cols, inv, Y, n_J))
+    assert (K.panel_fwd.launches, K.panel_adj.launches) == (f0 + 2, a0 + 2)
+    if nD == 1:
+        assert _same_bits(fwd, _in_form(K.panel_fwd, WIDE, panels, cols, s,
+                                        dz0))
+    else:
+        with pytest.raises(RuntimeError, match="panel_fwd launch failed"):
+            _in_form(K.panel_fwd, WIDE, panels, cols, s, dz0)
+    with pytest.raises(RuntimeError, match="panel_fwd launch failed"):
+        _in_form(K.panel_fwd, STAGED, panels, cols, s, dz0)
+    if nD <= 4:
+        assert _same_bits(adj, _in_form(K.panel_adj, STAGED, panels, cols,
+                                        inv, Y, n_J))
+    else:
+        with pytest.raises(RuntimeError, match="panel_adj launch failed"):
+            _in_form(K.panel_adj, STAGED, panels, cols, inv, Y, n_J)
+
+
+@pytest.mark.parametrize("p,nD,C,N", [(7, 4, 13, 37), (3, 11, 14, 37),
+                                      (64, 12, 30, 11), (64, 5, 128, 9),
+                                      (128, 3, 254, 1), (25, 4, 40, 1),
+                                      (1024, 1, 77, 2)])
+def test_spread_forms_agree(dev, p, nD, C, N):
+    """K1's spread form gives the element-group and the wide forms' bits,
+    and K3's spread phase A the staged one's, wherever they take the shape:
+    the P2 element, the widest phase-I rows, the Q3 element, spectral1d
+    n = 128's top level, spectral2d n = 5's, and two elements of 1,024
+    rows; Dz0 absent and given."""
+    rng = np.random.default_rng(p * nD + C + N)
+    panels, cols, inv, n_J = _panels(rng, dev, nD=nD, N=N, p=p, C=C,
+                                     n_J=C + 40)
+    s = torch.as_tensor(rng.standard_normal(n_J), device=dev)
+    dz0 = torch.as_tensor(rng.standard_normal((N * p, nD)), device=dev)
+    Y = torch.as_tensor(rng.standard_normal((N * p, nD)), device=dev)
+    fwd_form = _form_of(K.panel_fwd)
+    for d in (None, dz0):
+        spread = _in_form(K.panel_fwd, SPREAD, panels, cols, s, d)
+        for other in (STAGED, WIDE):
+            if fwd_form(nD, N, p, C, other):
+                assert _same_bits(spread, _in_form(K.panel_fwd, other,
+                                                   panels, cols, s, d))
+    assert _same_bits(_in_form(K.panel_adj, SPREAD, panels, cols, inv, Y, n_J),
+                      _in_form(K.panel_adj, STAGED, panels, cols, inv, Y, n_J))
+
+
+# (nD, N, p, C) -> K1's and K3's forms, by shape: every fem level the card
+# runs keeps its form (K1 element-group 1 or wide 2, K3 staged 1) --
+# fem2d_P2 L=5 and L=3 top levels with their phase-I rows, a coarse level
+# (C = n_J), fem2d_P1 L=5, fem3d k=3 L=4 and L=3 with phase I, the fem1d
+# golden mesh -- and the spectral levels from spectral1d n = 128 and
+# spectral2d n = 16 up take the spread forms (3); the golden spectral1d
+# n = 5 and spectral2d n = 5 levels are small enough to keep the others
+FORMS = [((4, 512, 7, 14), 1, 1), ((9, 512, 7, 14), 1, 1),
+         ((11, 32, 7, 14), 1, 1), ((4, 512, 7, 4), 1, 1),
+         ((4, 512, 3, 6), 1, 1), ((5, 512, 64, 128), 2, 1),
+         ((8, 512, 64, 192), 2, 1), ((5, 64, 64, 128), 2, 1),
+         ((8, 64, 64, 192), 2, 1), ((3, 2, 2, 3), 1, 1),
+         ((4, 1, 1024, 1924), 3, 3), ((9, 1, 1024, 3000), 3, 3),
+         ((3, 1, 128, 254), 3, 3), ((4, 1, 256, 452), 3, 3),
+         ((3, 1, 5, 8), 1, 1), ((4, 1, 25, 34), 1, 1)]
+
+
+@pytest.mark.parametrize("shape,k1,k3", FORMS)
+def test_forms_by_shape(dev, shape, k1, k3):
+    assert _form_of(K.panel_fwd)(*shape) == k1
+    assert _form_of(K.panel_adj)(*shape) == k3
 
 
 # nz -> (nD, idx, m): the main path's cone (nz = 3 over rows 1..3 of 4),
@@ -727,10 +839,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.panel_fwd(panels, cols, s)
     with pytest.raises(ValueError, match="devices"):
         K.panel_fwd(panels, cols.cpu(), s.double())
-    # K3's C entry refuses an element whose p*nD values of Y exceed its stage
+    with pytest.raises(RuntimeError, match="panel_fwd launch failed"):
+        _in_form(K.panel_fwd, 4, panels, cols, s.double())   # no form 4
+    # K3's staged phase A refuses an element whose p*nD values of Y exceed
+    # its stage; by shape such an element takes the spread form
     cols = torch.tensor([[0, 1, 2], [0, 1, 2]], device=dev)
     inv = torch.as_tensor(inverse_incidence(cols.cpu().numpy(), 3), device=dev)
-    wide = torch.zeros((4097, 2, 1, 3), dtype=torch.float64, device=dev)
-    Y = torch.zeros((2, 4097), dtype=torch.float64, device=dev)
+    wide = torch.ones((4097, 2, 1, 3), dtype=torch.float64, device=dev)
+    Y = torch.ones((2, 4097), dtype=torch.float64, device=dev)
     with pytest.raises(RuntimeError, match="panel_adj launch failed"):
-        K.panel_adj(wide, cols, inv, Y, 3)
+        _in_form(K.panel_adj, STAGED, wide, cols, inv, Y, 3)
+    assert _same_bits(K.panel_adj(wide, cols, inv, Y, 3),
+                      K.panel_adj_plain(wide, cols, inv, Y, 3))
+    with pytest.raises(RuntimeError, match="panel_adj launch failed"):
+        _in_form(K.panel_adj, WIDE, wide, cols, inv, Y, 3)   # K3 has none

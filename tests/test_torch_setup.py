@@ -107,10 +107,11 @@ def test_interop_defaults_to_the_card():
 
 
 def test_other_discretizations_raise():
-    """The spectral discretizations are not ported: amg, geometric_mg and
-    find_boundary refuse them, naming the ROADMAP item."""
+    """The port dispatches on its own discretization classes: a geometry
+    of another package (the JAX package's spectral ones) is refused by
+    amg, geometric_mg and find_boundary, naming the discretization."""
     for geom in (mgbtpu.spectral1d(n=4), mgbtpu.spectral2d(n=4)):
         for fn in (mgbtpu_torch.amg, mgbtpu_torch.find_boundary,
                    lambda g: mgbtpu_torch.geometric_mg(g, 2)):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+            with pytest.raises(TypeError, match="unsupported discretization"):
                 fn(geom)

@@ -23,7 +23,7 @@ import torch
 
 import mgbtpu
 import mgbtpu_torch
-from port_parity import close, same_systems
+from port_parity import close, same_ramp, same_systems
 
 torch.set_num_threads(1)
 TOL_Z = 1e-8
@@ -106,25 +106,6 @@ def test_tensor_dofmap_and_refinement_match_jax(d, k):
     close(tt.refine_local(k, d), tj.refine_local(k, d))
 
 
-def _same_ramp(sj, st, floor_from=-1):
-    """The same solution to 1e-8 and the same accepted/attempted steps; the
-    same Newton its on every ramp step before ``floor_from`` (default: the
-    last step, the exact-stopping polish). From ``floor_from`` on, the
-    steps run at the objective's roundoff floor: each within +-1 and all of
-    them within +-4 in total."""
-    assert st.z.shape == sj.z.shape
-    assert np.linalg.norm(st.z - sj.z) <= TOL_Z * np.linalg.norm(sj.z)
-    Sj, St = sj.SOL_main, st.SOL_main
-    assert St["steps_accepted"] == Sj["steps_accepted"]
-    assert St["steps_attempted"] == Sj["steps_attempted"]
-    ij, it = Sj["its"], St["its"]
-    np.testing.assert_array_equal(it[:, :floor_from], ij[:, :floor_from])
-    diff = it[:, floor_from:].sum(axis=0) - ij[:, floor_from:].sum(axis=0)
-    assert abs(int(diff.sum())) <= 4
-    if floor_from != -1:
-        assert np.abs(diff).max() <= 1
-
-
 def _solve_both(build, **kw):
     sj = mgbtpu.mgb_solve(build(mgbtpu, {}), **kw)
     st = mgbtpu_torch.mgb_solve(build(mgbtpu_torch, dict(device="cpu")),
@@ -142,7 +123,7 @@ def test_fem1d_golden():
     sj, st = _solve_both(lambda pkg, dev: pkg.assemble(
         pkg.amg(pkg.fem1d(nodes=np.linspace(-1, 1, 3))), p=1.0, **dev))
     assert np.linalg.norm(st.z - gold) < 1e-6
-    _same_ramp(sj, st, floor_from=9)
+    same_ramp(sj, st, floor_from=9)
 
 
 def test_parabolic_fem1d_golden():
@@ -172,7 +153,7 @@ def test_parabolic_fem1d_golden():
 def test_fem3d_solve_matches_jax(k, p, tol):
     sj, st = _solve_both(lambda pkg, dev: pkg.assemble(
         pkg.amg(pkg.subdivide(pkg.fem3d(k=k), 2)), p=p, **dev), tol=tol)
-    _same_ramp(sj, st)
+    same_ramp(sj, st)
 
 
 ZOO_1D = ["rof", "two_sided_obstacle", "elastoplastic_torsion",
@@ -188,7 +169,7 @@ def test_zoo_1d_matches_jax(name):
         return getattr(pkg.zoo, name)(mg, **dev)
 
     sj, st = _solve_both(build, tol=1e-3)
-    _same_ramp(sj, st)
+    same_ramp(sj, st)
     geom = mgbtpu_torch.fem1d(nodes=np.linspace(-1, 1, 5))
     u = st.z[:, 0]
     du = geom.operators["dx"].matvec(u)
@@ -226,7 +207,7 @@ def test_phase_one_matches_jax(lower):
     step is already centered to roundoff (traced decrements <= 1e-16 of
     the objective): every step but the first is a roundoff-floor step."""
     sj, st = _solve_both(lambda pkg, dev: _lower_bound(pkg, dev, lower))
-    _same_ramp(sj, st, floor_from=1)
+    same_ramp(sj, st, floor_from=1)
     assert np.abs(st.z - lower).max() < 1e-3
     if lower > 0:
         assert "bounding box R=100" in st.log
