@@ -62,7 +62,25 @@ spectral1d and spectral2d n=4 (h=0.5), each held to its stored x64
 record and the golden ones to their ``tests/test_golden.py`` vectors
 (to 1e-6), each printing one ``assemble_dense`` and one
 ``equilibrated_solve`` at its top level (device ms; the einsum's peak
-memory). Each ``--level L`` then holds K1, K2
+memory). Then the front-end slice: K6's made-up wide tables at 57,344
+seeded nodes (six pieces, 14 rows in phase I; a lone nz = 7 cone on the
+three-field model's 10 rows, which
+``Convex.barrier`` must route to K6; five pieces over 20 rows with the
+phase-I box), every mode and form bitwise, each Hessian call timed beside
+its bound; then through the entry points a user calls: (A) the Model DSL's
+elastoplastic torsion (``examples/model_dsl.py``) at L=5 (K1, K3-K6 must
+launch), ``dual()`` of its three constraints (a mode-1 K6 launch for the
+equality's reactions) and ``plot3d_html`` of its solution (structure
+checked, no matplotlib); (B) the committed L-shaped Gmsh mesh
+(``mgbtpu_torch/data/lshape_tri6.msh``) through ``gmsh_import``,
+``assemble`` and ``mgb_solve`` (K1-K5 must launch); (C) the five-constraint
+model at L=3 (phase I over the five-piece cobarrier) and the three-field
+model (one nz = 7 cone in K6's runtime-width instance, no K2), each held to
+its x64 record (``check_record``; the duals within 1e-6), and after each
+Model's solve K6 on the table its lowering gave it, at the top level's
+nodes and rows (the three-field table gives the runtime-width cone's
+kernel record), bitwise in all six calls and timed. Each ``--level
+L`` then holds K1, K2
 and K6 against their plain versions and times them at level L's top-level
 shapes (K6 on the obstacle table and parabolic_solve's pair on random rows,
 bitwise in all six calls, timed on the obstacle's Hessian and the pair's
@@ -851,11 +869,11 @@ def k6_check(tag, calls, K):
     return max(errs)
 
 
-def k6_time(tag, call, K):
-    """Device ms of one K6 call, its plain version's, and its bound: the
-    rows, bw, the pieces' grids, sel and the box read once, the output
-    written once (wc read in modes 0 and 1); a few flops per entry of each
-    piece's affine map and products."""
+def k6_time(tag, call, K, plain=True):
+    """Device ms of one K6 call, its plain version's (unless ``plain`` is
+    False), and its bound: the rows, bw, the pieces' grids, sel and the box
+    read once, the output written once (wc read in modes 0 and 1); a few
+    flops per entry of each piece's affine map and products."""
     from mgbtpu_torch.kernels.node_barrier import POWER, instance
 
     mode, y, pieces, args, sel, bw, wc, co, box = call
@@ -874,7 +892,8 @@ def k6_time(tag, call, K):
           f"{instance(pieces, mode, ny, co, box is not None)}")
     row = dict(bound_ms=bnd, bound_by=by, **timings(
         f"node_barrier {tag} (ny={ny}, {npc} pieces)",
-        lambda: K.node_barrier(*call), lambda: K.node_barrier_plain(*call),
+        lambda: K.node_barrier(*call),
+        (lambda: K.node_barrier_plain(*call)) if plain else None,
         plain_reps=2))
     print(f"[bound] node_barrier {tag}: {bnd!r} ms ({by})")
     return row
@@ -1471,6 +1490,265 @@ def spectral_solves(prob32, torch, K, smi):
     return la32
 
 
+MODEL_M = 57344     # the L=7 node count: K6's wide tables are timed there
+LSHAPE = os.path.join(DATA, "lshape_tri6.msh")
+
+
+def _wide_rows(m, Q, nD, rng):
+    """Seeded rows (m, nD) inside a wide table's sets at most nodes: small
+    entries, the cones' s rows in (2, 4); about 1 % of the nodes pushed
+    across the walls."""
+    from mgbtpu_torch.kernels.node_barrier import POWER
+
+    Dz = rng.uniform(-0.3, 0.3, (m, nD))
+    s_rows = sorted({pc.idx[-1] for pc in Q.pieces if pc.kind == POWER})
+    Dz[:, s_rows] = rng.uniform(2.0, 4.0, (m, len(s_rows)))
+    bad = rng.choice(m, m // 100, replace=False)
+    Dz[bad] *= rng.choice([-6.0, 6.0], (len(bad), nD))
+    return Dz
+
+
+def wide_tables(m, rng):
+    """K6's tables past its first limits (4 pieces, 12 rows, cones
+    nz <= 5), made up at m seeded nodes: six pieces over 10 rows (14 in
+    phase I), a lone nz = 7 cone that K2 refuses on the three-field model's
+    rows (10, the cone on rows 4..9 and 3, 15 in phase I with its 4
+    component rows) with a full A, and five pieces over 16 rows, 20 with
+    the phase-I box; as (name, Convex, D rows, phase-I component rows)."""
+    import mgbtpu_torch as mt
+
+    x = np.zeros((m, 2))
+    cone, lin = mt.convex_euclidian_power, mt.convex_linear
+
+    def rand_A(n):
+        return np.tile(np.eye(n).reshape(1, -1), (m, 1)) \
+            + 0.01 * rng.standard_normal((m, n * n))
+
+    six = (cone(x=x, idx=(1, 2, 9), p=1.0), cone(x=x, idx=(3, 8), p=2.0),
+           cone(x=x, idx=(4, 5, 6, 9), A_grid=rand_A(4), p=1.5),
+           lin(x=x, idx=(0,), A=lambda _: np.array([[1.0], [-1.0]]),
+               b=lambda _: np.array([2.0, 2.0])),
+           lin(x=x, idx=(0, 7), A_grid=rng.standard_normal((m, 6)),
+               b_grid=rng.uniform(2.0, 4.0, (m, 3))),
+           lin(x=x, idx=(7,), A=lambda _: np.array([[1.0]]),
+               b=lambda _: np.array([3.0])))
+    rows20 = [cone(x=x, idx=(3 * k, 3 * k + 1, 3 * k + 2, 15 - k // 2),
+                   p=(1.0, 2.0, 1.5, 1.0)[k]) for k in range(4)]
+    rows20.append(lin(x=x, idx=(12, 13), A_grid=rng.standard_normal((m, 4)),
+                      b_grid=rng.uniform(2.0, 4.0, (m, 2))))
+    return [("six pieces", mt.convex_piecewise(six, x=x), 10, 3),
+            ("cone nz=7", cone(x=x, idx=(4, 5, 6, 7, 8, 9, 3),
+                               A_grid=rand_A(7), p=2.0), 10, 4),
+            ("20 rows", mt.intersect(x, *rows20), 16, 3)]
+
+
+def wide_node_barrier_phases(torch, K):
+    """K6's made-up wide tables (``wide_tables``) at m = 57,344 seeded
+    nodes: each in modes 0/1/2 as the barrier and in the phase-I form
+    (slack and component rows with the box), bitwise equal to the plain
+    version, each mode 2 call timed beside its bound; the lone nz = 7 cone
+    through ``Convex.barrier`` launches K6, not K2."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5734)
+    m = MODEL_M
+    w = np.full(m, 1.0 / m)
+    for name, Q, nD, nu in wide_tables(m, rng):
+        Dz = torch.as_tensor(_wide_rows(m, Q, nD, rng), dtype=torch.float64,
+                             device=dev)
+        calls = k6_calls(Q, Dz, nu, w, torch, K, rng)
+        k6_check(f"{name} m={m}", calls, K)
+        for label in ("mode 2", "co mode 2"):
+            k6_time(f"{name} m={m} {label}", calls[label], K)
+        if name == "cone nz=7":
+            args = tuple(torch.as_tensor(a, device=dev) for a in Q.args)
+            K.reset_launches()
+            Q.barrier(2, args, Dz, *calls["mode 2"][5:7])
+            la = K.launches()
+            print(f"[kernels] Convex.barrier of the lone nz=7 cone: {la}; "
+                  f"node_barrier with a wide piece "
+                  f"{K.node_barrier.wide_launches}")
+            if la["node_barrier"] != 1 or la["power_cone"] != 0 \
+                    or K.node_barrier.wide_launches != 1:
+                raise RuntimeError("the lone nz=7 cone did not route to K6")
+    torch.cuda.synchronize()
+
+
+def model_table_phases(tag, model, seed, torch, K):
+    """K6 on the piece table a solved Model's lowering gives it, at the
+    top level's nodes and rows (the path's own shapes): the solution's rows
+    D z with 1 % of the nodes pushed outside (each cone's s row negative),
+    in the six calls of ``k6_calls`` (the phase-I form with the model's own
+    component rows), bitwise equal to the plain version; its mode 2 and co
+    mode 2 calls timed (the plain version in mode 2 only: its thousands of
+    small launches outrun the device's queue, so each timing of it spins
+    for seconds). Returns (largest error, {label: timing row})."""
+    from mgbtpu_torch.kernels.node_barrier import POWER
+
+    prob = model._lowered["prob"]
+    M, Q = prob.M[0], prob.Q
+    rng = np.random.default_rng(seed)
+    Dz = model._Dz()
+    s_rows = sorted({pc.idx[-1] for pc in Q.pieces if pc.kind == POWER})
+    bad = rng.choice(len(Dz), max(len(Dz) // 100, 1), replace=False)
+    Dz[np.ix_(bad, s_rows)] = -rng.uniform(0.0, 1.0, (len(bad), len(s_rows)))
+    print(f"[tables] {tag}: {len(Q.pieces)} pieces over {Dz.shape[1]} rows "
+          f"({Dz.shape[1] + 1 + M.nu} in phase I), m = {Dz.shape[0]}")
+    calls = k6_calls(Q, torch.as_tensor(Dz, device="cuda"), M.nu,
+                     np.asarray(M.w, np.float64), torch, K, rng)
+    err = k6_check(tag, calls, K)
+    rows = {label: k6_time(f"{tag} {label}", calls[label], K,
+                           plain=label == "mode 2")
+            for label in ("mode 2", "co mode 2")}
+    torch.cuda.synchronize()
+    return err, rows
+
+
+def check_duals(tag, got, ref):
+    """Each dual within 1e-6 of the x64 record's, relative to its largest
+    entry."""
+    for key, d in got.items():
+        d_ref = ref[f"dual_{key}"]
+        err = float(np.abs(d - d_ref).max() / np.abs(d_ref).max())
+        print(f"[reference] {tag} dual({key}): max |mu - mu_x64| / "
+              f"max |mu_x64| = {err!r}")
+        if not err <= TOL_Z:
+            raise RuntimeError(f"{tag}: dual {key} differs from x64: {err}")
+
+
+def model_solve(tag, name, mg, torch, K, smi, need, ref):
+    """``port_models.MODELS[name]`` built on ``mg`` with ``Model(mg)`` (no
+    device: the card) and solved with the launch counters set to 0 just
+    before and read just after; prints its wall, counts and launches,
+    requires ``need`` to have launched and holds it to its x64 record
+    (``check_record``). Returns (model, constraints, solution, launches,
+    K6's launches in cobarrier form, K6's with a wide piece)."""
+    import mgbtpu_torch
+    import port_models
+    from mgbtpu_torch.solver.newton import SYNCS
+
+    t0 = time.time()
+    m, cons = port_models.MODELS[name](mgbtpu_torch, mg)
+    SYNCS["n"] = 0
+    secs, sol, la, co = counted(torch, K, lambda: m.solve(**port_models.SOLVE))
+    wide = K.node_barrier.wide_launches
+    report(tag, secs, sol, SYNCS["n"])
+    print(f"[kernels] launches in the {tag} solve ({secs!r} s wall on "
+          f"{smi}; lowering + amg + solve {time.time() - t0!r} s): {la}; "
+          f"node_barrier by mode 0/1/2 {K.node_barrier.mode_launches}, in "
+          f"cobarrier form {co}, with a wide piece {wide}; power_cone by "
+          f"mode {K.power_cone_eval.mode_launches}; status {m.status}")
+    require_launches(tag, la, need)
+    check_record(tag, sol, ref)
+    return m, cons, sol, la, co, wide
+
+
+def html_check(tag, sol):
+    """``plot3d_html`` of a card solution into a temporary directory: the
+    structure ``tests/test_plot.py`` checks (balanced brackets in the
+    script, the mesh's three arrays), without matplotlib."""
+    import tempfile
+
+    from mgbtpu_torch import plot3d_html
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        path = plot3d_html(sol, os.path.join(tmp, "view.html"))
+        text = open(path).read()
+        secs = time.time() - t0
+    js = re.search(r"<script>(.*)</script>", text, re.S).group(1)
+    mesh = json.loads(re.search(r"const MESH=(.*?);\n", text).group(1))
+    ok = all(js.count(a) == js.count(b)
+             for a, b in (("(", ")"), ("{", "}"), ("[", "]")))
+    ok = ok and len(mesh["v"]) == len(mesh["c"]) == sol.z.shape[0] \
+        and len(mesh["t"]) > 0
+    print(f"[html] {tag}: plot3d_html wrote {len(text)} bytes in {secs!r} s "
+          f"({len(mesh['v'])} vertices, {len(mesh['t'])} triangles); "
+          f"structure ok: {ok}; matplotlib imported: "
+          f"{'matplotlib' in sys.modules}")
+    if not ok:
+        raise RuntimeError(f"{tag}: plot3d_html structure")
+
+
+def slice9_solves(mg5, torch, K, smi):
+    """The front ends' paths on the card. (A) ``examples/model_dsl.py``'s
+    elastoplastic torsion at L=5 through ``Model`` (K1, K3-K6 must launch),
+    then ``dual()`` of its three constraints (the equality's through one
+    mode-1 K6 launch), held to ``ref_model_torsion_L5.npz``, and
+    ``plot3d_html`` of its solution. (B) the committed L-shaped mesh
+    through ``gmsh_import`` (P2 with the bubble), ``assemble(amg(g),
+    p=1.0)`` and ``mgb_solve`` (K1-K5 must launch), held to
+    ``ref_gmsh_lshape.npz``. (C) the five-constraint model at L=3 (phase I
+    over the five-piece cobarrier) and the three-field model (one nz = 7
+    cone: K6's runtime-width instance, not K2), held to
+    ``ref_model_five_L3.npz``. After each Model's solve, K6 is held on the
+    table its lowering gave it (``model_table_phases``). Returns the
+    runtime-width cone's kernel record: the three-field table's error and
+    mode 2 time, and the three-field solve's K6 launches with a wide
+    piece."""
+    from mgbtpu_torch import (amg, assemble, fem2d_P2, gmsh_import,
+                              mgb_solve, subdivide)
+    from mgbtpu_torch.solver.newton import SYNCS
+
+    ref = dict(np.load(os.path.join(DATA, "ref_model_torsion_L5.npz")))
+    need = MESH + ["node_barrier"]
+    m, cons, sol, _, _, _ = model_solve("Model torsion L=5", "torsion", mg5,
+                                        torch, K, smi, need, ref)
+    model_table_phases("Model torsion L=5 table", m, 91, torch, K)
+    duals = {}
+    for key in ("eq", "cone", "lin"):
+        K.reset_launches()
+        duals[key] = m.dual(cons[key])
+        torch.cuda.synchronize()
+        print(f"[kernels] dual({key}) of Model torsion L=5: launches "
+              f"{K.launches()}; node_barrier by mode "
+              f"{K.node_barrier.mode_launches}")
+        if key == "eq" and K.node_barrier.mode_launches[1] == 0:
+            raise RuntimeError("dual(eq): no mode-1 K6 launch")
+    check_duals("Model torsion L=5", duals, ref)
+    html_check("Model torsion L=5", sol)
+
+    t0 = time.time()
+    out = gmsh_import(LSHAPE)
+    g = out.geometry
+    print(f"[setup] gmsh_import {os.path.basename(LSHAPE)}: "
+          f"{time.time() - t0!r} s; {g.x.shape[1]} triangles, {g.x.shape[0]} "
+          f"nodes each, regions "
+          f"{ {k: len(v) for k, v in out.regions.items()} }")
+    prob = timed_setup("Gmsh L-shape", lambda: assemble(amg(g), p=1.0,
+                                                        device="cuda"))
+    SYNCS["n"] = 0
+    secs, solb, la, _ = counted(torch, K, lambda: mgb_solve(prob,
+                                                            device="cuda"))
+    report("Gmsh L-shape", secs, solb, SYNCS["n"])
+    print(f"[kernels] launches in the Gmsh L-shape solve ({secs!r} s wall on "
+          f"{smi}; {prob.M[0].depth} levels): {la}")
+    require_launches("Gmsh L-shape", la, ["power_cone"] + MESH)
+    check_record("Gmsh L-shape", solb,
+                 dict(np.load(os.path.join(DATA, "ref_gmsh_lshape.npz"))))
+
+    mg3 = amg(subdivide(fem2d_P2(), 3))
+    five = ref_record("ref_model_five_L3.npz", "five_constraints")
+    m5, _, _, _, co, _ = model_solve(
+        "Model five constraints L=3", "five_constraints", mg3, torch, K,
+        smi, ["panel_fwd", "panel_adj", "node_barrier"], five)
+    if co == 0:
+        raise RuntimeError("five constraints: no phase-I K6 launch")
+    model_table_phases("Model five constraints L=3 table", m5, 92, torch, K)
+    fields = ref_record("ref_model_five_L3.npz", "three_fields")
+    m3, _, _, la, _, wide = model_solve(
+        "Model three fields L=3", "three_fields", mg3, torch, K, smi,
+        ["panel_fwd", "panel_adj", "node_barrier"], fields)
+    if wide == 0 or la["power_cone"] != 0:
+        raise RuntimeError("three fields: the nz=7 cone did not run in "
+                           "K6's runtime-width instance")
+    err, rows = model_table_phases("Model three fields L=3 table", m3, 93,
+                                   torch, K)
+    return dict(name="node_barrier (runtime-width cone nz=7, three-field "
+                "model L=3)", source="mgbtpu_torch/kernels/csrc/node_barrier.cu",
+                replaces="mgbtpu/ops/pallas_dd.py:258", max_abs_err=err,
+                launches=wide, **rows["mode 2"])
+
+
 def golden_check(tag, got, gold):
     """``tests/test_golden.py``'s bar: the 2-norm of the difference from
     the golden vector below 1e-6."""
@@ -1562,6 +1840,9 @@ def main(argv=None) -> int:
         r["launches"] = launches32[r["name"].split()[0]]
     records += spread
 
+    wide_node_barrier_phases(torch, K)
+    records.append(slice9_solves(mg5, torch, K, smi))
+
     for L in args.level:
         mgL, probL, run_L = solve(L, torch)
         level_phases(mgL, probL, L, torch, K)
@@ -1590,9 +1871,9 @@ def print_ptxas(secs, info):
     print(f"[ptxas] node_barrier.cu built in {secs!r} s (nvcc, beside the "
           f"other kernels' builds)")
     for fn, r in sorted(info.items()):
-        m = re.search(r"node_barrier_kernelILi(\d+)ELi(\d+)E", fn)
-        label = (f"node_barrier_kernel<mode {m[1]}, form {m[2]}>" if m
-                 else fn)
+        m = re.search(r"(node_barrier_(?:wide_)?kernel)ILi(\d+)ELi(\d+)E",
+                      fn)
+        label = f"{m[1]}<mode {m[2]}, form {m[3]}>" if m else fn
         print(f"[ptxas] {label}: {r.get('registers')} registers, "
               f"{r.get('stack')} bytes stack, {r.get('spill_stores')} / "
               f"{r.get('spill_loads')} bytes spill stores / loads")

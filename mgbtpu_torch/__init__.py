@@ -6,7 +6,9 @@ layout and names: ``subdivide(geometry, L)`` -> ``amg`` -> ``assemble`` ->
 ``fem3d``), the P1/P2 triangles (``fem2d_P1``, ``fem2d_P2``) and the
 Chebyshev spectral elements (``spectral1d``, ``spectral2d``), plus
 ``parabolic_solve`` and the ``zoo`` problems over the power cone, linear,
-piecewise and intersected convex sets. The level
+piecewise and intersected convex sets, the ``Model`` DSL, ``gmsh_import``
+and the plots (``plot``, ``plot3d_html``; matplotlib is imported only when
+a matplotlib plot is drawn). The level
 operators and the per-node barriers run through hand-written CUDA kernels
 (``kernels/``) on the card, which is the default device; ``device="cpu"``
 runs the plain PyTorch versions instead. Imports neither JAX nor
@@ -26,7 +28,14 @@ from .solver import (MGBProblem, MGBSOL, assemble, default_D, default_f,
 from .solver.parabolic import ParabolicSOL, parabolic_solve
 from .utils import Log, MGBConvergenceFailure, chebfun, interpolate
 from .utils.checkpoint import load_solution, save_solution, warm_start_grid
+from .frontends import gmsh_import
+from .frontends.model import Model
 from . import zoo
+# the function shadows the subpackage on purpose, as in the JAX package:
+# plot(sol) is the API; the modules stay importable as
+# ``from mgbtpu_torch.plot.plotting import ...``
+from .plot.html3d import plot3d_html
+from .plot.plotting import animation_html, plot, save_animation
 
 __all__ = [
     "Convex", "convex_euclidian_power", "convex_Euclidian_power",
@@ -40,5 +49,6 @@ __all__ = [
     "mgb_solve", "stopping_exact", "stopping_inexact", "parabolic_solve",
     "ParabolicSOL", "Log", "MGBConvergenceFailure", "chebfun",
     "interpolate", "save_solution", "load_solution", "warm_start_grid",
-    "zoo",
+    "zoo", "gmsh_import", "Model", "animation_html", "plot", "plot3d_html",
+    "save_animation",
 ]

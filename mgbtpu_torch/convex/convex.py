@@ -7,8 +7,9 @@ an optional select grid ``args[0]`` (``convex_piecewise``/``intersect``).
 ``barrier(mode, args, Dz, bw, wc)`` returns the level's per-node terms
 directly (mode 0 objective terms, mode 1 gradient rows, mode 2 Hessian
 blocks): the JAX package's ``vmap(F)`` plus the masking of
-``solver/barrier.py`` in one kernel call, K2 for a lone power cone and K6
-for any other table; ``cobarrier`` is the slack-augmented (phase-I) form,
+``solver/barrier.py`` in one kernel call, K2 for a lone power cone of the
+shapes it takes (nz <= 5, <= 12 rows) and K6 for any other table, on
+every device; ``cobarrier`` is the slack-augmented (phase-I) form,
 always K6. ``args`` hold the per-node grids as host numpy arrays; the solver
 moves them to its device once.
 
@@ -19,8 +20,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Tuple
 
+from ..kernels import power_cone as K2
 from ..kernels.node_barrier import POWER, Piece, node_barrier
-from ..kernels.power_cone import power_cone_eval
 
 
 @dataclass
@@ -37,11 +38,11 @@ class Convex:
     def barrier(self, mode, args, Dz, bw, wc):
         """Per-node barrier terms of ``mode`` at the rows Dz (see
         ``kernels/node_barrier.py``)."""
-        if not self.select and len(self.pieces) == 1 \
-                and self.pieces[0].kind == POWER:
-            pc = self.pieces[0]
-            return power_cone_eval(mode, Dz, *pc.grids(args), bw, wc, pc.idx,
-                                   pc.spec)
+        pc = self.pieces[0]
+        if not self.select and len(self.pieces) == 1 and pc.kind == POWER \
+                and K2.takes(pc.width, Dz.shape[1]):
+            return K2.power_cone_eval(mode, Dz, *pc.grids(args), bw, wc,
+                                      pc.idx, pc.spec)
         return node_barrier(mode, Dz, self.pieces, args, self._sel(args), bw,
                             wc)
 

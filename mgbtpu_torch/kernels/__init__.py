@@ -18,7 +18,9 @@ and launches its kernel when they lie on a CUDA device; it never falls back.
 Each counts its launches in the integer attribute ``launches`` (K5b's two
 sweeps share ``front_solve.launches``; K2 also counts them by mode in
 ``mode_launches``; K6 also counts those in the cobarrier form in
-``co_launches``).
+``co_launches``, by mode in ``mode_launches`` and those of a table with a
+wide piece, a runtime-width cone or a wide linear block, in
+``wide_launches``).
 """
 from . import _build, node_barrier as _node_barrier
 from ._build import build_all
@@ -41,6 +43,8 @@ def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
     node_barrier.co_launches = 0
+    node_barrier.wide_launches = 0
+    node_barrier.mode_launches = [0, 0, 0]
     power_cone_eval.mode_launches = [0, 0, 0]
 
 

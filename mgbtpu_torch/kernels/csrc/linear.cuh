@@ -16,7 +16,13 @@
 // loops unroll to the limits LN_MAXC x LN_MAXI with a guard on the runtime
 // nc and ni passed in. Either way every small array is indexed only by
 // unrolled loop counters, so it stays in registers, and the sums run in the
-// same order.
+// same order. The lnw_ helpers at the end are the wide form (K6's wide
+// linear block, nc and ni up to 32): MIRRORS of ln_affine, ln_value,
+// ln_grad and ln_hess, the same sums in the same order over one vector
+// held in memory (the thread's scratch row), overwritten in place (F, then
+// 1 / F or iF2); a change to one of a pair must be made to the other in the
+// same order (tests/test_torch_kernels_cuda.py holds both to the plain
+// version's bits).
 #pragma once
 #include <math.h>
 
@@ -139,4 +145,74 @@ __device__ __forceinline__ void ln_hess(const double Ar[LN_MAXC][LN_MAXI],
     for (int k = 1; k < MC; ++k)
         if (k < nc) acc = acc + iF2[k];
     *cn = acc;
+}
+
+// ---- wide blocks -----------------------------------------------------------
+
+// F = A y[idx] + b (A row-major nc x ni)
+__device__ __forceinline__ void lnw_affine(const double* A, const double* b,
+                                           const double* y, const int* idx,
+                                           int nc, int ni, double* F) {
+    for (int i = 0; i < nc; ++i) {
+        double acc = A[i * ni] * y[idx[0]];
+        for (int j = 1; j < ni; ++j) acc = acc + A[i * ni + j] * y[idx[j]];
+        F[i] = acc + b[i];
+    }
+}
+
+__device__ __forceinline__ double lnw_value(const double* F, int nc,
+                                            double floor) {
+    double acc = log_barrier(F[0], floor);
+    for (int i = 1; i < nc; ++i) acc = acc + log_barrier(F[i], floor);
+    return -acc;
+}
+
+// F -> 1 / F in place; returns the slack entry gl = -sum 1/F
+__device__ __forceinline__ double lnw_inv(double* F, int nc) {
+    for (int k = 0; k < nc; ++k) F[k] = 1.0 / F[k];
+    double acc = F[0];
+    for (int k = 1; k < nc; ++k) acc = acc + F[k];
+    return -acc;
+}
+
+// entry i of g = A' (-1/F), from invF
+__device__ __forceinline__ double lnw_grad(const double* A,
+                                           const double* invF, int nc, int ni,
+                                           int i) {
+    double acc = A[i] * invF[0];
+    for (int k = 1; k < nc; ++k) acc = acc + A[k * ni + i] * invF[k];
+    return -acc;
+}
+
+// F -> iF2 in place; returns the corner sum iF2
+template <bool CO>
+__device__ __forceinline__ double lnw_inv2(double* F, int nc) {
+    for (int k = 0; k < nc; ++k) {
+        if (CO) {
+            const double inv = 1.0 / F[k];
+            F[k] = inv * inv;
+        } else {
+            F[k] = 1.0 / (F[k] * F[k]);
+        }
+    }
+    double acc = F[0];
+    for (int k = 1; k < nc; ++k) acc = acc + F[k];
+    return acc;
+}
+
+__device__ __forceinline__ double lnw_hess_ij(const double* A,
+                                              const double* iF2, int nc,
+                                              int ni, int i, int j) {
+    double acc = A[i] * A[j] * iF2[0];
+    for (int k = 1; k < nc; ++k)
+        acc = acc + A[k * ni + i] * A[k * ni + j] * iF2[k];
+    return acc;
+}
+
+__device__ __forceinline__ double lnw_cross(const double* A,
+                                            const double* iF2, int nc, int ni,
+                                            int i) {
+    double acc = A[i] * iF2[0];
+    for (int k = 1; k < nc; ++k) acc = acc + A[k * ni + i] * iF2[k];
+    return acc;
 }

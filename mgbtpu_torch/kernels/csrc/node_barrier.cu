@@ -1,10 +1,11 @@
 // node_barrier: the per-node barrier of any piece table, f64, fused with the
 // level's weight mask (bw) and linear term (wc).
 //
-// A table holds up to 4 pieces, each a power cone (nz <= 5, alpha spec
-// 0/1/2) or a linear block (nc <= 4, ni <= 5), with its input rows idx into
-// the row vector y, and an optional select grid sel (m, npc): piece k is
-// active at node n where sel[n, k] != 0 (always, without a grid). Per node:
+// A table holds up to 16 pieces over up to 32 rows, each a power cone
+// (2 <= nz <= 32, alpha spec 0/1/2) or a linear block (nc, ni <= 32), with
+// its input rows idx into the row vector y, and an optional select grid sel
+// (m, npc): piece k is active at node n where sel[n, k] != 0 (always,
+// without a grid). Per node:
 //   mode 0: out[n]       = (bw != 0 ? bw T : 0) + sum_k wc[n,k] y[k]
 //   mode 1: out[n, :]    = (bw != 0 ? bw T : 0) + wc[n, :]
 //   mode 2: out[n, :, :] =  bw != 0 ? bw T : 0
@@ -25,30 +26,45 @@
 //
 // Replaces the Pallas kernel node_eval (mgbtpu/ops/pallas_dd.py:258), which
 // ran vmap(F) of any traced per-node function in double-float; a lone power
-// cone in barrier form keeps power_cone.cu (K2). The closed forms are those
-// of power_cone.cuh and linear.cuh, so the cone's arithmetic exists once.
+// cone in barrier form that power_cone.cu (K2) takes (nz <= 5, <= 12 rows)
+// keeps K2. The closed forms are those of power_cone.cuh and linear.cuh:
+// the register instances share K2's pc_ helpers; the runtime-width
+// instances take the pcw_ and lnw_ helpers there, mirrors of the pc_ and
+// ln_ ones that must change with them (see those headers).
 //
-// Layout: one kernel per (mode, form), form 0 the barrier, 1 the
+// Layout: two kernels per (mode, form), form 0 the barrier, 1 the
 // cobarrier, 2 the cobarrier with the box. One thread per node, in blocks
 // of 32 nodes (64 above 8,448 nodes, 16 where the rows would pass 48 KB of
-// shared memory). The block stages its nodes' y, wc (mode 0), sel and every
-// piece's A, b, p, mu in shared memory with coalesced cp.async copies. The
-// loop over the pieces is a runtime loop that switches, per piece, to the
-// instance of its shape: a power cone on <NZ, SPEC>, a linear block on
-// <NC, NI> for the shapes the port's constructors build and a runtime-width
-// linear instance for the rest (instance codes below; node_barrier.py's
-// instance() picks them). Each instance keeps its small arrays in
-// registers, indexed only by unrolled loops, and the table goes by
-// reference as a __grid_constant__ parameter, so no kernel has a stack
-// frame. Modes 1 and 2 build each node's row or ny x ny block in shared
-// memory (odd stride: a warp's threads write distinct banks): filled with
-// +0.0, piece 0 writes its entries, each later piece adds its entries and
-// adds +0.0 to the entries an earlier piece wrote outside its own (which
-// turns a -0.0 into +0.0, as the reference's sum does); the box terms come
-// last. The block then stores its rows contiguous, applying bw (and wc)
-// on the way out.
+// shared memory; past that, halved until the block fits the opt-in 227 KB).
+// The block stages its nodes' y, wc (mode 0), sel and every piece's A, b,
+// p, mu in shared memory with coalesced cp.async copies. The loop over the
+// pieces is a runtime loop that switches, per piece, to the instance of its
+// shape (instance codes below; node_barrier.py's instance() picks them).
+// The register kernels hold a power cone on <NZ, SPEC> (nz <= 5), a linear
+// block on <NC, NI> for the shapes the port's constructors build and a
+// runtime-width linear instance for the rest up to 4 x 5; each keeps its
+// small arrays in registers, indexed only by unrolled loops. A table with a
+// piece past those (a cone of nz = 6..32, a linear block past 4 x 5) runs
+// in the wide kernels, where every piece takes a runtime-width instance: a
+// cone (cone<0, SPEC>) or a linear block that holds its one vector (z, then
+// u = q / r or gz; F, then 1 / F or 1 / F^2) in a per-thread scratch row
+// in shared memory and makes every entry of Hz where it is used, with the
+// register instances' sums in their order, so their bits. (One kernel with
+// both kinds spilled registers in its mode-2 form, on an H100 with CUDA
+// 12.9; apart, the register kernels are the code they were, with the
+// registers they had.) The table
+// goes by reference as a __grid_constant__ parameter, so no kernel has a
+// stack frame. Modes 1 and 2 build each node's row or ny x ny block in
+// shared memory (odd stride: a warp's threads write distinct banks): filled
+// with +0.0, piece 0 writes its entries, each later piece adds its entries
+// and adds +0.0 to the entries an earlier piece wrote outside its own
+// (which turns a -0.0 into +0.0, as the reference's sum does); the box
+// terms come last. The block then stores its rows contiguous, applying bw
+// (and wc) on the way out. The row masks are 32-bit: ny <= 32 rows, and
+// the slack row of the cobarrier form is row NC - 1 <= 31.
 // Bound on an H100: bytes (a few hundred flops per node against the
-// ~(pieces' grids + 2 ny + ny^2) doubles it moves).
+// ~(pieces' grids + 2 ny + ny^2) doubles it moves) for the register
+// instances; the runtime-width cone's A' Hz A takes ~3 nz^4 flops a node.
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,19 +73,25 @@
 #include "linear.cuh"
 #include "power_cone.cuh"
 
-#define NB_MAXP 4
-#define NB_MAXD 12
-#define NB_MAXZ 5
+#define NB_MAXP 16
+#define NB_MAXD 32
+#define NB_MAXZ 5           // register-resident cones
+#define NB_MAXW 32          // runtime-width cones and wide linear blocks
 #define NB_SMEM (48 * 1024)
+#define NB_SMEM_MAX 232448  // the opt-in maximum of a block on an H100
 
-// Instance codes: a power cone (nz, spec) is (nz - 2) * 3 + spec; the linear
-// shapes the constructors build (obstacle nc = 2, torsion nc = 1, each on one
-// row) follow (on an H100, 3-16 % faster on the obstacle's calls than the
-// runtime-width instance; see PERF.md); every other linear block takes the
-// runtime-width instance.
+// Instance codes: a power cone (nz <= 5, spec) is (nz - 2) * 3 + spec; the
+// linear shapes the constructors build (obstacle nc = 2, torsion nc = 1, each
+// on one row) follow (on an H100, 3-16 % faster on the obstacle's calls than
+// the runtime-width instance; see PERF.md); every other linear block up to
+// nc = 4, ni = 5 takes the runtime-width instance. The wide kernels' codes
+// follow: the runtime-width cone by spec (any nz up to 32), then the wide
+// linear block (nc, ni up to 32).
 #define NB_LIN_1x1 12
 #define NB_LIN_2x1 13
 #define NB_LIN_ANY 14
+#define NB_CONE_WIDE 15
+#define NB_LIN_WIDE 18
 
 // The table as node_barrier.py fills it (a ctypes mirror; the layout is
 // checked when the library loads).
@@ -82,7 +104,7 @@ struct NBPiece {
     int nz;            // power: nz; linear: nc
     int ni;            // inputs read: power nz, linear ni
     int spec;          // power: alpha specialisation 0/1/2
-    int idx[NB_MAXZ];
+    int idx[NB_MAXD];
     int inst;          // instance code (node_barrier.instance)
 };
 
@@ -106,7 +128,7 @@ struct NBKPiece {
     unsigned rows;  // output rows the piece writes: idx (+ the slack row)
     unsigned keep;  // bit j: idx[j] is the last occurrence of its row
     int sA, sb, sp, smu;  // staged regions (doubles into shared memory)
-    int idx[NB_MAXZ];
+    int idx[NB_MAXD];
 };
 
 struct NBKTable {
@@ -116,6 +138,7 @@ struct NBKTable {
     double floor;
     int npc, m, ny, nin;
     int sy, swc, ssel, sbw, sout;
+    int sscr, scrs;  // the wide instances' scratch rows and their stride
 };
 
 // doubles a staged region of B rows of w takes: room for the parity shift,
@@ -173,63 +196,127 @@ struct NodeCtx {
     const double* y;
     double slack, floor;
     double* o;
+    double* scr;  // the thread's scratch row (wide instances)
     bool first;
 };
 
+template <int SPEC, int MODE, bool CO>
+static __device__ __forceinline__ double cone_wide(const NBKPiece& P,
+                                                   const NodeCtx& c);
+
 // A power cone on <NZ, SPEC>: mode 0 returns F0; modes 1/2 put its entries.
+// (NZ = 0: the runtime-width cone of the wide kernels, cone_wide below.)
 template <int NZ, int SPEC, int MODE, bool CO>
 static __device__ __forceinline__ double cone(const NBKPiece& P,
                                               const NodeCtx& c) {
-    int idx[NZ];
+    if constexpr (NZ == 0) {
+        return cone_wide<SPEC, MODE, CO>(P, c);
+    } else {
+        int idx[NZ];
 #pragma unroll
-    for (int j = 0; j < NZ; ++j) idx[j] = P.idx[j];
-    const double* A =
-        staged(c.sh, P.sA, P.A + (size_t)c.n0 * NZ * NZ) + c.t * NZ * NZ;
-    const double* b = staged(c.sh, P.sb, P.b + (size_t)c.n0 * NZ) + c.t * NZ;
-    const double pn = staged(c.sh, P.sp, P.p + c.n0)[c.t];
-    const double mu = staged(c.sh, P.smu, P.mu + c.n0)[c.t];
-    double Ar[PC_MAXNZ][PC_MAXNZ], z[PC_MAXNZ];
-    pc_affine<NZ>(A, b, c.y, idx, NZ, Ar, z);
-    if (CO) z[NZ - 1] = z[NZ - 1] + c.slack;
-    const double alpha = 2.0 / pn;
-    if (MODE == 0) return pc_value<NZ, SPEC>(z, NZ, alpha, mu, SPEC, c.floor);
-    const unsigned keep = P.keep;
-    if (MODE == 1) {
-        double gz[PC_MAXNZ], g[PC_MAXNZ];
-        pc_grad<NZ, SPEC>(z, NZ, alpha, mu, SPEC, c.floor, gz);
-        pc_at_g<NZ>(Ar, gz, NZ, g);
+        for (int j = 0; j < NZ; ++j) idx[j] = P.idx[j];
+        const double* A =
+            staged(c.sh, P.sA, P.A + (size_t)c.n0 * NZ * NZ) + c.t * NZ * NZ;
+        const double* b =
+            staged(c.sh, P.sb, P.b + (size_t)c.n0 * NZ) + c.t * NZ;
+        const double pn = staged(c.sh, P.sp, P.p + c.n0)[c.t];
+        const double mu = staged(c.sh, P.smu, P.mu + c.n0)[c.t];
+        double Ar[PC_MAXNZ][PC_MAXNZ], z[PC_MAXNZ];
+        pc_affine<NZ>(A, b, c.y, idx, NZ, Ar, z);
+        if (CO) z[NZ - 1] = z[NZ - 1] + c.slack;
+        const double alpha = 2.0 / pn;
+        if (MODE == 0)
+            return pc_value<NZ, SPEC>(z, NZ, alpha, mu, SPEC, c.floor);
+        const unsigned keep = P.keep;
+        if (MODE == 1) {
+            double gz[PC_MAXNZ], g[PC_MAXNZ];
+            pc_grad<NZ, SPEC>(z, NZ, alpha, mu, SPEC, c.floor, gz);
+            pc_at_g<NZ>(Ar, gz, NZ, g);
 #pragma unroll
-        for (int j = 0; j < NZ; ++j)
-            if (keep >> j & 1) put(c.o + idx[j], g[j], c.first);
-        if (CO) put(c.o + c.nin, gz[NZ - 1], c.first);
+            for (int j = 0; j < NZ; ++j)
+                if (keep >> j & 1) put(c.o + idx[j], g[j], c.first);
+            if (CO) put(c.o + c.nin, gz[NZ - 1], c.first);
+            return 0.0;
+        }
+        double Hz[PC_MAXNZ][PC_MAXNZ];
+        pc_hess<NZ, SPEC>(z, NZ, alpha, mu, SPEC, c.floor, Hz);
+        const int ny = c.ny;
+        if (CO) {  // the cross column first: Hz's last column dies early
+            const int nin = c.nin;
+#pragma unroll
+            for (int i = 0; i < NZ; ++i) {
+                double acc = Ar[0][i] * Hz[0][NZ - 1];
+#pragma unroll
+                for (int k = 1; k < NZ; ++k)
+                    acc = acc + Ar[k][i] * Hz[k][NZ - 1];
+                if (keep >> i & 1) {
+                    put(c.o + idx[i] * ny + nin, acc, c.first);
+                    put(c.o + nin * ny + idx[i], acc, c.first);
+                }
+            }
+            put(c.o + nin * ny + nin, Hz[NZ - 1][NZ - 1], c.first);
+        }
+        // each entry of A' Hz A goes to shared memory as it is made, so that
+        // no more than Ar, Hz and a few sums are live at once
+#pragma unroll
+        for (int i = 0; i < NZ; ++i)
+#pragma unroll
+            for (int j = 0; j < NZ; ++j)
+                if ((keep >> i) & (keep >> j) & 1)
+                    put(c.o + idx[i] * ny + idx[j],
+                        pc_at_h_a_ij<NZ>(Ar, Hz, i, j), c.first);
         return 0.0;
     }
-    double Hz[PC_MAXNZ][PC_MAXNZ];
-    pc_hess<NZ, SPEC>(z, NZ, alpha, mu, SPEC, c.floor, Hz);
-    const int ny = c.ny;
-    if (CO) {  // the cross column first: Hz's last column dies early
-        const int nin = c.nin;
-#pragma unroll
-        for (int i = 0; i < NZ; ++i) {
-            double acc = Ar[0][i] * Hz[0][NZ - 1];
-#pragma unroll
-            for (int k = 1; k < NZ; ++k) acc = acc + Ar[k][i] * Hz[k][NZ - 1];
-            if (keep >> i & 1) {
-                put(c.o + idx[i] * ny + nin, acc, c.first);
-                put(c.o + nin * ny + idx[i], acc, c.first);
-            }
-        }
-        put(c.o + nin * ny + nin, Hz[NZ - 1][NZ - 1], c.first);
+}
+
+// The runtime-width cone (nz = 6..32): the closed forms of cone<NZ> in the
+// same order (power_cone.cuh's pc_ helpers at NZ = 0 and their pcw_
+// mirrors), z and then gz or u in the thread's scratch row, A read where it
+// is staged.
+template <int SPEC, int MODE, bool CO>
+static __device__ __forceinline__ double cone_wide(const NBKPiece& P,
+                                                   const NodeCtx& c) {
+    const int nz = P.nc, nq = nz - 1;
+    const double* A =
+        staged(c.sh, P.sA, P.A + (size_t)c.n0 * nz * nz) + c.t * nz * nz;
+    const double* b = staged(c.sh, P.sb, P.b + (size_t)c.n0 * nz) + c.t * nz;
+    const double pn = staged(c.sh, P.sp, P.p + c.n0)[c.t];
+    const double mu = staged(c.sh, P.smu, P.mu + c.n0)[c.t];
+    double* z = c.scr;
+    pcw_affine(A, b, c.y, P.idx, nz, z);
+    if (CO) z[nq] = z[nq] + c.slack;
+    const double alpha = 2.0 / pn;
+    if (MODE == 0) return pc_value<0, SPEC>(z, nz, alpha, mu, SPEC, c.floor);
+    const unsigned keep = P.keep;
+    if (MODE == 1) {
+        pc_grad<0, SPEC>(z, nz, alpha, mu, SPEC, c.floor, z);  // z -> gz
+        for (int i = 0; i < nz; ++i)
+            if (keep >> i & 1)
+                put(c.o + P.idx[i], pcw_at_g(A, z, nz, i), c.first);
+        if (CO) put(c.o + c.nin, z[nq], c.first);
+        return 0.0;
     }
-    // each entry of A' Hz A goes to shared memory as it is made, so that
-    // no more than Ar, Hz and a few sums are live at once
-#pragma unroll
-    for (int i = 0; i < NZ; ++i)
-#pragma unroll
-        for (int j = 0; j < NZ; ++j)
-            if ((keep >> i) & (keep >> j) & 1)
-                put(c.o + idx[i] * ny + idx[j],
-                    pc_at_h_a_ij<NZ>(Ar, Hz, i, j), c.first);
+    const PcwHess h = pcw_hess(z, nz, alpha, mu, SPEC, c.floor);
+    const int ny = c.ny;
+    if (CO) {
+        const int nin = c.nin;
+        for (int i = 0; i < nz; ++i) {
+            if (!(keep >> i & 1)) continue;
+            double acc = A[i] * pcw_hz(h, z, 0, nq);
+            for (int k = 1; k < nz; ++k)
+                acc = acc + A[k * nz + i] * pcw_hz(h, z, k, nq);
+            put(c.o + P.idx[i] * ny + nin, acc, c.first);
+            put(c.o + nin * ny + P.idx[i], acc, c.first);
+        }
+        put(c.o + nin * ny + nin, h.H_ss, c.first);
+    }
+    for (int i = 0; i < nz; ++i) {
+        if (!(keep >> i & 1)) continue;
+        for (int j = 0; j < nz; ++j)
+            if (keep >> j & 1)
+                put(c.o + P.idx[i] * ny + P.idx[j],
+                    pcw_at_h_a_ij(A, h, z, nz, i, j), c.first);
+    }
     return 0.0;
 }
 
@@ -287,6 +374,52 @@ static __device__ __forceinline__ double linear(const NBKPiece& P,
     return 0.0;
 }
 
+// The wide linear block (nc or ni past 4 x 5, up to 32 x 32): the closed
+// forms of linear<NC, NI> in the same order (linear.cuh's lnw_ helpers), F
+// and then 1 / F or 1 / F^2 in the thread's scratch row.
+template <int MODE, bool CO>
+static __device__ __forceinline__ double linear_wide(const NBKPiece& P,
+                                                     const NodeCtx& c) {
+    const int nc = P.nc, ni = P.ni;
+    const double* A = staged(c.sh, P.sA, P.A + (size_t)c.n0 * nc * ni)
+                      + c.t * nc * ni;
+    const double* b = staged(c.sh, P.sb, P.b + (size_t)c.n0 * nc) + c.t * nc;
+    double* F = c.scr;
+    lnw_affine(A, b, c.y, P.idx, nc, ni, F);
+    if (CO)
+        for (int i = 0; i < nc; ++i) F[i] = F[i] + c.slack;
+    if (MODE == 0) return lnw_value(F, nc, c.floor);
+    const unsigned keep = P.keep;
+    if (MODE == 1) {
+        const double gl = lnw_inv(F, nc);
+        for (int i = 0; i < ni; ++i)
+            if (keep >> i & 1)
+                put(c.o + P.idx[i], lnw_grad(A, F, nc, ni, i), c.first);
+        if (CO) put(c.o + c.nin, gl, c.first);
+        return 0.0;
+    }
+    const double cn = lnw_inv2<CO>(F, nc);
+    const int ny = c.ny;
+    for (int i = 0; i < ni; ++i) {
+        if (!(keep >> i & 1)) continue;
+        for (int j = 0; j < ni; ++j)
+            if (keep >> j & 1)
+                put(c.o + P.idx[i] * ny + P.idx[j],
+                    lnw_hess_ij(A, F, nc, ni, i, j), c.first);
+    }
+    if (CO) {
+        const int nin = c.nin;
+        for (int i = 0; i < ni; ++i)
+            if (keep >> i & 1) {
+                const double cr = lnw_cross(A, F, nc, ni, i);
+                put(c.o + P.idx[i] * ny + nin, cr, c.first);
+                put(c.o + nin * ny + P.idx[i], cr, c.first);
+            }
+        put(c.o + nin * ny + nin, cn, c.first);
+    }
+    return 0.0;
+}
+
 #define NB_CONE_CASES(Z)                                          \
     case (Z - 2) * 3 + 0: return cone<Z, 0, MODE, CO>(P, c);     \
     case (Z - 2) * 3 + 1: return cone<Z, 1, MODE, CO>(P, c);     \
@@ -306,10 +439,24 @@ static __device__ __forceinline__ double eval_piece(const NBKPiece& P,
     }
 }
 
-// FORM: 0 barrier, 1 cobarrier, 2 cobarrier + box
-template <int MODE, int FORM>
-__global__ void __launch_bounds__(64)
-    node_barrier_kernel(const __grid_constant__ NBKTable tb) {
+// The wide kernels' pieces: the runtime-width cone by spec and the wide
+// linear block (which take every width, each with the bits of the register
+// instance of its shape).
+template <int MODE, bool CO>
+static __device__ __forceinline__ double eval_wide(const NBKPiece& P,
+                                                   const NodeCtx& c) {
+    switch (P.inst) {
+        case NB_CONE_WIDE + 0: return cone<0, 0, MODE, CO>(P, c);
+        case NB_CONE_WIDE + 1: return cone<0, 1, MODE, CO>(P, c);
+        case NB_CONE_WIDE + 2: return cone<0, 2, MODE, CO>(P, c);
+        default: return linear_wide<MODE, CO>(P, c);
+    }
+}
+
+// FORM: 0 barrier, 1 cobarrier, 2 cobarrier + box; WIDE: a table with a
+// piece past the register instances, every piece in a runtime-width one
+template <int MODE, int FORM, bool WIDE>
+static __device__ __forceinline__ void node_barrier_body(const NBKTable& tb) {
     constexpr bool CO = FORM > 0, BOX = FORM == 2;
     extern __shared__ __align__(16) double sh[];
     const int t = threadIdx.x, B = blockDim.x;
@@ -362,6 +509,7 @@ __global__ void __launch_bounds__(64)
         c.slack = CO ? c.y[nin] : 0.0;
         c.floor = tb.floor;
         c.o = o;
+        if constexpr (WIDE) c.scr = sh + tb.sscr + t * tb.scrs;
         const double* sel =
             tb.sel ? staged(sh, tb.ssel, tb.sel + (size_t)n0 * npc) + t * npc
                    : nullptr;
@@ -374,7 +522,11 @@ __global__ void __launch_bounds__(64)
                 add_zeros<MODE>(o, prev, act ? P.rows : 0u, ny);
             c.first = k == 0;
             double v = 0.0;
-            if (act) v = eval_piece<MODE, CO>(P, c);
+            if constexpr (WIDE) {
+                if (act) v = eval_wide<MODE, CO>(P, c);
+            } else {
+                if (act) v = eval_piece<MODE, CO>(P, c);
+            }
             if (MODE == 0) {
                 const double e = act ? v : 0.0;
                 T = k == 0 ? e : T + e;
@@ -436,18 +588,50 @@ __global__ void __launch_bounds__(64)
     }
 }
 
-// The instance code of a piece shape, -1 outside the kernel's limits.
+// The register kernels, one per (mode, form)
+template <int MODE, int FORM>
+__global__ void __launch_bounds__(64)
+    node_barrier_kernel(const __grid_constant__ NBKTable tb) {
+    node_barrier_body<MODE, FORM, false>(tb);
+}
+
+// The wide kernels: at least one block an SM lets ptxas keep their loops'
+// values in registers (with the bound of the register kernels it spilled
+// 16-24 bytes in three of them, on an H100 with CUDA 12.9)
+template <int MODE, int FORM>
+__global__ void __launch_bounds__(64, 1)
+    node_barrier_wide_kernel(const __grid_constant__ NBKTable tb) {
+    node_barrier_body<MODE, FORM, true>(tb);
+}
+
+// The instance code of a piece shape, -1 outside the kernel's limits: a
+// register instance where one takes the shape, else a runtime-width one.
 static int instance_code(int kind, int width, int ni, int spec) {
     if (kind == 0) {
-        if (width < 2 || width > NB_MAXZ || ni != width || spec < 0 || spec > 2)
+        if (width < 2 || width > NB_MAXW || ni != width || spec < 0 || spec > 2)
             return -1;
-        return (width - 2) * 3 + spec;
+        return width <= NB_MAXZ ? (width - 2) * 3 + spec : NB_CONE_WIDE + spec;
     }
-    if (kind != 1 || width < 1 || width > LN_MAXC || ni < 1 || ni > LN_MAXI)
+    if (kind != 1 || width < 1 || width > NB_MAXW || ni < 1 || ni > NB_MAXW)
         return -1;
     if (ni == 1 && width == 1) return NB_LIN_1x1;
     if (ni == 1 && width == 2) return NB_LIN_2x1;
-    return NB_LIN_ANY;
+    return width <= LN_MAXC && ni <= LN_MAXI ? NB_LIN_ANY : NB_LIN_WIDE;
+}
+
+// A table with a piece past the register instances runs in the wide
+// kernels, where every piece takes its runtime-width instance.
+static int wide_code(int kind, int spec) {
+    return kind == 0 ? NB_CONE_WIDE + spec : NB_LIN_WIDE;
+}
+
+// The doubles of a wide kernel's scratch row (0 in the others): the
+// widest vector (nz of a cone, nc of a linear block), at an odd stride.
+static int scratch_stride(const NBKTable& k) {
+    int w = 0;
+    for (int j = 0; j < k.npc; ++j)
+        if (k.pc[j].inst >= NB_CONE_WIDE) w = w > k.pc[j].nc ? w : k.pc[j].nc;
+    return w ? w | 1 : 0;
 }
 
 static int smem_doubles(const NBKTable& k, int mode, int B) {
@@ -460,7 +644,7 @@ static int smem_doubles(const NBKTable& k, int mode, int B) {
         if (P.p) n += 2 * region(B, 1);
     }
     if (mode > 0) n += region(B, 1) + B * out_stride(mode, k.ny);
-    return n;
+    return n + B * scratch_stride(k);
 }
 
 // Lays the staged regions out for blocks of B nodes.
@@ -483,18 +667,52 @@ static void layout(NBKTable& k, int mode, int B) {
     }
     k.sbw = mode > 0 ? take(1) : 0;
     k.sout = off;
+    k.scrs = scratch_stride(k);
+    k.sscr = off + (mode > 0 ? B * out_stride(mode, k.ny) : 0);
 }
 
-template <int MODE>
+// A block past 48 KB of shared memory needs the kernel's opt-in.
+template <int MODE, int FORM, bool WIDE>
+static cudaError_t launch(dim3 grid, int B, size_t smem, cudaStream_t st,
+                          const NBKTable& k) {
+    void (*kernel)(const NBKTable) = WIDE
+        ? node_barrier_wide_kernel<MODE, FORM>
+        : node_barrier_kernel<MODE, FORM>;
+    if (smem > NB_SMEM) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+    }
+    kernel<<<grid, B, smem, st>>>(k);
+    return cudaGetLastError();
+}
+
+template <int MODE, bool WIDE>
 static cudaError_t launch_form(int form, dim3 grid, int B, size_t smem,
                                cudaStream_t st, const NBKTable& k) {
     switch (form) {
-        case 0: node_barrier_kernel<MODE, 0><<<grid, B, smem, st>>>(k); break;
-        case 1: node_barrier_kernel<MODE, 1><<<grid, B, smem, st>>>(k); break;
-        default: node_barrier_kernel<MODE, 2><<<grid, B, smem, st>>>(k);
+        case 0: return launch<MODE, 0, WIDE>(grid, B, smem, st, k);
+        case 1: return launch<MODE, 1, WIDE>(grid, B, smem, st, k);
+        default: return launch<MODE, 2, WIDE>(grid, B, smem, st, k);
     }
-    return cudaGetLastError();
 }
+
+template <bool WIDE>
+static cudaError_t launch_mode(int mode, int form, dim3 grid, int B,
+                               size_t smem, cudaStream_t st,
+                               const NBKTable& k) {
+    switch (mode) {
+        case 0: return launch_form<0, WIDE>(form, grid, B, smem, st, k);
+        case 1: return launch_form<1, WIDE>(form, grid, B, smem, st, k);
+        default: return launch_form<2, WIDE>(form, grid, B, smem, st, k);
+    }
+}
+
+// Nodes a block of the last launch (the tests read it where the block's
+// rows push it below 16).
+static int nb_last_block = 0;
+
+extern "C" int node_barrier_last_block(void) { return nb_last_block; }
 
 extern "C" int node_barrier_launch(const NBTable* in, void* stream) {
     const NBTable& t = *in;
@@ -519,11 +737,19 @@ extern "C" int node_barrier_launch(const NBTable* in, void* stream) {
     k.m = t.m;
     k.ny = t.ny;
     k.nin = t.nc_co ? t.nc_co - 1 : t.ny;
+    bool wide = false;
+    for (int j = 0; j < t.npc; ++j) {
+        const NBPiece& P = t.pc[j];
+        const int code = instance_code(P.kind, P.nz, P.ni, P.spec);
+        if (code < 0) return (int)cudaErrorInvalidValue;
+        wide = wide || code >= NB_CONE_WIDE;
+    }
     for (int j = 0; j < t.npc; ++j) {
         const NBPiece& P = t.pc[j];
         NBKPiece& Q = k.pc[j];
-        const int code = instance_code(P.kind, P.nz, P.ni, P.spec);
-        if (code < 0 || code != P.inst) return (int)cudaErrorInvalidValue;
+        const int code = wide ? wide_code(P.kind, P.spec)
+                              : instance_code(P.kind, P.nz, P.ni, P.spec);
+        if (code != P.inst) return (int)cudaErrorInvalidValue;
         Q.A = P.A;
         Q.b = P.b;
         Q.p = P.kind == 0 ? P.p : nullptr;
@@ -531,7 +757,7 @@ extern "C" int node_barrier_launch(const NBTable* in, void* stream) {
         Q.inst = code;
         Q.nc = P.nz;
         Q.ni = P.ni;
-        Q.rows = t.nc_co ? 1u << k.nin : 0u;
+        Q.rows = t.nc_co ? 1u << k.nin : 0u;  // nin <= 31 in this form
         for (int i = 0; i < P.ni; ++i) {
             if (P.idx[i] < 0 || P.idx[i] >= k.nin)
                 return (int)cudaErrorInvalidValue;
@@ -543,20 +769,22 @@ extern "C" int node_barrier_launch(const NBTable* in, void* stream) {
             if (last) Q.keep |= 1u << i;
         }
     }
-    // 32 nodes a block spread fem2d_P2 L=5's 3,584 nodes over 112 SMs
+    // 32 nodes a block spread fem2d_P2 L=5's 3,584 nodes over 112 SMs;
+    // a table past 48 KB at 16 nodes halves them until the block fits
     int B = t.m <= 8448 ? 32 : 64;
     while (B > 16 && sizeof(double) * smem_doubles(k, t.mode, B) > NB_SMEM)
         B /= 2;
+    while (B > 1 && sizeof(double) * smem_doubles(k, t.mode, B) > NB_SMEM_MAX)
+        B /= 2;
     const size_t smem = sizeof(double) * smem_doubles(k, t.mode, B);
-    if (smem > NB_SMEM) return (int)cudaErrorInvalidValue;
+    if (smem > NB_SMEM_MAX) return (int)cudaErrorInvalidValue;
     layout(k, t.mode, B);
+    nb_last_block = B;
     const dim3 grid((t.m + B - 1) / B);
     const cudaStream_t st = (cudaStream_t)stream;
-    switch (t.mode) {
-        case 0: return (int)launch_form<0>(form, grid, B, smem, st, k);
-        case 1: return (int)launch_form<1>(form, grid, B, smem, st, k);
-        default: return (int)launch_form<2>(form, grid, B, smem, st, k);
-    }
+    return (int)(wide ? launch_mode<true>(t.mode, form, grid, B, smem, st, k)
+                      : launch_mode<false>(t.mode, form, grid, B, smem, st,
+                                           k));
 }
 
 // The table's layout as this library sees it, for the ctypes mirror's

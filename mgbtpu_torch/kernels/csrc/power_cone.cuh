@@ -14,7 +14,16 @@
 // Each helper is a template on the cone's size NZ (and the value ones on
 // the alpha specialisation SPEC). K2 (power_cone.cu) and K6
 // (node_barrier.cu) instantiate them with both fixed, so every loop unrolls
-// and the small arrays stay in registers.
+// and the small arrays stay in registers. K6's runtime-width cone (cone<0>,
+// nz up to 32) holds one vector in memory (the thread's scratch row),
+// overwritten in place as the forms go (z, then gz or u): it takes pc_qsq,
+// pc_value and pc_grad (gz = z) at NZ = 0 as they are, and the pcw_
+// helpers at the end for the rest. Those are MIRRORS of pc_affine, pc_at_g,
+// pc_hess and pc_at_h_a_ij (the same expressions in the same order, read
+// from memory, with Hz never formed: pcw_hz makes each entry where it is
+// used, as pc_hess makes it); a change to one of the pair must be made to
+// the other in the same order (tests/test_torch_kernels_cuda.py holds both
+// to the plain version's bits).
 #pragma once
 #include <math.h>
 
@@ -166,4 +175,78 @@ __device__ __forceinline__ void pc_at_h_a(const double Ar[PC_MAXNZ][PC_MAXNZ],
     for (int i = 0; i < NZ; ++i)
 #pragma unroll
         for (int j = 0; j < NZ; ++j) H[i][j] = pc_at_h_a_ij<NZ>(Ar, Hz, i, j);
+}
+
+// ---- runtime width ---------------------------------------------------------
+
+// z = A y[idx] + b (A row-major nz x nz)
+__device__ __forceinline__ void pcw_affine(const double* A, const double* b,
+                                           const double* y, const int* idx,
+                                           int nz, double* z) {
+    for (int i = 0; i < nz; ++i) {
+        double acc = A[i * nz] * y[idx[0]];
+        for (int j = 1; j < nz; ++j) acc = acc + A[i * nz + j] * y[idx[j]];
+        z[i] = acc + b[i];
+    }
+}
+
+// entry i of A' gz
+__device__ __forceinline__ double pcw_at_g(const double* A, const double* gz,
+                                           int nz, int i) {
+    double acc = A[i] * gz[0];
+    for (int k = 1; k < nz; ++k) acc = acc + A[k * nz + i] * gz[k];
+    return acc;
+}
+
+// The scalars of Hz (pc_hess); the u = q / r it needs replace q in z.
+struct PcwHess {
+    double two_ir, cv, H_ss;
+    int nq;
+};
+
+__device__ __forceinline__ PcwHess pcw_hess(double* z, int nz, double alpha,
+                                            double mu, int spec,
+                                            double floor) {
+    const int nq = nz - 1;
+    const double s = z[nq];
+    const double s_a = pow_alpha(s, alpha, spec, floor);
+    const double r = s_a - pc_qsq<0>(z, nq);
+    const double inv_r = 1.0 / r;
+    PcwHess h;
+    h.nq = nq;
+    h.two_ir = 2.0 * inv_r;
+    const double s_am1 = s_a / s;
+    const double s_am2 = s_am1 / s;
+    for (int i = 0; i < nq; ++i) z[i] = inv_r * z[i];
+    const double v = s_am1 * inv_r;
+    h.H_ss = -alpha * (alpha - 1.0) * s_am2 * inv_r
+             + (alpha * alpha) * (v * v) + (mu / s) / s;
+    h.cv = -2.0 * alpha * v;
+    return h;
+}
+
+// Hz[k][l] from u (pc_hess's expressions)
+__device__ __forceinline__ double pcw_hz(const PcwHess& h, const double* u,
+                                         int k, int l) {
+    if (k < h.nq && l < h.nq) {
+        const double uu = 4.0 * u[k] * u[l];
+        return k == l ? uu + h.two_ir : uu;
+    }
+    if (k < h.nq) return h.cv * u[k];
+    if (l < h.nq) return h.cv * u[l];
+    return h.H_ss;
+}
+
+// Entry (i, j) of A' Hz A (pc_at_h_a_ij: the (k, l) pairs summed k-major)
+__device__ __forceinline__ double pcw_at_h_a_ij(const double* A,
+                                                const PcwHess& h,
+                                                const double* u, int nz,
+                                                int i, int j) {
+    double acc = A[i] * pcw_hz(h, u, 0, 0) * A[j];
+    for (int l = 1; l < nz; ++l)
+        acc = acc + A[i] * pcw_hz(h, u, 0, l) * A[l * nz + j];
+    for (int k = 1; k < nz; ++k)
+        for (int l = 0; l < nz; ++l)
+            acc = acc + A[k * nz + i] * pcw_hz(h, u, k, l) * A[l * nz + j];
+    return acc;
 }

@@ -8,12 +8,14 @@ path that is ``jax.vmap(F)`` (``mgbtpu/solver/barrier.py:59``) of
 ``convex_piecewise``/``intersect`` (``mgbtpu/convex/piecewise.py``), and of
 the phase-I feasibility wrapper (``mgbtpu/solver/mgb.py:928``) around any of
 them. K2 (``power_cone.py``) keeps the lone power cone's barrier; K6 takes
-every other case.
+every other case, and a lone cone that K2 does not take (nz > 5 or more
+than 12 rows).
 
-A barrier is a table of at most 4 ``Piece``s, each a power cone (nz <= 5)
-or a linear block (nc <= 4, ni <= 5) reading the rows ``idx`` of y, and an
-optional select grid (m, pieces): piece k is active at a node where its
-column is nonzero. Per node::
+A barrier is a table of at most 16 ``Piece``s over at most 32 rows (the
+cobarrier's slack and the phase-I box rows included), each a power cone
+(2 <= nz <= 32) or a linear block (nc, ni <= 32) reading the rows ``idx``
+of y, and an optional select grid (m, pieces): piece k is active at a node
+where its column is nonzero. Per node::
 
     mode 0:  bw T (0 where bw == 0) + <wc, y>           -> (m,)
     mode 1:  bw T (0 where bw == 0) + wc                -> (m, ny)
@@ -29,19 +31,25 @@ entry, cross row/column and corner are the reference's C1/C2. With
 over the rows NC.. of y.
 
 CUDA design (``csrc/node_barrier.cu``; the closed forms in
-``csrc/power_cone.cuh``, shared with K2, and ``csrc/linear.cuh``): one
-kernel per (mode, form), the form the barrier, the cobarrier or the
-cobarrier with the box; one thread per node in blocks of 32 nodes (64 above
-8,448 nodes, 16 where ny x ny rows would pass 48 KB of shared memory). A
-block stages its nodes' rows and every piece's grids in shared memory with
-coalesced ``cp.async`` copies, then loops over the pieces, switching per
-piece to the instance of its shape that ``instance`` picks: a power cone on
-(nz, spec), a linear block on (nc, ni) for the shapes the constructors
-build, a runtime-width linear block for the rest. Every instance keeps its
-small arrays in registers (no kernel has a stack frame). Modes 1 and 2
-build each node's row or ny x ny block in shared memory as the left fold
-over the pieces (an exact +0.0 added where a piece leaves an earlier
-piece's entry alone) and store the block's rows contiguous; ny <= 12.
+``csrc/power_cone.cuh``, shared with K2, and ``csrc/linear.cuh``): two
+kernels per (mode, form), the form the barrier, the cobarrier or the
+cobarrier with the box, one with register instances and one, for tables
+with a wider piece, with runtime-width ones; one thread per node in blocks
+of 32 nodes (64 above 8,448 nodes, 16 where ny x ny rows would pass 48 KB
+of shared memory, and fewer, with the kernel's opt-in past 48 KB, where 16
+would not fit). A block stages its nodes' rows and every piece's grids in
+shared memory with coalesced ``cp.async`` copies, then loops over the
+pieces, switching per piece to the instance of its shape that ``instance``
+picks: a power cone on (nz, spec) for nz <= 5, a linear block on (nc, ni)
+for the shapes the constructors build, a runtime-width linear block for the
+rest up to 4 x 5, each keeping its small arrays in registers; in the wide
+kernels every piece takes a runtime-width cone or a wide linear block,
+which keep their one vector in a per-thread scratch row in shared memory
+and make each entry of the cone's Hessian where it is used (no kernel has a
+stack frame). Modes 1 and 2 build each node's row or ny x ny block in
+shared memory as the left fold over the pieces (an exact +0.0 added where a
+piece leaves an earlier piece's entry alone) and store the block's rows
+contiguous; ny <= 32 (the 32-bit row masks).
 Built with ``--fmad=false`` and following the plain version below operation
 by operation, so it gives the plain version's bits. What bounds it on an
 H100: bytes (a few hundred flops per node against the pieces' grids and the
@@ -61,7 +69,9 @@ from ..utils.log import Log, barrier_floor
 
 NAME = "node_barrier"
 POWER, LINEAR = 0, 1
-MAX_PIECES, MAX_ROWS = 4, 12
+MAX_PIECES, MAX_ROWS = 16, 32
+MAX_WIDTH = 32      # a cone's nz, a linear block's nc and ni
+REGISTER_NZ = 5     # the widest cone with register-resident instances
 
 
 @dataclass(frozen=True)
@@ -202,28 +212,37 @@ def node_barrier_plain(mode, Dz, pieces, args, sel, bw, wc, co=None,
     return out + wc if mode == 1 else out
 
 
-# Instance codes of csrc/node_barrier.cu: a power cone (nz, spec) is
+# Instance codes of csrc/node_barrier.cu: a power cone (nz <= 5, spec) is
 # (nz - 2) * 3 + spec; the linear shapes the constructors build (nc, ni) in
-# LINEAR_SHAPES follow; every other linear block takes the runtime-width
-# instance.
+# LINEAR_SHAPES follow; every other linear block up to nc = 4, ni = 5 takes
+# the runtime-width instance (LINEAR_ANY); these run in the register
+# kernels. A table with a wider piece runs in the wide kernels, where every
+# piece takes the runtime-width cone by spec (CONE_WIDE + spec) or the wide
+# linear block (LINEAR_WIDE).
 LINEAR_SHAPES = ((1, 1), (2, 1))
 LINEAR_ANY = 12 + len(LINEAR_SHAPES)
+CONE_WIDE = LINEAR_ANY + 1
+LINEAR_WIDE = CONE_WIDE + 3
 FORMS = ("barrier", "cobarrier", "cobarrier + box")
 
 
 def instance_code(kind: int, width: int, ni: int, spec: int) -> int:
     """The kernel instance of one piece shape, -1 outside the kernel's
-    limits (power cone 2 <= nz <= 5 reading nz rows, spec 0/1/2; linear
-    block nc <= 4, ni <= 5)."""
+    limits (power cone 2 <= nz <= 32 reading nz rows, spec 0/1/2; linear
+    block nc, ni <= 32)."""
     if kind == POWER:
-        if 2 <= width <= 5 and ni == width and spec in (0, 1, 2):
+        if not (2 <= width <= MAX_WIDTH and ni == width
+                and spec in (0, 1, 2)):
+            return -1
+        if width <= REGISTER_NZ:
             return (width - 2) * 3 + spec
-        return -1
-    if kind != LINEAR or not (1 <= width <= 4 and 1 <= ni <= 5):
+        return CONE_WIDE + spec
+    if kind != LINEAR or not (1 <= width <= MAX_WIDTH
+                              and 1 <= ni <= MAX_WIDTH):
         return -1
     if (width, ni) in LINEAR_SHAPES:
         return 12 + LINEAR_SHAPES.index((width, ni))
-    return LINEAR_ANY
+    return LINEAR_ANY if width <= 4 and ni <= 5 else LINEAR_WIDE
 
 
 def instance_name(code: int) -> str:
@@ -231,30 +250,48 @@ def instance_name(code: int) -> str:
         return f"power<{code // 3 + 2}, {code % 3}>"
     if code < LINEAR_ANY:
         return "linear<%d, %d>" % LINEAR_SHAPES[code - 12]
-    return "linear<runtime>"
+    if code == LINEAR_ANY:
+        return "linear<runtime>"
+    if code < LINEAR_WIDE:
+        return f"power<runtime, {code - CONE_WIDE}>"
+    return "linear<wide>"
+
+
+def wide_code(kind: int, spec: int) -> int:
+    """A piece's instance in the wide kernels: the runtime-width cone by
+    spec, or the wide linear block."""
+    return CONE_WIDE + spec if kind == POWER else LINEAR_WIDE
 
 
 @dataclass(frozen=True)
 class Instance:
-    """The kernel a call launches, (mode, form), and the instance code of
-    each piece (see ``instance``)."""
+    """The kernel a call launches, (mode, form, wide), and the instance code
+    of each piece (see ``instance``)."""
     mode: int
     form: int
     codes: tuple
 
+    @property
+    def wide(self) -> bool:
+        return any(c >= CONE_WIDE for c in self.codes)
+
     def __str__(self):
-        return (f"node_barrier_kernel<mode {self.mode}, {FORMS[self.form]}>"
-                f" [{', '.join(instance_name(c) for c in self.codes)}]")
+        kernel = "node_barrier_wide_kernel" if self.wide \
+            else "node_barrier_kernel"
+        return (f"{kernel}<mode {self.mode}, {FORMS[self.form]}> "
+                f"[{', '.join(instance_name(c) for c in self.codes)}]")
 
 
 def instance(pieces, mode, ny, co=None, box=False) -> Instance:
     """The kernel and per-piece instances that run ``pieces`` in ``mode``
     over ny rows (``co`` the cobarrier width or None, ``box`` the phase-I
-    box); raises ValueError for a table outside the kernel's limits, on any
-    device."""
+    box); raises ValueError for a table outside the kernel's limits (16
+    pieces, 32 rows, widths up to 32), on any device."""
     npc = len(pieces)
     B.require(mode in (0, 1, 2), NAME, f"mode {mode}")
-    B.require(1 <= npc <= MAX_PIECES, NAME, f"{npc} pieces")
+    B.require(npc >= 1, NAME, "0 pieces")
+    B.require(npc <= MAX_PIECES, NAME,
+              f"{npc} pieces exceed {MAX_PIECES}")
     B.require(1 <= ny <= MAX_ROWS, NAME, f"{ny} rows exceed {MAX_ROWS}")
     if co is None:
         B.require(not box, NAME, "the box needs the cobarrier form")
@@ -269,8 +306,12 @@ def instance(pieces, mode, ny, co=None, box=False) -> Instance:
     for pc in pieces:
         B.require(all(0 <= i < nin for i in pc.idx), NAME, f"idx {pc.idx}")
         code = instance_code(pc.kind, pc.width, len(pc.idx), pc.spec)
-        B.require(code >= 0, NAME, f"piece {pc} outside the kernel's limits")
+        B.require(code >= 0, NAME, f"piece {pc} outside the kernel's limits"
+                  f" (cone 2 <= nz <= {MAX_WIDTH}, linear nc, ni <= "
+                  f"{MAX_WIDTH})")
         codes.append(code)
+    if any(c >= CONE_WIDE for c in codes):    # the wide kernels
+        codes = [wide_code(pc.kind, pc.spec) for pc in pieces]
     form = 0 if co is None else (2 if box else 1)
     return Instance(mode, form, tuple(codes))
 
@@ -283,7 +324,7 @@ class _Piece(ctypes.Structure):
                 ("p", ctypes.c_void_p), ("mu", ctypes.c_void_p),
                 ("kind", ctypes.c_int), ("nz", ctypes.c_int),
                 ("ni", ctypes.c_int), ("spec", ctypes.c_int),
-                ("idx", ctypes.c_int * 5), ("inst", ctypes.c_int)]
+                ("idx", ctypes.c_int * MAX_ROWS), ("inst", ctypes.c_int)]
 
 
 class _Table(ctypes.Structure):
@@ -334,6 +375,13 @@ def _launcher():
 
 
 _LAUNCH: dict = {}
+
+
+def last_block() -> int:
+    """Nodes a block of the last launch on the card: 32 (64 above 8,448
+    nodes), 16 where the block's rows pass 48 KB of shared memory, fewer
+    where 16 nodes pass the opt-in 227 KB."""
+    return B.launcher(NAME, [], "node_barrier_last_block")()
 
 
 def _check_grids(pc, grids, m):
@@ -393,10 +441,15 @@ def node_barrier(mode, Dz, pieces, args, sel, bw, wc, co=None, box=None):
     err = _launcher()(ctypes.byref(t), B.stream(Dz.device))
     B.check(NAME, err)
     node_barrier.launches += 1
+    node_barrier.mode_launches[mode] += 1
     if co is not None:
         node_barrier.co_launches += 1
+    if inst.wide:
+        node_barrier.wide_launches += 1
     return out
 
 
 node_barrier.launches = 0
 node_barrier.co_launches = 0    # of which in the cobarrier (phase-I) form
+node_barrier.mode_launches = [0, 0, 0]     # the same launches by mode
+node_barrier.wide_launches = 0  # of which with a runtime-width/wide piece

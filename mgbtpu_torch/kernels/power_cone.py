@@ -29,8 +29,9 @@ registers. A block stages its nodes' A, b, Dz and wc in shared memory with
 coalesced ``cp.async`` copies; modes 1 and 2 build the block's rows or
 nD x nD blocks in shared memory (the entries outside the cone's rows
 first, then the cone's entries at the ``idx`` positions) and store them
-coalesced. nz <= 5, nD <= 12. Every other barrier family, and the power
-cone's cobarrier, runs through K6 (``node_barrier.py``). What bounds it on
+coalesced. nz <= 5, nD <= 12. Every other barrier family, the power
+cone's cobarrier and a lone cone past those limits run through K6
+(``node_barrier.py``). What bounds it on
 an H100: bytes (a few hundred flops per node against ~(nz^2 + 2nD + 4)
 doubles read); at L=5 the inputs sit in L2 and the call is launch-bound.
 """
@@ -45,6 +46,7 @@ from ..convex._common import gather, scatter_mat, scatter_vec, ssum
 from ..utils.log import Log, barrier_floor, safe_pow
 
 NAME = "power_cone"
+MAX_NZ, MAX_ROWS = 5, 12    # the kernel's limits (K6 takes wider cones)
 _ARGS = ([ctypes.c_int] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
          + [ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p])
 
@@ -146,6 +148,12 @@ def power_cone_plain(mode, Dz, A, b, p, mu, bw, wc, idx, spec):
     return torch.where(bw2 != 0, bw2 * H, torch.zeros_like(H))
 
 
+def takes(nz: int, nD: int) -> bool:
+    """Whether the kernel takes a cone of nz rows over nD rows of Dz (on
+    every device the Convex routes a wider one to K6)."""
+    return 2 <= nz <= MAX_NZ and nD <= MAX_ROWS
+
+
 def power_cone_eval(mode, Dz, A, b, p, mu, bw, wc, idx, spec):
     """Dz (m, nD), A (m, nz*nz), b (m, nz), p/mu/bw (m,), wc (m, nD); ``idx``
     the nz input rows (tuple of ints), ``spec`` in {0, 1, 2}. Returns the
@@ -157,7 +165,7 @@ def power_cone_eval(mode, Dz, A, b, p, mu, bw, wc, idx, spec):
     nz = len(idx)
     B.require(mode in (0, 1, 2), NAME, f"mode {mode}")
     B.require(spec in (0, 1, 2), NAME, f"spec {spec}")
-    B.require(2 <= nz <= 5 and nD <= 12, NAME, f"nz={nz}, nD={nD}")
+    B.require(takes(nz, nD), NAME, f"nz={nz}, nD={nD}")
     B.require(all(0 <= i < nD for i in idx), NAME, f"idx {idx}")
     B.cuda_f64(NAME, Dz, (m, nD), "Dz")
     B.cuda_f64(NAME, A, (m, nz * nz), "A")

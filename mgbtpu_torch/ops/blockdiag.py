@@ -36,6 +36,10 @@ class BlockDiagHost:
         N, p, q = self.data.shape
         return np.einsum("epq,eq->ep", self.data, v.reshape(N, q)).reshape(-1)
 
+    def rmatvec(self, v: np.ndarray) -> np.ndarray:
+        N, p, q = self.data.shape
+        return np.einsum("epq,ep->eq", self.data, v.reshape(N, p)).reshape(-1)
+
 
 def block_column_sparse(op, active: int, nu: int) -> sp.csr_matrix:
     """Sparse form of ``[0 ... op ... 0]`` with ``op`` in column-block ``active``

@@ -1,8 +1,13 @@
-"""The PyTorch port stands alone: no module of ``mgbtpu_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``mgbtpu`` (an AST
-scan, so imports inside functions count too)."""
+"""The PyTorch port stands alone: no module of ``mgbtpu_torch``, not
+``chip_smoke.py`` and not the models it solves (``port_models.py``)
+imports ``jax`` or the JAX package ``mgbtpu`` (an AST
+scan, so imports inside functions count too; the front ends and the plots
+included), and the package imports where matplotlib does not (the card's
+host has none)."""
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -11,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "mgbtpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "port_models.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "mgbtpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -36,8 +42,21 @@ def test_scan_covers_the_port():
                    ("discretize", "spectral.py"),
                    ("utils", "interpolate.py"),
                    ("utils", "checkpoint.py"),
-                   ("hierarchy", "prolongators.py")):
+                   ("hierarchy", "prolongators.py"),
+                   ("frontends", "model.py"),
+                   ("frontends", "gmsh.py"),
+                   ("plot", "plotting.py"),
+                   ("plot", "html3d.py")):
         assert any(f.endswith(os.path.join(*module)) for f in files)
+
+
+def test_the_port_imports_without_matplotlib():
+    code = ("import sys; sys.modules['matplotlib'] = None\n"
+            "import mgbtpu_torch as mt\n"
+            "assert callable(mt.plot3d_html) and callable(mt.Model)\n"
+            "assert 'jax' not in sys.modules and 'mgbtpu' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -640,15 +640,168 @@ def test_node_barrier_repeated_rows(dev, mode):
         assert _same_bits(out, ref)
 
 
+def _wide_tables(m, rng, table, room):
+    """Tables past K6's first limits (4 pieces, 12 rows, cones nz <= 5,
+    linear 4 x 5): (Convex, D rows) of ``table``. The cobarrier form adds a
+    row and the phase-I form 1 + 3 (six pieces: 14; sixteen pieces: 32, the
+    kernel's widest). The widest cone and linear block fill the ``room``
+    rows the form leaves of the 32: a cone of nz = 32 (31 in the
+    cobarrier form, 28 in phase I) and a block of 32 x 32 (32 x 31,
+    32 x 28). The mixed table puts pieces the register kernels take (cones
+    of nz = 2 and 3, linear<1, 1>, linear<2, 1> and a runtime-width
+    3 x 2 block) beside an nz = 7 cone, so each of them runs in its wide
+    instance."""
+    x = np.zeros((m, 2))
+    cone, lin = mt.convex_euclidian_power, mt.convex_linear
+
+    def rand_A(n):
+        return np.tile(np.eye(n).reshape(1, -1), (m, 1)) \
+            + 0.01 * rng.standard_normal((m, n * n))
+
+    six = (cone(x=x, idx=(1, 2, 9), p=1.0), cone(x=x, idx=(3, 8), p=2.0),
+           cone(x=x, idx=(4, 5, 6, 9), A_grid=rand_A(4), p=1.5),
+           lin(x=x, idx=(0,), A=lambda _: np.array([[1.0], [-1.0]]),
+               b=lambda _: np.array([2.0, 2.0])),
+           lin(x=x, idx=(0, 7), A_grid=rng.standard_normal((m, 6)),
+               b_grid=rng.uniform(2.0, 4.0, (m, 3))),
+           lin(x=x, idx=(7,), A=lambda _: np.array([[1.0]]),
+               b=lambda _: np.array([3.0])))
+    sixteen = [lin(x=x, idx=(k, (k + 5) % 27),
+                   A_grid=rng.standard_normal((m, 2)),
+                   b_grid=rng.uniform(2.0, 4.0, (m, 1))) if k % 2 else
+               cone(x=x, idx=(k, k + 1, 27), p=(1.0, 2.0, 1.5)[k % 3])
+               for k in range(16)]
+    if table == "cone_widest":
+        return cone(x=x, idx=tuple(range(room)), A_grid=rand_A(room),
+                    p=1.5), room
+    if table == "linear_widest":
+        return lin(x=x, idx=tuple(range(room))[::-1],
+                   A_grid=rng.standard_normal((m, 32 * room)),
+                   b_grid=rng.uniform(6.0, 9.0, (m, 32))), room
+    if table == "mixed":
+        mixed = (cone(x=x, idx=(0, 1, 11), p=1.0),
+                 lin(x=x, idx=(2,), A=lambda _: np.array([[1.0]]),
+                     b=lambda _: np.array([3.0])),
+                 lin(x=x, idx=(3,), A=lambda _: np.array([[1.0], [-1.0]]),
+                     b=lambda _: np.array([2.0, 2.0])),
+                 cone(x=x, idx=(4, 10), p=2.0),
+                 lin(x=x, idx=(1, 2), A_grid=rng.standard_normal((m, 6)),
+                     b_grid=rng.uniform(2.0, 4.0, (m, 3))),
+                 cone(x=x, idx=(5, 6, 7, 8, 9, 0, 10), A_grid=rand_A(7),
+                      p=1.5))
+        sel = (rng.uniform(size=(m, 6)) < 0.8).astype(float)
+        return mt.convex_piecewise(mixed, select_grid=sel, x=x), 12
+    return {
+        "six_pieces": (mt.convex_piecewise(
+            six, select_grid=(rng.uniform(size=(m, 6)) < 0.8).astype(float),
+            x=x), 10),
+        "cone_nz7_p15": (cone(x=x, idx=(0, 1, 2, 3, 4, 5, 8),
+                              A_grid=rand_A(7), p=1.5), 9),
+        "cone_nz7_p1": (cone(x=x, idx=(2, 1, 0, 4, 5, 6, 3), p=1.0), 7),
+        "cone_nz9_p2": (cone(x=x, idx=(8, 0, 1, 2, 3, 4, 5, 6, 7),
+                             A_grid=rand_A(9), p=2.0), 9),
+        "wide_linear": (lin(x=x, idx=(0, 1, 2, 3, 4, 5, 6),
+                            A_grid=rng.standard_normal((m, 42)),
+                            b_grid=rng.uniform(6.0, 9.0, (m, 6))), 8),
+        "sixteen_pieces": (mt.intersect(x, *sixteen), 28),
+    }[table]
+
+
+WIDE = ["six_pieces", "cone_nz7_p15", "cone_nz7_p1", "cone_nz9_p2",
+        "wide_linear", "sixteen_pieces", "cone_widest", "linear_widest",
+        "mixed"]
+ROOM = {"barrier": 32, "cobarrier": 31, "phase_one": 28}
+
+
+@pytest.mark.parametrize("form", ["barrier", "cobarrier", "phase_one"])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("table", WIDE)
+def test_node_barrier_wide_tables(dev, table, mode, form):
+    """K6's wide tables (more than 4 pieces, up to 32 rows, the
+    runtime-width cone, the wide linear block, narrow pieces in their wide
+    instances) in every mode and form, with infeasible and masked nodes,
+    bitwise equal to the plain version; 3,001 nodes (blocks of 32, or
+    fewer where a block's rows pass 48 KB: the widest cone and block run
+    their Hessians at 8 nodes a block, where 16 would pass the opt-in
+    227 KB, and their other modes at 16)."""
+    from mgbtpu_torch.kernels.node_barrier import instance, last_block
+
+    rng = np.random.default_rng(900 + WIDE.index(table))
+    m = 3001
+    Q, nD = _wide_tables(m, rng, table, ROOM[form])
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    Dz = rng.uniform(-0.3, 0.3, (m, nD))
+    s_rows = sorted({pc.idx[-1] for pc in Q.pieces if pc.kind == POWER})
+    Dz[:, s_rows] = rng.uniform(2.0, 4.0, (m, len(s_rows)))
+    Dz[:60] *= rng.choice([-6.0, 6.0], (60, nD))        # infeasible nodes
+    if form == "phase_one":
+        call = _phase_one_call(mode, Q, Dz, rng, t)
+    else:
+        y, co = Dz, None
+        if form == "cobarrier":
+            y = np.concatenate([Dz, rng.uniform(-0.5, 0.5, (m, 1))], axis=1)
+            co = nD + 1
+        bw = np.full(m, 1.0 / m)
+        bw[10:20] = 0.0
+        args = tuple(t(a) for a in Q.args)
+        call = (mode, t(y), Q.pieces, args, args[0] if Q.select else None,
+                t(bw), t(rng.standard_normal(y.shape)), co, None)
+    before = K.node_barrier.launches
+    out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
+    assert _rel(out, ref) <= TOL
+    assert _same_bits(out, ref)
+    assert _same_bits(out, K.node_barrier(*call))
+    assert K.node_barrier.launches == before + 2
+    inst = instance(Q.pieces, mode, call[1].shape[1], call[7],
+                    call[8] is not None)
+    if table == "mixed":
+        assert inst.wide and len(set(inst.codes)) == 4
+    if table in ("cone_widest", "linear_widest"):
+        assert call[1].shape[1] == 32
+        assert last_block() == (8 if mode == 2 else 16)
+
+
+@pytest.mark.parametrize("mode", [1, 2])
+@pytest.mark.parametrize("order", ["linear_first", "cone_first"])
+def test_node_barrier_signed_zero_fold_wide(dev, order, mode):
+    """test_node_barrier_signed_zero_fold on the wide instances: a wide
+    linear block (nc = 5) whose A rows hold -1 and 0 gives -0.0 at its
+    gradient entry 1 and Hessian entries (0, 1), (1, 0); a runtime-width
+    cone (nz = 6) on rows 2..7 leaves them alone. Phase-I form, wc = -0.0,
+    bitwise equal to the plain version."""
+    rng = np.random.default_rng(77 + mode)
+    m, nD = 200, 8
+    x = np.zeros((m, 2))
+    A = np.zeros((5, 2))
+    A[:, 0] = -1.0
+    lin = mt.convex_linear(x=x, idx=(0, 1), A=lambda _: A,
+                           b=lambda _: np.full(5, 5.0))
+    cone = mt.convex_euclidian_power(x=x, idx=(2, 3, 4, 5, 6, 7), p=2.0)
+    pieces = (lin, cone) if order == "linear_first" else (cone, lin)
+    sel = np.ones((m, 2))
+    sel[::7, 0] = 0.0
+    sel[::5, 1] = 0.0
+    Q = mt.convex_piecewise(pieces, select_grid=sel, x=x)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    Dz = rng.uniform(-0.3, 0.3, (m, nD))
+    Dz[:, 7] = rng.uniform(2.0, 3.0, m)
+    call = _phase_one_call(mode, Q, Dz, rng, t, wc=np.full((m, nD + 4), -0.0))
+    out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
+    assert _same_bits(out, ref)
+
+
 def test_node_barrier_has_no_local_memory(dev):
     """ptxas (-v, the committed flags) reports 0 bytes of stack and no
-    spills for every function of node_barrier.cu: K6's 9 kernels, one per
-    (mode, form), and any callee that was not inlined."""
+    spills for every function of node_barrier.cu: K6's 18 kernels, one per
+    (mode, form) with register instances and one with runtime-width ones
+    (which keep their vectors in shared memory, not in local memory), and
+    any callee that was not inlined."""
     from mgbtpu_torch.kernels import _build
 
     _build.build_all(("node_barrier",), force=True)
     _, info = _build.PTXAS["node_barrier"]
     assert sum("node_barrier_kernel" in k for k in info) == 9
+    assert sum("node_barrier_wide_kernel" in k for k in info) == 9
     for name, r in info.items():
         assert (r["stack"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), \
             (name, r)
@@ -659,7 +812,7 @@ def test_node_barrier_refuses_what_it_does_not_take(dev):
     m = 16
     Q, nD = _tables(m, rng)["rof"]
     args = tuple(torch.as_tensor(a, device=dev) for a in Q.args)
-    y = torch.zeros((m, 13), dtype=torch.float64, device=dev)
+    y = torch.zeros((m, 33), dtype=torch.float64, device=dev)
     ones = torch.ones(m, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="rows exceed"):
         K.node_barrier(0, y, Q.pieces, args, args[0], ones, y)

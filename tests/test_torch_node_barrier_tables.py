@@ -3,8 +3,8 @@ piece table that the port's constructors build (each zoo problem's set,
 ``assemble``'s p-Laplace cone, ``parabolic_solve``'s pair, and
 ``convex_linear``/``convex_piecewise``/``intersect`` of the zoo's pieces)
 has a kernel instance in barrier and phase-I form, within the kernel's
-limits; a table outside them is refused with ValueError on the CPU as on
-the card. Also the ctypes mirror's layout check and the ptxas report's
+limits (16 pieces, 32 rows, widths up to 32); a table outside them is
+refused with ValueError on the CPU as on the card. Also the ctypes mirror's layout check and the ptxas report's
 parser, on made-up library answers. The kernel itself runs only on the card
 (``tests/test_torch_kernels_cuda.py``)."""
 import ctypes
@@ -16,7 +16,8 @@ import torch
 import mgbtpu_torch as mt
 import mgbtpu_torch.solver.parabolic as P
 from mgbtpu_torch.kernels import _build
-from mgbtpu_torch.kernels.node_barrier import (LAYOUT, LINEAR, LINEAR_ANY,
+from mgbtpu_torch.kernels.node_barrier import (CONE_WIDE, LAYOUT, LINEAR,
+                                               LINEAR_ANY, LINEAR_WIDE,
                                                POWER, Piece, _Table,
                                                check_layout, instance,
                                                instance_code, instance_name,
@@ -79,8 +80,9 @@ def test_parabolic_pair_has_instances(mg, p):
 
 
 def test_combinations_of_the_zoo_pieces_have_instances(mg):
-    """convex_linear on its own and at its widest, convex_piecewise and
-    intersect of the zoo's pieces up to the 4 the kernel takes."""
+    """convex_linear on its own and at the widest runtime-width block,
+    convex_piecewise and intersect of the zoo's pieces (4 here; the kernel
+    takes 16, tests/test_torch_wide_tables.py)."""
     lone = {n: getattr(mt.zoo, n)(mg, device="cpu").Q
             for n in ("p_harmonic", "minimal_surface")}
     obstacle = mt.zoo.two_sided_obstacle(mg, device="cpu").Q
@@ -108,19 +110,55 @@ def test_combinations_of_the_zoo_pieces_have_instances(mg):
                                                         "linear<2, 1>"]
 
 
+def test_the_front_ends_tables_have_instances(mg):
+    """The tables the Model DSL lowers past K6's first limits: five
+    constraints (a cone and four linear bounds, 5 pieces; phase I over 7
+    rows) in the register kernels, three fields with gradients (one cone
+    of nz = 7 over 10 rows) in the wide kernels."""
+    import port_models
+
+    m5, _ = port_models.five_constraints(mt, mg, device="cpu")
+    prob = m5._lower()
+    assert len(prob.Q.pieces) == 5
+    _holds(prob.Q, 4, 2)
+    m3, _ = port_models.three_fields(mt, mg, device="cpu")
+    prob = m3._lower()
+    (pc,) = prob.Q.pieces
+    assert (pc.width, len(prob.M[0].D_fine)) == (7, 10)
+    for mode, ny, co, box in _forms(prob.Q, 10, 4):
+        inst = instance(prob.Q.pieces, mode, ny, co, box)
+        assert inst.wide and inst.codes == (CONE_WIDE + pc.spec,)
+
+
+def test_the_widest_tables_have_instances():
+    """16 pieces over 28 rows, 32 in the phase-I form, and the widest cone
+    and linear block, within the limits; the ctypes mirror holds 16 pieces
+    of 32 rows each."""
+    pieces = tuple(_cone((k, k + 1, 27)) for k in range(16))
+    for mode in (0, 1, 2):
+        assert instance(pieces, mode, 28).codes == (4,) * 16
+        assert instance(pieces, mode, 32, 29, True).form == 2
+    widest = (Piece(POWER, tuple(range(32)), 32, 0),
+              Piece(LINEAR, tuple(range(32)), 32))
+    inst = instance(widest, 2, 32)
+    assert inst.wide and inst.codes == (CONE_WIDE, LINEAR_WIDE)
+    assert len(_Table().pc) == 16 and len(_Table().pc[0].idx) == 32
+
+
 def _cone(idx, spec=1, offset=0):
     return Piece(POWER, tuple(idx), len(idx), spec, offset)
 
 
 @pytest.mark.parametrize("pieces,mode,ny,co,box,what", [
-    ((_cone((0, 1)),) * 5, 2, 4, None, False, "5 pieces"),
+    ((_cone((0, 1)),) * 17, 2, 4, None, False, "17 pieces"),
     ((), 2, 4, None, False, "0 pieces"),
-    ((_cone((0, 1)),), 2, 13, None, False, "rows exceed"),
-    ((_cone((0, 1, 2, 3, 4, 5)),), 2, 8, None, False, "outside the kernel"),
-    ((_cone((0, 1), spec=3),), 0, 4, None, False, "outside the kernel"),
-    ((Piece(LINEAR, (0,), 5),), 1, 4, None, False, "outside the kernel"),
-    ((Piece(LINEAR, (0, 1, 2, 3, 4, 5), 1),), 1, 8, None, False,
+    ((_cone((0, 1)),), 2, 33, None, False, "rows exceed"),
+    ((_cone((0, 1, 2, 3) * 8 + (4,)),), 2, 8, None, False,
      "outside the kernel"),
+    ((_cone((0, 1), spec=3),), 0, 4, None, False, "outside the kernel"),
+    ((Piece(LINEAR, (0,), 33),), 1, 4, None, False, "outside the kernel"),
+    ((Piece(LINEAR, (0, 1, 2, 3, 4, 5) * 5 + (6, 7, 0), 1),), 1, 8, None,
+     False, "outside the kernel"),
     ((_cone((0, 4)),), 1, 4, None, False, "idx"),
     ((_cone((0, 3)),), 1, 5, 4, True, "idx"),       # row 3 is the slack
     ((_cone((0, 1)),), 3, 4, None, False, "mode 3"),
@@ -142,15 +180,15 @@ def test_the_wrapper_refuses_them_on_the_cpu():
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float64)
 
-    wide = _cone((0, 1, 2, 3, 4, 5))
+    wide = _cone((0, 1, 2, 3, 4, 5) * 5 + (0, 1, 2))       # nz = 33
     with pytest.raises(ValueError, match="outside the kernel"):
         node_barrier(0, ones(m, 6), (wide,),
-                     (ones(m, 36), ones(m, 6), ones(m), ones(m)), None,
+                     (ones(m, 33 * 33), ones(m, 33), ones(m), ones(m)), None,
                      ones(m), ones(m, 6))
     with pytest.raises(ValueError, match="rows exceed"):
-        node_barrier(0, ones(m, 13), (_cone((0, 1)),),
+        node_barrier(0, ones(m, 33), (_cone((0, 1)),),
                      (ones(m, 4), ones(m, 2), ones(m), ones(m)), None,
-                     ones(m), ones(m, 13))
+                     ones(m), ones(m, 33))
 
 
 def test_instance_codes_and_names():
@@ -178,7 +216,9 @@ def _library(size=None, offsets=None):
 
 def test_layout_check_accepts_the_mirror():
     check_layout(*_library())
-    assert ctypes.sizeof(_Table) == 4 * 72 + 7 * 8 + 8 + 5 * 4 + 4
+    # 16 pieces of 184 bytes (idx holds 32 ints), 7 pointers, the floor,
+    # 5 ints and padding
+    assert ctypes.sizeof(_Table) == 16 * 184 + 7 * 8 + 8 + 5 * 4 + 4
 
 
 @pytest.mark.parametrize("bad", ["size"] + [label for label, _ in LAYOUT])
