@@ -33,7 +33,15 @@ against the composition of ``cholesky_ex``, ``solve_triangular`` and
 ``baddbmm``). Then the solves, each through the entry
 points a user calls, with the launch counters set to 0 just before and read
 just after: fem2d_P2, p=1, L=5 twice (K1-K5 must launch; the second solve
-bitwise equal to the first); zoo.two_sided_obstacle and parabolic_solve
+bitwise equal to the first); the mesh phase (``mesh_phases``): the same
+solve over ``make_mesh(devices=[cuda:0] * 4)``, which must give the
+unsharded bits (max abs 5e-12 at most) and the x64 record's, with K1-K5
+on every shard (each launch attributed to its shard), one Gram matvec's
+transfers and the ND factor's bytes per device against
+``nd_memory_report``, then zoo.two_sided_obstacle L=5 and p_harmonic L=3
+from s = 0 under that mesh (K6 on every shard), and the L=5 solve over
+distinct cards where there are two or more; zoo.two_sided_obstacle and
+parabolic_solve
 (p=1, h=0.5, 2 implicit steps, each a phase I and a main ramp) at L=5; the
 six zoo problems at L=3 and p_harmonic at L=3 from an infeasible start
 (phase I over 11 rows); K2's launches in the second p=1 L=5 solve are
@@ -79,7 +87,15 @@ model (one nz = 7 cone in K6's runtime-width instance, no K2), each held to
 its x64 record (``check_record``; the duals within 1e-6), and after each
 Model's solve K6 on the table its lowering gave it, at the top level's
 nodes and rows (the three-field table gives the runtime-width cone's
-kernel record), bitwise in all six calls and timed. Each ``--level
+kernel record), bitwise in all six calls and timed. Then K6's table
+kernels (``table_kernel_phases``): the 17-constraint, 16- and 32-field
+fem1d models (``port_models.WIDE_MODELS``) through ``Model(mg)``, each
+held to its x64 record in ``ref_model_wide.npz`` (the steps at the
+roundoff floor from the 4th within +-1, the polish within +-4) with the
+table kernels launched, K6 bitwise on each model's table, and their
+tables again at 4,096 seeded nodes, bitwise in every mode and form, the
+Hessians timed (the nz = 33 cone's is the table kernel's record).
+Each ``--level
 L`` then holds K1, K2
 and K6 against their plain versions and times them at level L's top-level
 shapes (K6 on the obstacle table and parabolic_solve's pair on random rows,
@@ -209,7 +225,8 @@ def timings(name, kernel, plain, library=None, plain_reps=50, reps=50):
             notes.append(key)
     print(f"[time] {name}: device ms per call: kernel {out['ms']!r}, plain "
           f"{out['plain_ms']!r}, library {out['library_ms']!r}; wall ms per "
-          f"call (host launch rate): kernel {wall_ms(kernel)!r}"
+          f"call (host launch rate): kernel "
+          f"{wall_ms(kernel, reps=min(200, 4 * reps))!r}"
           + (f"; host not hidden (upper bounds): {notes}" if notes else ""))
     return out
 
@@ -420,7 +437,7 @@ def fwd_cone_phases(prob, ops, torch, K, rng, tag):
             f8 * m * (nD + nz * nz + nz + 3 + (nD if mode < 2 else 0)
                       + (1, nD, nD * nD)[mode]),
             m * (5 * nz * nz + 30
-                 + (2 * nz ** 4 + nD * nD if mode == 2 else 0))))
+                 + (4 * nz ** 3 + nD * nD if mode == 2 else 0))))
         print(f"[time] power_cone {tag} mode {mode}: device ms per call "
               f"{ms!r}; bound {bounds[-1][0]!r} ms ({bounds[-1][1]})")
     b, o = bounds[2]
@@ -869,11 +886,16 @@ def k6_check(tag, calls, K):
     return max(errs)
 
 
-def k6_time(tag, call, K, plain=True):
+def k6_time(tag, call, K, plain=True, reps=50):
     """Device ms of one K6 call, its plain version's (unless ``plain`` is
     False), and its bound: the rows, bw, the pieces' grids, sel and the box
-    read once, the output written once (wc read in modes 0 and 1); a few
-    flops per entry of each piece's affine map and products."""
+    read once, the output written once (wc read in modes 0 and 1); the
+    operations the function needs per piece: its affine map, a few dozen
+    for the closed forms, A'g in modes 1 and 2, and in mode 2 A'HA (two
+    nz x nz products of a cone's Hessian, 4 nz^3; a linear block's
+    A' diag(h) A, 2 nc ni^2), then the fold of each piece into the output
+    (not the plain version's scalar nz^4 fold, which the kernel follows
+    for its bits)."""
     from mgbtpu_torch.kernels.node_barrier import POWER, instance
 
     mode, y, pieces, args, sel, bw, wc, co, box = call
@@ -883,9 +905,10 @@ def k6_time(tag, call, K, plain=True):
     nbytes = 8 * (m * ny + m + grids + (m * npc if sel is not None else 0)
                   + (2 * m if box else 0) + (1, ny, ny * ny)[mode]
                   * m + (m * ny if mode < 2 else 0))
-    nops = m * (sum(2 * pc.width * len(pc.idx) + 30
-                    + (3 * len(pc.idx) ** 4 if pc.kind == POWER
-                       else 3 * pc.width * len(pc.idx) ** 2)
+    nops = m * (sum(2 * pc.width * len(pc.idx) * (1 + (mode > 0)) + 30
+                    + (0 if mode < 2 else 4 * pc.width ** 3
+                       if pc.kind == POWER
+                       else 2 * pc.width * len(pc.idx) ** 2)
                     for pc in pieces) + npc * (1, ny, ny * ny)[mode])
     bnd, by = bound_ms(nbytes, nops)
     print(f"[instance] node_barrier {tag}: "
@@ -894,7 +917,7 @@ def k6_time(tag, call, K, plain=True):
         f"node_barrier {tag} (ny={ny}, {npc} pieces)",
         lambda: K.node_barrier(*call),
         (lambda: K.node_barrier_plain(*call)) if plain else None,
-        plain_reps=2))
+        plain_reps=2, reps=reps))
     print(f"[bound] node_barrier {tag}: {bnd!r} ms ({by})")
     return row
 
@@ -1573,7 +1596,7 @@ def wide_node_barrier_phases(torch, K):
     torch.cuda.synchronize()
 
 
-def model_table_phases(tag, model, seed, torch, K):
+def model_table_phases(tag, model, seed, torch, K, reps=50):
     """K6 on the piece table a solved Model's lowering gives it, at the
     top level's nodes and rows (the path's own shapes): the solution's rows
     D z with 1 % of the nodes pushed outside (each cone's s row negative),
@@ -1597,7 +1620,7 @@ def model_table_phases(tag, model, seed, torch, K):
                      np.asarray(M.w, np.float64), torch, K, rng)
     err = k6_check(tag, calls, K)
     rows = {label: k6_time(f"{tag} {label}", calls[label], K,
-                           plain=label == "mode 2")
+                           plain=label == "mode 2", reps=reps)
             for label in ("mode 2", "co mode 2")}
     torch.cuda.synchronize()
     return err, rows
@@ -1749,6 +1772,347 @@ def slice9_solves(mg5, torch, K, smi):
                 launches=wide, **rows["mode 2"])
 
 
+TABLE_M = 4096      # seeded nodes at which the table kernels are timed
+TABLE_REPS = 4      # calls a timing: a wide cone's Hessian takes ~0.25 s
+
+
+def table_kernel_tables(m, rng):
+    """The tables past K6's parameter kernels that the wide models lower
+    to, made up at m seeded nodes: 17 pieces (a p = 1 cone on rows 1, 2 and
+    16 bounds on row 0) over 3 rows, a cone of nz = 17 over 33 rows (a full
+    A) and one of nz = 33 over 65 rows; as (name, Convex, D rows, phase-I
+    component rows)."""
+    import mgbtpu_torch as mt
+
+    x = np.zeros((m, 2))
+    cone, lin = mt.convex_euclidian_power, mt.convex_linear
+    bounds = [lin(x=x, idx=(0,), A=lambda _: np.array([[-1.0]]),
+                  b=lambda _, c=c: np.array([2.0 + c])) for c in range(16)]
+    A17 = np.tile(np.eye(17).reshape(1, -1), (m, 1)) \
+        + 0.01 * rng.standard_normal((m, 289))
+    return [("17 pieces", mt.intersect(x, cone(x=x, idx=(1, 2), p=1.0),
+                                       *bounds), 3, 2),
+            ("cone nz=17", cone(x=x, idx=tuple(range(1, 32, 2)) + (32,),
+                                A_grid=A17, p=2.0), 33, 17),
+            ("cone nz=33", cone(x=x, idx=tuple(range(1, 64, 2)) + (64,),
+                                p=2.0), 65, 33)]
+
+
+def check_floor_record(tag, sol, ref, floor_from=3):
+    """A fem1d solve on 8 nodes against its x64 record: z within TOL_Z,
+    the same accepted and attempted steps, the same Newton its on the
+    steps before ``floor_from``; from it on the decrement sits at the
+    objective's roundoff floor (ROADMAP Queue 3, fem1d): each step within
+    +-1, the last (the exact-stopping polish) within FLOOR_ITS."""
+    z = ref["z"]
+    zerr = float(np.linalg.norm(sol.z - z) / np.linalg.norm(z))
+    S = sol.SOL_main
+    its, its_ref = S["its"].sum(axis=0), ref["its"].sum(axis=0)
+    steps = [S["steps_accepted"], S["steps_attempted"]]
+    print(f"[reference] {tag}: |z - z_ref|/|z_ref| = {zerr!r}; its per "
+          f"ramp step {its.tolist()} vs {its_ref.tolist()} (x64); steps "
+          f"{steps} vs {ref['steps'].tolist()}")
+    fails = []
+    if not zerr <= TOL_Z:
+        fails.append(f"solution error {zerr}")
+    if steps != ref["steps"].tolist() or len(its) != len(its_ref):
+        fails.append("steps")
+    elif np.any(its[:floor_from] != its_ref[:floor_from]) \
+            or np.abs(its - its_ref)[floor_from:-1].max(initial=0) > 1 \
+            or abs(int(its[-1]) - int(its_ref[-1])) > FLOOR_ITS:
+        fails.append("Newton its")
+    if fails:
+        raise RuntimeError(f"{tag}: " + "; ".join(fails))
+
+
+def table_kernel_phases(torch, K, smi):
+    """K6's table kernels: the three fem1d models past the parameter
+    kernels (``port_models.WIDE_MODELS``: 17 constraints, 16 and 32 fields)
+    through ``Model(mg)`` on the card, each held to its x64 record
+    (``ref_model_wide.npz``) with the table kernels launched, and K6 on
+    the table its lowering gave it (bitwise in the six calls); then the
+    made-up tables of ``table_kernel_tables`` at TABLE_M nodes, bitwise in
+    every mode and form, each Hessian timed beside its bound. Returns the
+    kernel record of the nz = 33 cone (its Hessian's rows built in global
+    memory), with the 32-field solve's table launches."""
+    import mgbtpu_torch
+    import port_models
+    from mgbtpu_torch.kernels.node_barrier import last_in_global
+
+    mg = mgbtpu_torch.amg(mgbtpu_torch.fem1d(
+        nodes=np.linspace(-1.0, 1.0, 5)))
+    launches = {}
+    for k, name in enumerate(port_models.WIDE_MODELS):
+        m, _ = port_models.MODELS[name](mgbtpu_torch, mg)
+        secs, sol, la, co = counted(torch, K,
+                                    lambda: m.solve(**port_models.SOLVE))
+        launches[name] = K.node_barrier.table_launches
+        report(f"Model {name}", secs, sol, "n/a")
+        print(f"[kernels] launches in the Model {name} solve ({secs!r} s "
+              f"wall on {smi}): {la}; node_barrier in its table kernels "
+              f"{launches[name]}, in cobarrier form {co}")
+        if launches[name] == 0:
+            raise RuntimeError(f"Model {name}: no table-kernel launch")
+        check_floor_record(f"Model {name}", sol,
+                           ref_record("ref_model_wide.npz", name))
+        model_table_phases(f"Model {name} table", m, 94 + k, torch, K,
+                           reps=TABLE_REPS)
+    rng = np.random.default_rng(4096)
+    w = np.full(TABLE_M, 1.0 / TABLE_M)
+    dev = torch.device("cuda")
+    for name, Q, nD, nu in table_kernel_tables(TABLE_M, rng):
+        Dz = torch.as_tensor(_wide_rows(TABLE_M, Q, nD, rng),
+                             dtype=torch.float64, device=dev)
+        calls = k6_calls(Q, Dz, nu, w, torch, K, rng)
+        err = k6_check(f"{name} m={TABLE_M}", calls, K)
+        rows = {label: k6_time(f"{name} m={TABLE_M} {label}", calls[label],
+                               K, reps=TABLE_REPS)
+                for label in ("mode 2", "co mode 2")}
+        print(f"[instance] {name} co mode 2 (the last call): rows built "
+              f"in {'global' if last_in_global() else 'shared'} memory")
+    return dict(name="node_barrier (table kernel: cone nz=33 over 65 rows)",
+                source="mgbtpu_torch/kernels/csrc/node_barrier.cu",
+                replaces="mgbtpu/ops/pallas_dd.py:258", max_abs_err=err,
+                launches=launches["thirty_two_fields"], **rows["mode 2"])
+
+
+MESH_SHARDS = 4     # the mesh phase's shards, all on cuda:0
+
+
+class _Module:
+    """A module's stand-in with some attributes replaced."""
+
+    def __init__(self, module, **replaced):
+        self._module = module
+        self.__dict__.update(replaced)
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+class ShardSpy:
+    """Which shard each launch of K1-K6 ran on, during a mesh solve: the
+    wrappers the package calls are wrapped (each still counts its own
+    launches, as always) and each call is attributed to a shard after the
+    solve, by the tensors it was given: K1, K3 and K4 by the shard's panels,
+    K5a and K5b by the ND plan part's adofs, K2 and K6 by the rows of the
+    node grids they read (a shard's bw is a slice of the level's). A call
+    on a whole level (one that does not divide, K3's phase B on the first
+    device, an ND level above the split) counts as "whole"."""
+
+    def __init__(self, n_nodes):
+        self.n_nodes = n_nodes
+        self.calls = []
+
+    def __enter__(self):
+        import mgbtpu_torch.convex.convex as CV
+        import mgbtpu_torch.kernels as KK
+        import mgbtpu_torch.ops.ndchol as ND
+
+        calls = self.calls
+
+        def spy(mod, attr, name, key):
+            real = getattr(mod, attr)
+
+            def fn(*a, **k):
+                calls.append((name, key(*a)))
+                return real(*a, **k)
+
+            if key is None:     # K2: a stand-in module around the wrapper
+                fn = _Module(real, power_cone_eval=lambda *a, **k: spy_k2(
+                    real.power_cone_eval, a, k))
+            self.saved.append((mod, attr, real))
+            setattr(mod, attr, fn)
+
+        def spy_k2(real, a, k):
+            calls.append(("power_cone", ("rows", _rows(a[6]))))
+            return real(*a, **k)
+
+        self.saved = []
+        for attr, name in (("panel_fwd", "panel_fwd"),
+                           ("panel_adj", "panel_adj"),
+                           ("panel_adj_contrib", "panel_adj"),
+                           ("gram_matvec", "gram_matvec"),
+                           ("gram_matvec_contrib", "gram_matvec"),
+                           ("adjoint_sum", "panel_adj")):
+            spy(KK, attr, name, lambda first, *a: ("ptr",
+                                                   first.data_ptr()))
+        spy(ND, "front_forward", "front_solve",
+            lambda Lf, U, adofs, *a: ("ptr", adofs.data_ptr()))
+        spy(ND, "front_backward", "front_solve",
+            lambda Lf, U, adofs, *a: ("ptr", adofs.data_ptr()))
+        spy(ND, "_factor_level", "front_factor",
+            lambda F, L, *a: ("ptr", L.adofs.data_ptr()))
+        spy(CV, "node_barrier", "node_barrier",
+            lambda mode, Dz, pc, args, sel, bw, *a: ("rows", _rows(bw)))
+        # K2's wrapper counts through its module's global name, so the
+        # spy goes into the module the Convex reads it from, a stand-in
+        spy(CV, "K2", "power_cone", None)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, real in self.saved:
+            setattr(mod, attr, real)
+
+    def per_shard(self, kerns, mesh):
+        """{kernel: [launches on shard 0..n-1, whole-level launches]}"""
+        n = mesh.size
+        distinct = len(set(mesh.devices)) == n
+        owner = {}
+        for kern in kerns:
+            for ops in kern._ops.values():
+                for d, o in enumerate(getattr(ops, "shards", ())):
+                    owner[o.panels.data_ptr()] = d
+                nd = ops.nd
+                for parts in (nd.parts if nd is not None else ()):
+                    for d, P in enumerate(parts):
+                        owner[P.adofs.data_ptr()] = d
+        out = {}
+        for name, (kind, v) in self.calls:
+            if kind == "ptr":
+                d = owner.get(v, n)
+            elif v[2] == self.n_nodes:     # (device, offset, rows)
+                d = n
+            else:
+                d = mesh.devices.index(v[0]) if distinct else v[1] // v[2]
+            out.setdefault(name, [0] * (n + 1))[d] += 1
+        return out
+
+
+def _rows(bw):
+    """Where a K2/K6 call's node rows lie: (device, offset in the
+    level's rows, rows)."""
+    return bw.device, bw.storage_offset(), bw.shape[0]
+
+
+def mesh_kernels(M, mesh):
+    """The ProblemKernels of M's solves under ``mesh`` (the main and the
+    phase-I ones)."""
+    return [k for k in getattr(M, "_torch_kernel_cache", {}).values()
+            if k.mesh is mesh]
+
+
+def mesh_solve(tag, prob, mesh, torch, K, smi, need, systems):
+    """One ``mgb_solve(prob, mesh=mesh)`` with the launch counters set to 0
+    just before and read just after, and each launch attributed to a shard
+    (``ShardSpy``); requires every kernel of ``need`` on every shard.
+    Returns (seconds, solution, launches, per-shard launches, syncs)."""
+    from mgbtpu_torch import mgb_solve
+    from mgbtpu_torch.solver.newton import SYNCS
+
+    SYNCS["n"] = 0
+    with ShardSpy(prob.M[0].n_nodes) as spy:
+        secs, sol, la, co = counted(torch, K,
+                                    lambda: mgb_solve(prob, mesh=mesh))
+    syncs = SYNCS["n"]
+    kerns = [k for M in systems for k in mesh_kernels(M, mesh)]
+    per = spy.per_shard(kerns, mesh)
+    report(tag, secs, sol, syncs)
+    print(f"[mesh] {tag}: {secs!r} s wall on {smi}; launches {la}, K6 in "
+          f"cobarrier form {co}; per shard (0..{mesh.size - 1}, then whole "
+          f"levels): {per}")
+    missing = [f"{n} on shard {d}" for n in need
+               for d in range(mesh.size)
+               if per.get(n, [0] * (mesh.size + 1))[d] == 0]
+    if missing:
+        raise RuntimeError(f"{tag}: not launched: {missing}")
+    return secs, sol, la, per, syncs, co
+
+
+def mesh_phases(mg5, prob, sol0, wall0, torch, K, smi):
+    """fem2d_P2 p=1 L=5 with ``mesh=make_mesh(devices=[cuda:0] * 4)``: held
+    to the unsharded solve of this process (max abs 5e-12) and to the x64
+    record, K1-K5 on every shard; its Gram matvec's transfers, its ND
+    factor's bytes per device against ``nd_memory_report``, its host syncs
+    and wall beside the unsharded wall. Then zoo.two_sided_obstacle L=5 and
+    zoo.p_harmonic L=3 from s = 0 under the same mesh (K6 on every shard,
+    in the cobarrier form in phase I), each against its x64 record; the
+    L=5 solve over distinct cards where there are two or more."""
+    import mgbtpu_torch as mt
+    from mgbtpu_torch import zoo
+    from mgbtpu_torch.ops.ndchol import nd_factor, nd_memory_report
+    from mgbtpu_torch.parallel.sharding import TRANSFERS, reset_transfers
+
+    cuda0 = torch.device("cuda", 0)
+    mesh = mt.make_mesh(devices=[cuda0] * MESH_SHARDS)
+    tag = f"fem2d_P2 p=1 L=5 mesh of {MESH_SHARDS} shards on cuda:0"
+    reset_transfers()
+    secs, sol, la, per, syncs, _ = mesh_solve(tag, prob, mesh, torch, K,
+                                              smi, MESH, prob.M)
+    gap = float(np.abs(sol.z - sol0.z).max())
+    same = bool(np.array_equal(sol.z, sol0.z))
+    print(f"[mesh] {tag}: max |z - z_unsharded| = {gap!r} (bitwise equal: "
+          f"{same}); wall {secs!r} s against the unsharded {wall0!r} s; "
+          f"host syncs {syncs}; transfers in the solve {dict(TRANSFERS)}")
+    if not gap <= 5e-12:
+        raise RuntimeError(f"{tag}: differs from the unsharded solve: {gap}")
+    check_totals(tag, sol, np.load(REF))
+
+    (kern,) = [k for k in mesh_kernels(prob.M[0], mesh)]
+    ops = kern.ops(prob.M[0].depth - 1)
+    eye = torch.eye(ops.nD, dtype=torch.float64, device=cuda0)
+    Ln = ops.split(eye.expand(ops.n_nodes, ops.nD, ops.nD).contiguous())
+    v = torch.ones(ops.n_J, dtype=torch.float64, device=cuda0)
+    reset_transfers()
+    ops.gram_apply(Ln, v)
+    torch.cuda.synchronize()
+    print(f"[mesh] one Gram matvec at L=5's top level (n_J = {ops.n_J}): "
+          f"transfers {dict(TRANSFERS)}")
+    nv, ns = 8 * ops.n_J, 8 * ops.N // MESH_SHARDS * ops.C
+    if TRANSFERS != dict(gathers=MESH_SHARDS, broadcasts=1,
+                         bytes=nv + MESH_SHARDS * ns, largest=max(nv, ns)):
+        raise RuntimeError("Gram matvec transfers differ from one broadcast "
+                           "and each shard's per-slot contributions")
+    nd = ops.nd
+    fact = nd_factor(nd, ops.gram_blocks(Ln), 1.0)
+    rep = nd_memory_report(nd)
+    got = [0] * MESH_SHARDS
+    for li, lvl in enumerate(fact):
+        if li < len(nd.parts):
+            for d, (Lf, U) in enumerate(lvl):
+                got[d] += Lf.nbytes + U.nbytes
+        else:
+            got[0] += lvl[0].nbytes + lvl[1].nbytes
+    print(f"[mesh] ND factor bytes per device {got} (nd_memory_report "
+          f"{rep['device_factor_bytes']}), of {rep['factor_bytes']} in all; "
+          f"{len(nd.parts)} of {len(nd.levels)} tree levels split "
+          f"({[L.nk for L in nd.levels]} fronts)")
+    if got != rep["device_factor_bytes"]:
+        raise RuntimeError("ND factor bytes differ from nd_memory_report")
+    del fact
+
+    prob_o = zoo.two_sided_obstacle(mg5, device="cuda")
+    _, sol_o, _, _, _, _ = mesh_solve(
+        f"zoo.two_sided_obstacle L=5 mesh of {MESH_SHARDS}", prob_o, mesh,
+        torch, K, smi, MESH + ["node_barrier"], prob_o.M)
+    check_record("two_sided_obstacle L=5 mesh", sol_o,
+                 ref_record("ref_obstacle_L5.npz", "two_sided_obstacle"))
+    behaviour("two_sided_obstacle", mg5, sol_o.z)
+    mg3 = mt.amg(mt.subdivide(mt.fem2d_P2(), 3))
+    prob_p = zoo.p_harmonic(mg3, s_init=0.0, device="cuda")
+    _, sol_p, _, _, _, co = mesh_solve(
+        f"zoo.p_harmonic L=3 from s=0 mesh of {MESH_SHARDS}", prob_p, mesh,
+        torch, K, smi, ["panel_fwd", "panel_adj", "node_barrier"], prob_p.M)
+    if co == 0:
+        raise RuntimeError("p_harmonic L=3 mesh: no phase-I K6 launch")
+    check_record("p_harmonic L=3 from s=0 mesh", sol_p,
+                 ref_record("ref_phase1_L3.npz", "p_harmonic"))
+
+    if torch.cuda.device_count() >= 2:
+        cards = mt.make_mesh()
+        tag = f"fem2d_P2 p=1 L=5 mesh of {cards.size} cards"
+        _, solc, _, _, _, _ = mesh_solve(tag, prob, cards, torch, K, smi,
+                                         MESH, prob.M)
+        gap = float(np.abs(solc.z - sol0.z).max())
+        print(f"[mesh] {tag}: max |z - z_unsharded| = {gap!r}")
+        if not gap <= 5e-12:
+            raise RuntimeError(f"{tag}: differs from the unsharded solve")
+        check_totals(tag, solc, np.load(REF))
+    else:
+        print(f"[mesh] the L=5 solve over distinct cards was not run: "
+              f"{torch.cuda.device_count()} card")
+
+
 def golden_check(tag, got, gold):
     """``tests/test_golden.py``'s bar: the 2-norm of the difference from
     the golden vector below 1e-6."""
@@ -1817,6 +2181,7 @@ def main(argv=None) -> int:
                      [n for n in launches if n != "node_barrier"])
 
     check_totals("fem2d_P2 p=1 L=5", sol, np.load(REF))
+    mesh_phases(mg5, prob, sol, s2, torch, K, smi)
 
     launches_par = slice2_solves(torch, K, smi, mg5)
     for r in records:
@@ -1842,6 +2207,7 @@ def main(argv=None) -> int:
 
     wide_node_barrier_phases(torch, K)
     records.append(slice9_solves(mg5, torch, K, smi))
+    records.append(table_kernel_phases(torch, K, smi))
 
     for L in args.level:
         mgL, probL, run_L = solve(L, torch)
@@ -1871,8 +2237,8 @@ def print_ptxas(secs, info):
     print(f"[ptxas] node_barrier.cu built in {secs!r} s (nvcc, beside the "
           f"other kernels' builds)")
     for fn, r in sorted(info.items()):
-        m = re.search(r"(node_barrier_(?:wide_)?kernel)ILi(\d+)ELi(\d+)E",
-                      fn)
+        m = re.search(r"(node_barrier_(?:wide_|table_)?kernel)ILi(\d+)ELi"
+                      r"(\d+)E", fn)
         label = f"{m[1]}<mode {m[2]}, form {m[3]}>" if m else fn
         print(f"[ptxas] {label}: {r.get('registers')} registers, "
               f"{r.get('stack')} bytes stack, {r.get('spill_stores')} / "

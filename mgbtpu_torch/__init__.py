@@ -8,7 +8,8 @@ Chebyshev spectral elements (``spectral1d``, ``spectral2d``), plus
 ``parabolic_solve`` and the ``zoo`` problems over the power cone, linear,
 piecewise and intersected convex sets, the ``Model`` DSL, ``gmsh_import``
 and the plots (``plot``, ``plot3d_html``; matplotlib is imported only when
-a matplotlib plot is drawn). The level
+a matplotlib plot is drawn), and ``make_mesh`` for a solve sharded over
+several devices (``mgb_solve(prob, mesh=make_mesh())``). The level
 operators and the per-node barriers run through hand-written CUDA kernels
 (``kernels/``) on the card, which is the default device; ``device="cpu"``
 runs the plain PyTorch versions instead. Imports neither JAX nor
@@ -30,6 +31,7 @@ from .utils import Log, MGBConvergenceFailure, chebfun, interpolate
 from .utils.checkpoint import load_solution, save_solution, warm_start_grid
 from .frontends import gmsh_import
 from .frontends.model import Model
+from .parallel import make_mesh
 from . import zoo
 # the function shadows the subpackage on purpose, as in the JAX package:
 # plot(sol) is the API; the modules stay importable as
@@ -50,5 +52,5 @@ __all__ = [
     "ParabolicSOL", "Log", "MGBConvergenceFailure", "chebfun",
     "interpolate", "save_solution", "load_solution", "warm_start_grid",
     "zoo", "gmsh_import", "Model", "animation_html", "plot", "plot3d_html",
-    "save_animation",
+    "save_animation", "make_mesh",
 ]

@@ -13,6 +13,10 @@ K6     ``node_barrier``     per-node barrier of any piece table: linear,
                             (``node_eval``)
 =====  ===================  ==============================================
 
+On a mesh, K3's two phases run apart (``panel_adj_contrib`` per shard,
+``adjoint_sum`` once on the first device), as does K4's per-slot phase
+(``gram_matvec_contrib``), each call counted as a launch of its kernel.
+
 Each wrapper runs its plain PyTorch version when its inputs lie on the CPU
 and launches its kernel when they lie on a CUDA device; it never falls back.
 Each counts its launches in the integer attribute ``launches`` (K5b's two
@@ -20,16 +24,19 @@ sweeps share ``front_solve.launches``; K2 also counts them by mode in
 ``mode_launches``; K6 also counts those in the cobarrier form in
 ``co_launches``, by mode in ``mode_launches`` and those of a table with a
 wide piece, a runtime-width cone or a wide linear block, in
-``wide_launches``).
+``wide_launches``, and those of a table past its parameter kernels'
+limits in ``table_launches``).
 """
 from . import _build, node_barrier as _node_barrier
 from ._build import build_all
 from .front_factor import cholesky_nan, front_factor, front_factor_plain
 from .front_solve import (front_backward, front_backward_plain,
                           front_forward, front_forward_plain, front_solve)
-from .gram_matvec import gram_matvec, gram_matvec_plain
+from .gram_matvec import (gram_matvec, gram_matvec_contrib,
+                          gram_matvec_plain)
 from .node_barrier import Piece, node_barrier, node_barrier_plain
-from .panel_adj import panel_adj, panel_adj_plain
+from .panel_adj import (adjoint_sum, panel_adj, panel_adj_contrib,
+                        panel_adj_plain)
 from .panel_fwd import panel_fwd, panel_fwd_plain
 from .power_cone import power_cone_eval, power_cone_plain
 
@@ -44,6 +51,7 @@ def reset_launches():
         fn.launches = 0
     node_barrier.co_launches = 0
     node_barrier.wide_launches = 0
+    node_barrier.table_launches = 0
     node_barrier.mode_launches = [0, 0, 0]
     power_cone_eval.mode_launches = [0, 0, 0]
 
@@ -59,11 +67,13 @@ def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["WRAPPERS", "Piece", "build_all", "cholesky_nan", "clear_caches",
+__all__ = ["WRAPPERS", "Piece", "adjoint_sum", "build_all", "cholesky_nan",
+           "clear_caches",
            "front_backward", "front_backward_plain", "front_factor",
            "front_factor_plain", "front_forward", "front_forward_plain",
            "front_solve",
-           "gram_matvec", "gram_matvec_plain", "launches", "node_barrier",
-           "node_barrier_plain", "panel_adj", "panel_adj_plain", "panel_fwd",
+           "gram_matvec", "gram_matvec_contrib", "gram_matvec_plain",
+           "launches", "node_barrier", "node_barrier_plain", "panel_adj",
+           "panel_adj_contrib", "panel_adj_plain", "panel_fwd",
            "panel_fwd_plain", "power_cone_eval", "power_cone_plain",
            "reset_launches"]

@@ -143,11 +143,31 @@ def launcher(name: str, argtypes, entry: str | None = None):
     if fn is None:
         build_all((name,))
         lib = ctypes.CDLL(library(name))
-        fn = getattr(lib, entry)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _LIBS[entry] = fn
+        cfn = getattr(lib, entry)
+        cfn.argtypes = list(argtypes)
+        cfn.restype = ctypes.c_int
+        fn = _LIBS[entry] = _on_stream_device(cfn)
     return fn
+
+
+class _Stream(ctypes.c_void_p):
+    """A stream argument of a C entry, which knows its device."""
+
+
+def _on_stream_device(cfn):
+    """``cfn`` called with the device of its stream argument (the last)
+    current: a C entry launches on the current device, and the shards of a
+    mesh of cards each launch on their own."""
+
+    def call(*args):
+        s = args[-1] if args else None
+        if isinstance(s, _Stream) and s.device.index is not None \
+                and s.device.index != torch.cuda.current_device():
+            with torch.cuda.device(s.device):
+                return cfn(*args)
+        return cfn(*args)
+
+    return call
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -155,7 +175,9 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    s = _Stream(torch.cuda.current_stream(device).cuda_stream)
+    s.device = device
+    return s
 
 
 def check(name: str, err: int):

@@ -39,6 +39,10 @@
 // K3 (panel_adj.cu) runs both phases through adjoint_launch; K4
 // (gram_matvec.cu) computes its per-slot contributions in its own fused
 // kernel, in phase A's order, and runs phase B alone (adjoint_sum_launch).
+// On a mesh, each shard runs phase A (or K4's fused kernel) on its elements
+// and the first device runs phase B once over every shard's contributions,
+// concatenated in shard order: the level's slots in their order, so the
+// same bits as one device (panel_adj.cu's contrib and sum entries).
 #pragma once
 #include <cstdint>
 
@@ -246,13 +250,15 @@ static inline int adjoint_form(int nD, int N, int p, int C, int form) {
     return form == 3 ? 3 : 0;
 }
 
-// Both phases on one stream; contrib is (N*C,) scratch. Returns the first
-// launch error, or cudaErrorInvalidValue when the form refuses the shape.
-static inline cudaError_t adjoint_launch(const double* panels,
-                                         const int64_t* inv, const double* Y,
-                                         double* contrib, double* out, int nD,
-                                         int N, int p, int C, int n_J, int K,
-                                         int form, cudaStream_t stream) {
+// Phase A alone: the per-slot contributions contrib (N*C,). Returns the
+// first launch error, or cudaErrorInvalidValue when the form refuses the
+// shape.
+static inline cudaError_t adjoint_contrib_launch(const double* panels,
+                                                 const double* Y,
+                                                 double* contrib, int nD,
+                                                 int N, int p, int C,
+                                                 int form,
+                                                 cudaStream_t stream) {
     const int pn = p * nD;
     form = adjoint_form(nD, N, p, C, form);
     if (form == 0) return cudaErrorInvalidValue;
@@ -278,5 +284,17 @@ static inline cudaError_t adjoint_launch(const double* panels,
             panels, Y, contrib, nD, N, p, C, EB);
         if (e != cudaSuccess) return e;
     }
+    return cudaSuccess;
+}
+
+// Both phases on one stream; contrib is (N*C,) scratch.
+static inline cudaError_t adjoint_launch(const double* panels,
+                                         const int64_t* inv, const double* Y,
+                                         double* contrib, double* out, int nD,
+                                         int N, int p, int C, int n_J, int K,
+                                         int form, cudaStream_t stream) {
+    const cudaError_t e =
+        adjoint_contrib_launch(panels, Y, contrib, nD, N, p, C, form, stream);
+    if (e != cudaSuccess) return e;
     return adjoint_sum_launch(inv, contrib, out, N, C, n_J, K, stream);
 }

@@ -234,7 +234,9 @@ static int fit_smem(const void* kernel, size_t bytes) {
 
 // form: 0 by shape (the first kernel where one element fits it), 1 the
 // first kernel, 2 the wide form; a form that cannot take the shape is
-// refused (cudaErrorInvalidValue).
+// refused (cudaErrorInvalidValue). With out null, the per-slot
+// contributions alone (one shard of a mesh: the first device sums every
+// shard's with panel_adj_sum_launch).
 extern "C" int gram_matvec_launch(const void* panels, const void* cols,
                                   const void* inv, const void* Lnode,
                                   const void* v, void* contrib, void* out,
@@ -270,9 +272,10 @@ extern "C" int gram_matvec_launch(const void* panels, const void* cols,
                 (const double*)Lnode, (const double*)v, (double*)contrib, nD,
                 N, p, C, CC);
             if (err != cudaSuccess) return (int)err;
-            err = adjoint_sum_launch((const int64_t*)inv,
-                                     (const double*)contrib, (double*)out, N,
-                                     C, n_J, K, s);
+            if (out)
+                err = adjoint_sum_launch((const int64_t*)inv,
+                                         (const double*)contrib, (double*)out,
+                                         N, C, n_J, K, s);
             return (int)(err != cudaSuccess ? err : cudaGetLastError());
         }
         static int sms = 0;
@@ -304,6 +307,7 @@ extern "C" int gram_matvec_launch(const void* panels, const void* cols,
             p, C, EB, sk);
         if (e != cudaSuccess) return (int)e;
     }
+    if (!out) return (int)cudaGetLastError();
     cudaError_t e = adjoint_sum_launch((const int64_t*)inv,
                                        (const double*)contrib, (double*)out,
                                        N, C, n_J, K, s);

@@ -269,30 +269,29 @@ static __device__ __forceinline__ double cone(const NBKPiece& P,
     }
 }
 
-// The runtime-width cone (nz = 6..32): the closed forms of cone<NZ> in the
-// same order (power_cone.cuh's pc_ helpers at NZ = 0 and their pcw_
-// mirrors), z and then gz or u in the thread's scratch row, A read where it
-// is staged.
-template <int SPEC, int MODE, bool CO>
-static __device__ __forceinline__ double cone_wide(const NBKPiece& P,
-                                                   const NodeCtx& c) {
-    const int nz = P.nc, nq = nz - 1;
-    const double* A =
-        staged(c.sh, P.sA, P.A + (size_t)c.n0 * nz * nz) + c.t * nz * nz;
-    const double* b = staged(c.sh, P.sb, P.b + (size_t)c.n0 * nz) + c.t * nz;
-    const double pn = staged(c.sh, P.sp, P.p + c.n0)[c.t];
-    const double mu = staged(c.sh, P.smu, P.mu + c.n0)[c.t];
+// The runtime-width cone (nz = 6 and up): the closed forms of cone<NZ> in
+// the same order (power_cone.cuh's pc_ helpers at NZ = 0 and their pcw_
+// mirrors), z and then gz or u in the thread's scratch row c.scr. The grids
+// (A, b, p, mu) are the node's, wherever they lie; idx holds the piece's nz
+// input rows and keep(i) says whether idx[i] is the last occurrence of its
+// row. cone_wide (the wide kernels) reads them where they are staged, the
+// table kernels where they lie in global memory.
+template <int SPEC, int MODE, bool CO, class Keep>
+static __device__ __forceinline__ double cone_rt(const double* A,
+                                                 const double* b, double pn,
+                                                 double mu, const int* idx,
+                                                 int nz, Keep keep,
+                                                 const NodeCtx& c) {
+    const int nq = nz - 1;
     double* z = c.scr;
-    pcw_affine(A, b, c.y, P.idx, nz, z);
+    pcw_affine(A, b, c.y, idx, nz, z);
     if (CO) z[nq] = z[nq] + c.slack;
     const double alpha = 2.0 / pn;
     if (MODE == 0) return pc_value<0, SPEC>(z, nz, alpha, mu, SPEC, c.floor);
-    const unsigned keep = P.keep;
     if (MODE == 1) {
         pc_grad<0, SPEC>(z, nz, alpha, mu, SPEC, c.floor, z);  // z -> gz
         for (int i = 0; i < nz; ++i)
-            if (keep >> i & 1)
-                put(c.o + P.idx[i], pcw_at_g(A, z, nz, i), c.first);
+            if (keep(i)) put(c.o + idx[i], pcw_at_g(A, z, nz, i), c.first);
         if (CO) put(c.o + c.nin, z[nq], c.first);
         return 0.0;
     }
@@ -301,23 +300,43 @@ static __device__ __forceinline__ double cone_wide(const NBKPiece& P,
     if (CO) {
         const int nin = c.nin;
         for (int i = 0; i < nz; ++i) {
-            if (!(keep >> i & 1)) continue;
+            if (!keep(i)) continue;
             double acc = A[i] * pcw_hz(h, z, 0, nq);
             for (int k = 1; k < nz; ++k)
                 acc = acc + A[k * nz + i] * pcw_hz(h, z, k, nq);
-            put(c.o + P.idx[i] * ny + nin, acc, c.first);
-            put(c.o + nin * ny + P.idx[i], acc, c.first);
+            put(c.o + idx[i] * ny + nin, acc, c.first);
+            put(c.o + nin * ny + idx[i], acc, c.first);
         }
         put(c.o + nin * ny + nin, h.H_ss, c.first);
     }
     for (int i = 0; i < nz; ++i) {
-        if (!(keep >> i & 1)) continue;
+        if (!keep(i)) continue;
         for (int j = 0; j < nz; ++j)
-            if (keep >> j & 1)
-                put(c.o + P.idx[i] * ny + P.idx[j],
+            if (keep(j))
+                put(c.o + idx[i] * ny + idx[j],
                     pcw_at_h_a_ij(A, h, z, nz, i, j), c.first);
     }
     return 0.0;
+}
+
+// keep(i) of the parameter kernels: bit i of the piece's 32-bit mask
+struct MaskKeep {
+    unsigned m;
+    __device__ __forceinline__ bool operator()(int i) const {
+        return m >> i & 1;
+    }
+};
+
+template <int SPEC, int MODE, bool CO>
+static __device__ __forceinline__ double cone_wide(const NBKPiece& P,
+                                                   const NodeCtx& c) {
+    const int nz = P.nc;
+    return cone_rt<SPEC, MODE, CO>(
+        staged(c.sh, P.sA, P.A + (size_t)c.n0 * nz * nz) + c.t * nz * nz,
+        staged(c.sh, P.sb, P.b + (size_t)c.n0 * nz) + c.t * nz,
+        staged(c.sh, P.sp, P.p + c.n0)[c.t],
+        staged(c.sh, P.smu, P.mu + c.n0)[c.t], P.idx, nz, MaskKeep{P.keep},
+        c);
 }
 
 // A linear block on <NC, NI> (0, 0: the runtime width).
@@ -374,50 +393,58 @@ static __device__ __forceinline__ double linear(const NBKPiece& P,
     return 0.0;
 }
 
-// The wide linear block (nc or ni past 4 x 5, up to 32 x 32): the closed
-// forms of linear<NC, NI> in the same order (linear.cuh's lnw_ helpers), F
-// and then 1 / F or 1 / F^2 in the thread's scratch row.
-template <int MODE, bool CO>
-static __device__ __forceinline__ double linear_wide(const NBKPiece& P,
-                                                     const NodeCtx& c) {
-    const int nc = P.nc, ni = P.ni;
-    const double* A = staged(c.sh, P.sA, P.A + (size_t)c.n0 * nc * ni)
-                      + c.t * nc * ni;
-    const double* b = staged(c.sh, P.sb, P.b + (size_t)c.n0 * nc) + c.t * nc;
+// The wide linear block (nc or ni past 4 x 5): the closed forms of
+// linear<NC, NI> in the same order (linear.cuh's lnw_ helpers), F and then
+// 1 / F or 1 / F^2 in the thread's scratch row; the grids, idx and keep as
+// cone_rt takes them.
+template <int MODE, bool CO, class Keep>
+static __device__ __forceinline__ double linear_rt(const double* A,
+                                                   const double* b,
+                                                   const int* idx, int nc,
+                                                   int ni, Keep keep,
+                                                   const NodeCtx& c) {
     double* F = c.scr;
-    lnw_affine(A, b, c.y, P.idx, nc, ni, F);
+    lnw_affine(A, b, c.y, idx, nc, ni, F);
     if (CO)
         for (int i = 0; i < nc; ++i) F[i] = F[i] + c.slack;
     if (MODE == 0) return lnw_value(F, nc, c.floor);
-    const unsigned keep = P.keep;
     if (MODE == 1) {
         const double gl = lnw_inv(F, nc);
         for (int i = 0; i < ni; ++i)
-            if (keep >> i & 1)
-                put(c.o + P.idx[i], lnw_grad(A, F, nc, ni, i), c.first);
+            if (keep(i)) put(c.o + idx[i], lnw_grad(A, F, nc, ni, i), c.first);
         if (CO) put(c.o + c.nin, gl, c.first);
         return 0.0;
     }
     const double cn = lnw_inv2<CO>(F, nc);
     const int ny = c.ny;
     for (int i = 0; i < ni; ++i) {
-        if (!(keep >> i & 1)) continue;
+        if (!keep(i)) continue;
         for (int j = 0; j < ni; ++j)
-            if (keep >> j & 1)
-                put(c.o + P.idx[i] * ny + P.idx[j],
+            if (keep(j))
+                put(c.o + idx[i] * ny + idx[j],
                     lnw_hess_ij(A, F, nc, ni, i, j), c.first);
     }
     if (CO) {
         const int nin = c.nin;
         for (int i = 0; i < ni; ++i)
-            if (keep >> i & 1) {
+            if (keep(i)) {
                 const double cr = lnw_cross(A, F, nc, ni, i);
-                put(c.o + P.idx[i] * ny + nin, cr, c.first);
-                put(c.o + nin * ny + P.idx[i], cr, c.first);
+                put(c.o + idx[i] * ny + nin, cr, c.first);
+                put(c.o + nin * ny + idx[i], cr, c.first);
             }
         put(c.o + nin * ny + nin, cn, c.first);
     }
     return 0.0;
+}
+
+template <int MODE, bool CO>
+static __device__ __forceinline__ double linear_wide(const NBKPiece& P,
+                                                     const NodeCtx& c) {
+    const int nc = P.nc, ni = P.ni;
+    return linear_rt<MODE, CO>(
+        staged(c.sh, P.sA, P.A + (size_t)c.n0 * nc * ni) + c.t * nc * ni,
+        staged(c.sh, P.sb, P.b + (size_t)c.n0 * nc) + c.t * nc, P.idx, nc,
+        ni, MaskKeep{P.keep}, c);
 }
 
 #define NB_CONE_CASES(Z)                                          \
@@ -604,6 +631,240 @@ __global__ void __launch_bounds__(64, 1)
     node_barrier_body<MODE, FORM, true>(tb);
 }
 
+// ---- the table kernels: any number of pieces and rows, any widths ---------
+//
+// A table past the parameter kernels' limits (more than 16 pieces, more
+// than 32 rows, or a cone or linear block wider than 32) does not fit the
+// 4 KB __grid_constant__ parameter. node_barrier.py writes it to a device
+// buffer: npc NBTPiece records, then the pieces' input rows as one int
+// list. Every piece takes the runtime-width instance of its kind (cone_rt,
+// linear_rt), reading its grids, the node's rows and its scratch row from
+// global memory. A block first derives, in shared memory, each piece's
+// output rows and the union of the earlier pieces' rows as arrays of
+// 32-bit words (ceil(ny / 32) each), and for each input row whether it is
+// the last occurrence of its row; these take the place of the parameter
+// kernels' 32-bit masks in add_zeros and keep. A node's row (mode 1) or
+// ny x ny block (mode 2) is built in shared memory where 8 or more nodes'
+// blocks fit the opt-in 227 KB, and stored as the parameter kernels store
+// it; otherwise in the output itself, in global memory, where the node's
+// thread then applies bw (and wc) in place. Same left folds, same bits.
+
+struct NBTPiece {
+    const double *A, *b, *p, *mu;
+    int inst, nc, ni;
+    int idx;  // offset of the piece's ni input rows in the int list
+};
+
+struct NBTKTable {
+    const NBTPiece* pc;
+    const int* ints;       // the input rows of every piece
+    const double *y, *sel, *bw, *wc, *boxb, *boxR;
+    double* out;
+    double* scr;           // (m, scrs) scratch rows
+    double floor;
+    int npc, m, ny, nin, nw, scrs, nidx;
+    int sos;               // shared row stride, 0: rows built in global
+};
+
+// add_zeros over word masks (cur null: the piece is inactive)
+template <int MODE>
+static __device__ __forceinline__ void add_zeros_w(double* o,
+                                                   const unsigned* prev,
+                                                   const unsigned* cur,
+                                                   int nw, int ny) {
+    for (int wa = 0; wa < nw; ++wa)
+        for (unsigned ra = prev[wa]; ra; ra &= ra - 1) {
+            const int a = wa * 32 + __ffs(ra) - 1;
+            const bool in = cur != nullptr && (cur[wa] >> (a & 31) & 1);
+            if (MODE == 1) {
+                if (!in) o[a] = o[a] + 0.0;
+                continue;
+            }
+            for (int wb = 0; wb < nw; ++wb) {
+                const unsigned skip = in ? cur[wb] : 0u;
+                for (unsigned rc = prev[wb] & ~skip; rc; rc &= rc - 1) {
+                    const int cc = wb * 32 + __ffs(rc) - 1;
+                    o[a * ny + cc] = o[a * ny + cc] + 0.0;
+                }
+            }
+        }
+}
+
+// keep(i) of the table kernels: a flag per input row
+struct FlagKeep {
+    const unsigned char* k;
+    __device__ __forceinline__ bool operator()(int i) const { return k[i]; }
+};
+
+template <int MODE, bool CO>
+static __device__ __forceinline__ double eval_table(const NBTPiece& P,
+                                                    const unsigned char* keep,
+                                                    const int* idx, int n,
+                                                    const NodeCtx& c) {
+    const int nc = P.nc, ni = P.ni;
+    const double* A = P.A + (size_t)n * nc * ni;
+    const double* b = P.b + (size_t)n * nc;
+    const FlagKeep k{keep};
+    switch (P.inst) {
+        case NB_CONE_WIDE + 0:
+            return cone_rt<0, MODE, CO>(A, b, P.p[n], P.mu[n], idx, nc, k, c);
+        case NB_CONE_WIDE + 1:
+            return cone_rt<1, MODE, CO>(A, b, P.p[n], P.mu[n], idx, nc, k, c);
+        case NB_CONE_WIDE + 2:
+            return cone_rt<2, MODE, CO>(A, b, P.p[n], P.mu[n], idx, nc, k, c);
+        default: return linear_rt<MODE, CO>(A, b, idx, nc, ni, k, c);
+    }
+}
+
+template <int MODE, int FORM>
+__global__ void __launch_bounds__(64, 1)
+    node_barrier_table_kernel(const __grid_constant__ NBTKTable tb) {
+    constexpr bool CO = FORM > 0, BOX = FORM == 2;
+    extern __shared__ __align__(16) double sh[];
+    const int t = threadIdx.x, B = blockDim.x;
+    const int n0 = blockIdx.x * B;
+    const int nb = min(B, tb.m - n0);
+    const int ny = tb.ny, npc = tb.npc, nin = tb.nin, nw = tb.nw;
+    const int w = MODE == 1 ? ny : ny * ny;
+    // shared: [B rows of sos doubles, B bw] [rows, prev: npc x nw words]
+    // [keep: a flag per input row]
+    const int sd = tb.sos ? B * tb.sos + B : 0;
+    unsigned* rows = reinterpret_cast<unsigned*>(sh + sd);
+    unsigned* prev = rows + npc * nw;
+    unsigned char* keep = reinterpret_cast<unsigned char*>(prev + npc * nw);
+    if (MODE > 0) {
+        for (int k = t; k < npc; k += B) {
+            const NBTPiece& P = tb.pc[k];
+            const int* idx = tb.ints + P.idx;
+            unsigned* r = rows + k * nw;
+            for (int i = 0; i < nw; ++i) r[i] = 0u;
+            if (CO) r[nin >> 5] |= 1u << (nin & 31);
+            for (int i = 0; i < P.ni; ++i) {
+                r[idx[i] >> 5] |= 1u << (idx[i] & 31);
+                bool last = true;
+                for (int l = i + 1; l < P.ni; ++l)
+                    last = last && idx[l] != idx[i];
+                keep[P.idx + i] = last;
+            }
+        }
+        __syncthreads();
+        for (int i = t; i < nw; i += B) {
+            unsigned acc = 0u;
+            for (int k = 0; k < npc; ++k) {
+                prev[k * nw + i] = acc;
+                acc |= rows[k * nw + i];
+            }
+        }
+    }
+    const int n = n0 + t;
+    const bool live = t < nb;
+    double bw = 0.0;
+    double* o = nullptr;
+    if (live) bw = tb.bw[n];
+    if (MODE > 0) {
+        o = tb.sos ? sh + t * tb.sos : tb.out + (size_t)n * w;
+        if (tb.sos) sh[B * tb.sos + t] = bw;
+        if (live)
+            for (int i = 0; i < w; ++i) o[i] = 0.0;
+    }
+    __syncthreads();
+
+    if (live) {
+        NodeCtx c;
+        c.sh = sh;
+        c.n0 = n0;
+        c.t = t;
+        c.ny = ny;
+        c.nin = nin;
+        c.y = tb.y + (size_t)n * ny;
+        c.slack = CO ? c.y[nin] : 0.0;
+        c.floor = tb.floor;
+        c.o = o;
+        c.scr = tb.scr + (size_t)n * tb.scrs;
+        const double* sel = tb.sel ? tb.sel + (size_t)n * npc : nullptr;
+        double T = 0.0;
+        for (int k = 0; k < npc; ++k) {
+            const NBTPiece& P = tb.pc[k];
+            const bool act = sel == nullptr || sel[k] != 0.0;
+            if (MODE > 0 && k > 0)
+                add_zeros_w<MODE>(o, prev + k * nw, act ? rows + k * nw
+                                                        : nullptr, nw, ny);
+            c.first = k == 0;
+            double v = 0.0;
+            if (act)
+                v = eval_table<MODE, CO>(P, keep + P.idx, tb.ints + P.idx, n,
+                                         c);
+            if (MODE == 0) {
+                const double e = act ? v : 0.0;
+                T = k == 0 ? e : T + e;
+            }
+        }
+        const double* y = c.y;
+        const double slack = c.slack;
+        double bb = 0.0, R = 0.0;
+        if (BOX) {
+            bb = tb.boxb[n];
+            R = tb.boxR[n];
+        }
+        if (MODE == 0) {
+            if (BOX) {
+                double sv = 0.0;
+                for (int i = nin + 1; i < ny; ++i) {
+                    const double ti = -log_barrier(R - y[i], tb.floor)
+                                      - log_barrier(R + y[i], tb.floor);
+                    sv = i == nin + 1 ? ti : sv + ti;
+                }
+                T = T - log_barrier(bb - slack, tb.floor)
+                    - log_barrier(bb + slack, tb.floor) + sv;
+            }
+            const double* wr = tb.wc + (size_t)n * ny;
+            double lin = wr[0] * y[0];
+            for (int k = 1; k < ny; ++k) lin = lin + wr[k] * y[k];
+            tb.out[n] = (bw != 0.0 ? bw * T : 0.0) + lin;
+        } else if (BOX && MODE == 1) {
+            o[nin] = o[nin] + (1.0 / (bb - slack) - 1.0 / (bb + slack));
+            for (int a = nin + 1; a < ny; ++a)
+                o[a] = 1.0 / (R - y[a]) - 1.0 / (R + y[a]);
+        } else if (BOX) {
+            const double ibm = 1.0 / (bb - slack), ibp = 1.0 / (bb + slack);
+            o[nin * ny + nin] = o[nin * ny + nin] + (ibm * ibm + ibp * ibp);
+            for (int a = nin + 1; a < ny; ++a) {
+                const double ivm = 1.0 / (R - y[a]), ivp = 1.0 / (R + y[a]);
+                o[a * ny + a] = ivm * ivm + ivp * ivp;
+            }
+        }
+        if (MODE > 0 && !tb.sos) {  // in place, in global memory
+            const double* wr = tb.wc + (size_t)n * w;
+            for (int i = 0; i < w; ++i) {
+                double v = bw != 0.0 ? bw * o[i] : 0.0;
+                if (MODE == 1) v = v + wr[i];
+                o[i] = v;
+            }
+        }
+    }
+    if (MODE == 0 || !tb.sos) return;
+    __syncthreads();
+    // the block's nb rows of w doubles, contiguous in global memory
+    const int sos = tb.sos;
+    const double* sbw = sh + B * sos;
+    double* dst = tb.out + (size_t)n0 * w;
+    const double* wc = tb.wc + (size_t)n0 * w;
+    int row = t / w, x = t - row * w;
+    const int dq = B / w, dr = B - dq * w;
+    for (int i = t; i < nb * w; i += B) {
+        const double bwr = sbw[row];
+        double v = bwr != 0.0 ? bwr * sh[row * sos + x] : 0.0;
+        if (MODE == 1) v = v + wc[i];
+        dst[i] = v;
+        row += dq;
+        x += dr;
+        if (x >= w) {
+            x -= w;
+            ++row;
+        }
+    }
+}
+
 // The instance code of a piece shape, -1 outside the kernel's limits: a
 // register instance where one takes the shape, else a runtime-width one.
 static int instance_code(int kind, int width, int ni, int spec) {
@@ -711,6 +972,7 @@ static cudaError_t launch_mode(int mode, int form, dim3 grid, int B,
 // Nodes a block of the last launch (the tests read it where the block's
 // rows push it below 16).
 static int nb_last_block = 0;
+static int nb_last_global = 0;
 
 extern "C" int node_barrier_last_block(void) { return nb_last_block; }
 
@@ -780,6 +1042,7 @@ extern "C" int node_barrier_launch(const NBTable* in, void* stream) {
     if (smem > NB_SMEM_MAX) return (int)cudaErrorInvalidValue;
     layout(k, t.mode, B);
     nb_last_block = B;
+    nb_last_global = 0;
     const dim3 grid((t.m + B - 1) / B);
     const cudaStream_t st = (cudaStream_t)stream;
     return (int)(wide ? launch_mode<true>(t.mode, form, grid, B, smem, st, k)
@@ -787,10 +1050,112 @@ extern "C" int node_barrier_launch(const NBTable* in, void* stream) {
                                            k));
 }
 
+template <int MODE>
+static cudaError_t launch_table(int form, dim3 grid, int B, size_t smem,
+                                cudaStream_t st, const NBTKTable& k) {
+    void (*kernel)(const NBTKTable) =
+        form == 0   ? node_barrier_table_kernel<MODE, 0>
+        : form == 1 ? node_barrier_table_kernel<MODE, 1>
+                    : node_barrier_table_kernel<MODE, 2>;
+    if (smem > NB_SMEM) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+    }
+    kernel<<<grid, B, smem, st>>>(k);
+    return cudaGetLastError();
+}
+
+// Launch of a table kernel. ``host`` is the table as node_barrier.py wrote
+// it (checked here: instance codes, widths, input rows, the scratch
+// stride), ``dev`` its copy on the device; nidx is the length of the int
+// list after the npc records.
+extern "C" int node_barrier_table_launch(
+    const NBTPiece* host, const NBTPiece* dev, int npc, int nidx,
+    const double* y, const double* sel, const double* bw, const double* wc,
+    const double* boxb, const double* boxR, double* out, double* scr,
+    double floor, int mode, int m, int ny, int nc_co, int scrs,
+    void* stream) {
+    if (m <= 0) return (int)cudaGetLastError();
+    const bool box = boxb != nullptr;
+    if (mode < 0 || mode > 2 || npc < 1 || ny < 1 || nidx < 1
+        || (nc_co != 0 && (nc_co < 2 || nc_co > ny))
+        || (box && (nc_co == 0 || nc_co >= ny || boxR == nullptr))
+        || (!box && nc_co != 0 && nc_co != ny))
+        return (int)cudaErrorInvalidValue;
+    const int nin = nc_co ? nc_co - 1 : ny;
+    const int* ints = reinterpret_cast<const int*>(host + npc);
+    int used = 0;
+    for (int j = 0; j < npc; ++j) {
+        const NBTPiece& P = host[j];
+        const bool cone = P.inst >= NB_CONE_WIDE && P.inst < NB_LIN_WIDE;
+        if ((cone ? P.nc < 2 || P.ni != P.nc || !P.p || !P.mu
+                  : P.inst != NB_LIN_WIDE || P.nc < 1 || P.ni < 1)
+            || !P.A || !P.b || P.idx != used || (P.nc | 1) > scrs)
+            return (int)cudaErrorInvalidValue;
+        for (int i = 0; i < P.ni; ++i)
+            if (ints[used + i] < 0 || ints[used + i] >= nin)
+                return (int)cudaErrorInvalidValue;
+        used += P.ni;
+    }
+    if (used != nidx) return (int)cudaErrorInvalidValue;
+    NBTKTable k = {};
+    k.pc = dev;
+    k.ints = reinterpret_cast<const int*>(dev + npc);
+    k.y = y;
+    k.sel = sel;
+    k.bw = bw;
+    k.wc = wc;
+    k.boxb = boxb;
+    k.boxR = boxR;
+    k.out = out;
+    k.scr = scr;
+    k.floor = floor;
+    k.npc = npc;
+    k.m = m;
+    k.ny = ny;
+    k.nin = nin;
+    k.nw = (ny + 31) / 32;
+    k.scrs = scrs;
+    k.nidx = nidx;
+    const size_t masks = mode ? (2 * sizeof(unsigned) * npc * k.nw + nidx
+                                 + 7) & ~(size_t)7 : 0;
+    int B = 32;
+    k.sos = 0;
+    if (mode > 0) {
+        const int sos = (mode == 1 ? ny : ny * ny) | 1;
+        while (B > 8 && sizeof(double) * (size_t)B * (sos + 1) + masks
+                            > NB_SMEM_MAX)
+            B /= 2;
+        if (sizeof(double) * (size_t)B * (sos + 1) + masks <= NB_SMEM_MAX)
+            k.sos = sos;
+        else
+            B = 32;
+    }
+    const size_t smem =
+        (k.sos ? sizeof(double) * (size_t)B * (k.sos + 1) : 0) + masks;
+    if (smem > NB_SMEM_MAX) return (int)cudaErrorInvalidValue;
+    nb_last_block = B;
+    nb_last_global = mode > 0 && !k.sos;
+    const int form = nc_co == 0 ? 0 : (box ? 2 : 1);
+    const dim3 grid((m + B - 1) / B);
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (mode) {
+        case 0: return (int)launch_table<0>(form, grid, B, smem, st, k);
+        case 1: return (int)launch_table<1>(form, grid, B, smem, st, k);
+        default: return (int)launch_table<2>(form, grid, B, smem, st, k);
+    }
+}
+
+// Rows built in global memory by the last table launch (1) or in shared
+// memory (0).
+extern "C" int node_barrier_last_in_global(void) { return nb_last_global; }
+
 // The table's layout as this library sees it, for the ctypes mirror's
 // check: its size, and by field number the offsets of pc (0), y (1) and
 // nc_co (2) in NBTable, sizeof(NBPiece) (3) and the offsets of idx (4) and
-// inst (5) in NBPiece.
+// inst (5) in NBPiece, sizeof(NBTPiece) (6) and the offsets of inst (7) and
+// idx (8) in NBTPiece.
 extern "C" int node_barrier_table_size(void) { return (int)sizeof(NBTable); }
 
 extern "C" int node_barrier_table_offset(int field) {
@@ -801,6 +1166,9 @@ extern "C" int node_barrier_table_offset(int field) {
         case 3: return (int)sizeof(NBPiece);
         case 4: return (int)offsetof(NBPiece, idx);
         case 5: return (int)offsetof(NBPiece, inst);
+        case 6: return (int)sizeof(NBTPiece);
+        case 7: return (int)offsetof(NBTPiece, inst);
+        case 8: return (int)offsetof(NBTPiece, idx);
         default: return -1;
     }
 }

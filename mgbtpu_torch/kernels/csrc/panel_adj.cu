@@ -33,3 +33,24 @@ extern "C" int panel_adj_launch(const void* panels, const void* inv,
         (cudaStream_t)stream);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
+
+// Phase A alone, for one shard of a mesh: its per-slot contributions.
+extern "C" int panel_adj_contrib_launch(const void* panels, const void* Y,
+                                        void* contrib, int nD, int N, int p,
+                                        int C, int form, void* stream) {
+    cudaError_t e = adjoint_contrib_launch(
+        (const double*)panels, (const double*)Y, (double*)contrib, nD, N, p,
+        C, form, (cudaStream_t)stream);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// Phase B alone: out (n_J,) from the contributions of every slot of a
+// level (N*C,), e.g. each shard's concatenated on the first device.
+extern "C" int panel_adj_sum_launch(const void* inv, const void* contrib,
+                                    void* out, int N, int C, int n_J, int K,
+                                    void* stream) {
+    cudaError_t e = adjoint_sum_launch((const int64_t*)inv,
+                                       (const double*)contrib, (double*)out,
+                                       N, C, n_J, K, (cudaStream_t)stream);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}

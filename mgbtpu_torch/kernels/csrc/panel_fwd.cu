@@ -54,7 +54,6 @@
 #include "cpasync.cuh"
 #include "panel_chunk.cuh"
 
-#define MAX_ND 12
 #define THREADS_TARGET 128
 #define SMEM_DEFAULT (48 * 1024)
 #define SMEM_MAX (227 * 1024)
@@ -223,7 +222,7 @@ static size_t group_smem(int nD, int p, int C, int E) {
 // the spread form; `form` 0 picks by shape (the note at the top), 1..3
 // asks for one. 0 when the shape is refused.
 static int pick_form(int nD, int N, int p, int C, int form) {
-    if (nD > MAX_ND || C <= 0 || form < 0 || form > 3) return 0;
+    if (C <= 0 || form < 0 || form > 3) return 0;
     const int per = p * nD;
     const bool group = per <= 1024 && group_smem(nD, p, C, 1) <= SMEM_MAX;
     const bool wide = per <= 1024 && chunk_cols(per, C, WIDE_BUDGET, C) > 0;

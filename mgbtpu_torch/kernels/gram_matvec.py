@@ -43,15 +43,19 @@ _FORM = 0   # the C entry's form: 0 by shape; the card tests set 1 or 2
 def gram_matvec_plain(panels, cols, inv, Lnode, v):
     """Plain PyTorch version: gather, four einsums, scatter-add by ``cols``
     (``inv`` is the kernel's input)."""
+    out = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+    return scatter_add(out, cols.reshape(-1),
+                       gram_matvec_contrib_plain(panels, cols, Lnode, v))
+
+
+def gram_matvec_contrib_plain(panels, cols, Lnode, v):
     nD, N, p, C = panels.shape
     vg = v[cols]                                            # (N, C)
     Lr = Lnode.reshape(N, p, nD, nD)
     Pv = torch.einsum("kNpc,Nc->Npk", panels, vg)           # (N, p, j)
     Bv = torch.einsum("Npji,Npj->Npi", Lr, Pv)              # (N, p, i)
     Y = torch.einsum("Npji,Npi->Npj", Lr, Bv)               # back through L
-    contrib = torch.einsum("kNpc,Npk->Nc", panels, Y)
-    out = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
-    return scatter_add(out, cols.reshape(-1), contrib.reshape(-1))
+    return torch.einsum("kNpc,Npk->Nc", panels, Y).reshape(-1)
 
 
 def gram_matvec(panels, cols, inv, Lnode, v):
@@ -81,3 +85,25 @@ def gram_matvec(panels, cols, inv, Lnode, v):
 
 
 gram_matvec.launches = 0
+
+
+def gram_matvec_contrib(panels, cols, Lnode, v):
+    """The per-slot contributions (N*C,) of H v alone, for one shard of a
+    mesh (K4 without its phase B: the first device sums every shard's with
+    ``panel_adj.adjoint_sum``); a launch of K4."""
+    if not B.on_cuda(NAME, panels, cols, Lnode, v):
+        return gram_matvec_contrib_plain(panels, cols, Lnode, v)
+    nD, N, p, C = panels.shape
+    B.cuda_f64(NAME, panels, (nD, N, p, C), "panels")
+    B.cuda_i64(NAME, cols, (N, C), "cols")
+    B.cuda_f64(NAME, Lnode, (N * p, nD, nD), "Lnode")
+    B.require(v.dim() == 1 and v.dtype == torch.float64 and v.is_contiguous(),
+              NAME, "v must be a contiguous float64 vector")
+    contrib = torch.empty((N * C,), dtype=torch.float64, device=v.device)
+    fn = B.launcher(NAME, _ARGS)
+    err = fn(B.ptr(panels), B.ptr(cols), None, B.ptr(Lnode), B.ptr(v),
+             B.ptr(contrib), None, nD, N, p, C, v.shape[0], 0, _FORM,
+             B.stream(v.device))
+    B.check(NAME, err)
+    gram_matvec.launches += 1
+    return contrib

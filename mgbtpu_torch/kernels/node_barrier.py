@@ -11,11 +11,14 @@ them. K2 (``power_cone.py``) keeps the lone power cone's barrier; K6 takes
 every other case, and a lone cone that K2 does not take (nz > 5 or more
 than 12 rows).
 
-A barrier is a table of at most 16 ``Piece``s over at most 32 rows (the
-cobarrier's slack and the phase-I box rows included), each a power cone
-(2 <= nz <= 32) or a linear block (nc, ni <= 32) reading the rows ``idx``
-of y, and an optional select grid (m, pieces): piece k is active at a node
-where its column is nonzero. Per node::
+A barrier is a table of ``Piece``s over the rows of y (the cobarrier's
+slack and the phase-I box rows included), each a power cone (nz >= 2) or a
+linear block (nc, ni >= 1) reading the rows ``idx`` of y, and an optional
+select grid (m, pieces): piece k is active at a node where its column is
+nonzero. Any number of pieces, rows and widths runs, as in the JAX
+package; ``ValueError`` is raised only for a table that package does not
+solve either (no piece, a row out of range, a cone reading other than nz
+rows). Per node::
 
     mode 0:  bw T (0 where bw == 0) + <wc, y>           -> (m,)
     mode 1:  bw T (0 where bw == 0) + wc                -> (m, ny)
@@ -49,7 +52,16 @@ and make each entry of the cone's Hessian where it is used (no kernel has a
 stack frame). Modes 1 and 2 build each node's row or ny x ny block in
 shared memory as the left fold over the pieces (an exact +0.0 added where a
 piece leaves an earlier piece's entry alone) and store the block's rows
-contiguous; ny <= 32 (the 32-bit row masks).
+contiguous. These kernels take the table as their ``__grid_constant__``
+parameter, which holds at most ``MAX_PIECES`` = 16 pieces over
+``MAX_ROWS`` = 32 rows (its 32-bit row masks) with widths up to
+``MAX_WIDTH`` = 32. A table past any of these runs in the table kernels,
+one per (mode, form): the table goes to the card as a buffer (the pieces'
+records and their input rows, ``_device_table``), every piece takes its
+runtime-width instance reading grids and rows from global memory, a block
+derives the row masks as arrays of 32-bit words in shared memory, and each
+node's row or block is built in shared memory where 8 nodes' fit the
+opt-in 227 KB and in the output itself where not.
 Built with ``--fmad=false`` and following the plain version below operation
 by operation, so it gives the plain version's bits. What bounds it on an
 H100: bytes (a few hundred flops per node against the pieces' grids and the
@@ -60,6 +72,7 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from . import _build as B
@@ -69,6 +82,7 @@ from ..utils.log import Log, barrier_floor
 
 NAME = "node_barrier"
 POWER, LINEAR = 0, 1
+# the largest table of the parameter kernels; past it, the table kernels
 MAX_PIECES, MAX_ROWS = 16, 32
 MAX_WIDTH = 32      # a cone's nz, a linear block's nc and ni
 REGISTER_NZ = 5     # the widest cone with register-resident instances
@@ -218,7 +232,8 @@ def node_barrier_plain(mode, Dz, pieces, args, sel, bw, wc, co=None,
 # the runtime-width instance (LINEAR_ANY); these run in the register
 # kernels. A table with a wider piece runs in the wide kernels, where every
 # piece takes the runtime-width cone by spec (CONE_WIDE + spec) or the wide
-# linear block (LINEAR_WIDE).
+# linear block (LINEAR_WIDE); so does every piece of a table past the
+# parameter kernels' limits, in the table kernels.
 LINEAR_SHAPES = ((1, 1), (2, 1))
 LINEAR_ANY = 12 + len(LINEAR_SHAPES)
 CONE_WIDE = LINEAR_ANY + 1
@@ -227,18 +242,16 @@ FORMS = ("barrier", "cobarrier", "cobarrier + box")
 
 
 def instance_code(kind: int, width: int, ni: int, spec: int) -> int:
-    """The kernel instance of one piece shape, -1 outside the kernel's
-    limits (power cone 2 <= nz <= 32 reading nz rows, spec 0/1/2; linear
-    block nc, ni <= 32)."""
+    """The kernel instance of one piece shape, -1 for a shape that is no
+    piece (a power cone needs nz >= 2 reading nz rows, spec 0/1/2; a
+    linear block nc, ni >= 1)."""
     if kind == POWER:
-        if not (2 <= width <= MAX_WIDTH and ni == width
-                and spec in (0, 1, 2)):
+        if not (2 <= width and ni == width and spec in (0, 1, 2)):
             return -1
         if width <= REGISTER_NZ:
             return (width - 2) * 3 + spec
         return CONE_WIDE + spec
-    if kind != LINEAR or not (1 <= width <= MAX_WIDTH
-                              and 1 <= ni <= MAX_WIDTH):
+    if kind != LINEAR or not (1 <= width and 1 <= ni):
         return -1
     if (width, ni) in LINEAR_SHAPES:
         return 12 + LINEAR_SHAPES.index((width, ni))
@@ -265,19 +278,21 @@ def wide_code(kind: int, spec: int) -> int:
 
 @dataclass(frozen=True)
 class Instance:
-    """The kernel a call launches, (mode, form, wide), and the instance code
-    of each piece (see ``instance``)."""
+    """The kernel a call launches, (mode, form, wide, table), and the
+    instance code of each piece (see ``instance``)."""
     mode: int
     form: int
     codes: tuple
+    table: bool = False     # past the parameter kernels: a table kernel
 
     @property
     def wide(self) -> bool:
         return any(c >= CONE_WIDE for c in self.codes)
 
     def __str__(self):
-        kernel = "node_barrier_wide_kernel" if self.wide \
-            else "node_barrier_kernel"
+        kernel = ("node_barrier_table_kernel" if self.table
+                  else "node_barrier_wide_kernel" if self.wide
+                  else "node_barrier_kernel")
         return (f"{kernel}<mode {self.mode}, {FORMS[self.form]}> "
                 f"[{', '.join(instance_name(c) for c in self.codes)}]")
 
@@ -285,14 +300,14 @@ class Instance:
 def instance(pieces, mode, ny, co=None, box=False) -> Instance:
     """The kernel and per-piece instances that run ``pieces`` in ``mode``
     over ny rows (``co`` the cobarrier width or None, ``box`` the phase-I
-    box); raises ValueError for a table outside the kernel's limits (16
-    pieces, 32 rows, widths up to 32), on any device."""
+    box): the register kernels, the wide kernels for a table with a piece
+    past the register instances, the table kernels for one past 16 pieces,
+    32 rows or a width of 32. Raises ValueError, on any device, only for
+    what is no table (see the module docstring)."""
     npc = len(pieces)
     B.require(mode in (0, 1, 2), NAME, f"mode {mode}")
     B.require(npc >= 1, NAME, "0 pieces")
-    B.require(npc <= MAX_PIECES, NAME,
-              f"{npc} pieces exceed {MAX_PIECES}")
-    B.require(1 <= ny <= MAX_ROWS, NAME, f"{ny} rows exceed {MAX_ROWS}")
+    B.require(ny >= 1, NAME, f"{ny} rows")
     if co is None:
         B.require(not box, NAME, "the box needs the cobarrier form")
         nin = ny
@@ -306,14 +321,15 @@ def instance(pieces, mode, ny, co=None, box=False) -> Instance:
     for pc in pieces:
         B.require(all(0 <= i < nin for i in pc.idx), NAME, f"idx {pc.idx}")
         code = instance_code(pc.kind, pc.width, len(pc.idx), pc.spec)
-        B.require(code >= 0, NAME, f"piece {pc} outside the kernel's limits"
-                  f" (cone 2 <= nz <= {MAX_WIDTH}, linear nc, ni <= "
-                  f"{MAX_WIDTH})")
+        B.require(code >= 0, NAME, f"piece {pc} is no piece (cone nz >= 2 "
+                  f"reading nz rows, linear nc, ni >= 1)")
         codes.append(code)
-    if any(c >= CONE_WIDE for c in codes):    # the wide kernels
+    table = npc > MAX_PIECES or ny > MAX_ROWS or any(
+        max(pc.width, len(pc.idx)) > MAX_WIDTH for pc in pieces)
+    if table or any(c >= CONE_WIDE for c in codes):    # the wide kernels
         codes = [wide_code(pc.kind, pc.spec) for pc in pieces]
     form = 0 if co is None else (2 if box else 1)
-    return Instance(mode, form, tuple(codes))
+    return Instance(mode, form, tuple(codes), table)
 
 
 # ctypes mirrors of NBPiece and NBTable in csrc/node_barrier.cu: the field
@@ -339,10 +355,20 @@ class _Table(ctypes.Structure):
 
 _ARGS = [ctypes.POINTER(_Table), ctypes.c_void_p]
 # node_barrier_table_offset(field) of the C library, field by field
+# the table kernels' piece record, NBTPiece, as a numpy record: the
+# records, then the pieces' input rows as int32, make the device buffer
+_TPIECE = np.dtype([("A", "<u8"), ("b", "<u8"), ("p", "<u8"), ("mu", "<u8"),
+                    ("inst", "<i4"), ("nc", "<i4"), ("ni", "<i4"),
+                    ("idx", "<i4")])
 LAYOUT = (("pc", _Table.pc.offset), ("y", _Table.y.offset),
           ("nc_co", _Table.nc_co.offset), ("sizeof NBPiece",
                                            ctypes.sizeof(_Piece)),
-          ("idx", _Piece.idx.offset), ("inst", _Piece.inst.offset))
+          ("idx", _Piece.idx.offset), ("inst", _Piece.inst.offset),
+          ("sizeof NBTPiece", _TPIECE.itemsize),
+          ("NBTPiece inst", _TPIECE.fields["inst"][1]),
+          ("NBTPiece idx", _TPIECE.fields["idx"][1]))
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_TABLE_ARGS = [_P, _P, _I, _I] + [_P] * 8 + [_D] + [_I] * 5 + [_P]
 
 
 def check_layout(table_size, table_offset):
@@ -374,14 +400,51 @@ def _launcher():
     return fn
 
 
+def _table_launcher():
+    _launcher()
+    fn = _LAUNCH.get("table")
+    if fn is None:
+        fn = _LAUNCH["table"] = B.launcher(NAME, _TABLE_ARGS,
+                                           "node_barrier_table_launch")
+    return fn
+
+
 _LAUNCH: dict = {}
 
 
 def last_block() -> int:
     """Nodes a block of the last launch on the card: 32 (64 above 8,448
     nodes), 16 where the block's rows pass 48 KB of shared memory, fewer
-    where 16 nodes pass the opt-in 227 KB."""
+    where 16 nodes pass the opt-in 227 KB; a table kernel's 32, or fewer
+    down to 8 where its rows are built in shared memory."""
     return B.launcher(NAME, [], "node_barrier_last_block")()
+
+
+def last_in_global() -> bool:
+    """Whether the last table launch built its nodes' rows in global
+    memory (where 8 nodes' ny x ny blocks pass 227 KB)."""
+    return bool(B.launcher(NAME, [], "node_barrier_last_in_global")())
+
+
+def _device_table(pieces, codes, args, device):
+    """The table kernels' buffer: one NBTPiece record a piece, then every
+    piece's input rows; returns (host copy, device copy). The host copy is
+    pinned and the copy to the card is asynchronous on the current
+    stream, so the call syncs nothing."""
+    rec = np.zeros(len(pieces), _TPIECE)
+    off = 0
+    for k, (pc, code) in enumerate(zip(pieces, codes)):
+        g = pc.grids(args)
+        cone = pc.kind == POWER
+        rec[k] = (g[0].data_ptr(), g[1].data_ptr(),
+                  g[2].data_ptr() if cone else 0,
+                  g[3].data_ptr() if cone else 0, code, pc.width,
+                  len(pc.idx), off)
+        off += len(pc.idx)
+    idx = np.asarray([i for pc in pieces for i in pc.idx], "<i4")
+    host = torch.from_numpy(np.concatenate(
+        [rec.view(np.uint8), idx.view(np.uint8)])).pin_memory()
+    return host, host.to(device, non_blocking=True)
 
 
 def _check_grids(pc, grids, m):
@@ -417,10 +480,49 @@ def node_barrier(mode, Dz, pieces, args, sel, bw, wc, co=None, box=None):
     if box is not None:
         for t, label in zip(box, ("b", "R")):
             B.cuda_f64(NAME, t, (m,), label)
+    for pc in pieces:
+        _check_grids(pc, pc.grids(args), m)
+    shape = ((m,), (m, ny), (m, ny, ny))[mode]
+    out = torch.empty(shape, dtype=torch.float64, device=Dz.device)
+    if inst.table:
+        err = _launch_table(mode, Dz, pieces, inst.codes, args, sel, bw, wc,
+                            co, box, out)
+    else:
+        err = _launch_params(mode, Dz, pieces, inst.codes, args, sel, bw, wc,
+                             co, box, out)
+    B.check(NAME, err)
+    node_barrier.launches += 1
+    node_barrier.mode_launches[mode] += 1
+    if co is not None:
+        node_barrier.co_launches += 1
+    if inst.wide:
+        node_barrier.wide_launches += 1
+    if inst.table:
+        node_barrier.table_launches += 1
+    return out
+
+
+def _launch_table(mode, Dz, pieces, codes, args, sel, bw, wc, co, box, out):
+    m, ny = Dz.shape
+    host, dev = _device_table(pieces, codes, args, Dz.device)
+    scrs = max(pc.width for pc in pieces) | 1
+    scr = torch.empty((m, scrs), dtype=torch.float64, device=Dz.device)
+    boxb, boxR = (None, None) if box is None else \
+        (box[0].data_ptr(), box[1].data_ptr())
+    return _table_launcher()(
+        host.data_ptr(), dev.data_ptr(), len(pieces),
+        sum(len(pc.idx) for pc in pieces), Dz.data_ptr(),
+        None if sel is None else sel.data_ptr(), bw.data_ptr(),
+        wc.data_ptr(), boxb, boxR, out.data_ptr(), scr.data_ptr(),
+        barrier_floor(torch.float64), mode, m, ny, 0 if co is None else co,
+        scrs, B.stream(Dz.device))
+
+
+def _launch_params(mode, Dz, pieces, codes, args, sel, bw, wc, co, box, out):
+    m, ny = Dz.shape
     t = _Table()
-    for k, (pc, code) in enumerate(zip(pieces, inst.codes)):
+    for k, (pc, code) in enumerate(zip(pieces, codes)):
         g = pc.grids(args)
-        _check_grids(pc, g, m)
         P = t.pc[k]
         P.A, P.b = g[0].data_ptr(), g[1].data_ptr()
         if pc.kind == POWER:
@@ -429,27 +531,18 @@ def node_barrier(mode, Dz, pieces, args, sel, bw, wc, co=None, box=None):
         P.inst = code
         for j, i in enumerate(pc.idx):
             P.idx[j] = i
-    shape = ((m,), (m, ny), (m, ny, ny))[mode]
-    out = torch.empty(shape, dtype=torch.float64, device=Dz.device)
     t.y, t.bw, t.wc, t.out = (x.data_ptr() for x in (Dz, bw, wc, out))
     t.sel = None if sel is None else sel.data_ptr()
     if box is not None:
         t.boxb, t.boxR = box[0].data_ptr(), box[1].data_ptr()
     t.floor = barrier_floor(torch.float64)
-    t.npc, t.mode, t.m, t.ny = npc, mode, m, ny
+    t.npc, t.mode, t.m, t.ny = len(pieces), mode, m, ny
     t.nc_co = 0 if co is None else co
-    err = _launcher()(ctypes.byref(t), B.stream(Dz.device))
-    B.check(NAME, err)
-    node_barrier.launches += 1
-    node_barrier.mode_launches[mode] += 1
-    if co is not None:
-        node_barrier.co_launches += 1
-    if inst.wide:
-        node_barrier.wide_launches += 1
-    return out
+    return _launcher()(ctypes.byref(t), B.stream(Dz.device))
 
 
 node_barrier.launches = 0
 node_barrier.co_launches = 0    # of which in the cobarrier (phase-I) form
 node_barrier.mode_launches = [0, 0, 0]     # the same launches by mode
 node_barrier.wide_launches = 0  # of which with a runtime-width/wide piece
+node_barrier.table_launches = 0  # of which past the parameter kernels

@@ -43,10 +43,19 @@ _FORM = 0   # phase A's form: 0 by shape; the card tests set 1 or 3
 def panel_adj_plain(panels, cols, inv, Y, n_J):
     """Plain PyTorch version: einsum + scatter-add by ``cols`` (``inv`` is
     the kernel's input)."""
+    return adjoint_sum_plain(cols, inv, panel_adj_contrib_plain(panels, Y),
+                             n_J)
+
+
+def panel_adj_contrib_plain(panels, Y):
     nD, N, p, C = panels.shape
-    contrib = torch.einsum("kNpc,Npk->Nc", panels, Y.reshape(N, p, nD))
+    return torch.einsum("kNpc,Npk->Nc", panels,
+                        Y.reshape(N, p, nD)).reshape(-1)
+
+
+def adjoint_sum_plain(cols, inv, contrib, n_J):
     out = torch.zeros((n_J,), dtype=contrib.dtype, device=contrib.device)
-    return scatter_add(out, cols.reshape(-1), contrib.reshape(-1))
+    return scatter_add(out, cols.reshape(-1), contrib)
 
 
 def panel_adj(panels, cols, inv, Y, n_J):
@@ -70,6 +79,43 @@ def panel_adj(panels, cols, inv, Y, n_J):
 
 
 panel_adj.launches = 0
+
+
+def panel_adj_contrib(panels, Y):
+    """Phase A alone (one shard of a mesh): panels (nD, N, p, C), Y (N*p,
+    nD) -> the per-slot contributions (N*C,); a launch of K3."""
+    if not B.on_cuda(NAME, panels, Y):
+        return panel_adj_contrib_plain(panels, Y)
+    nD, N, p, C = panels.shape
+    B.cuda_f64(NAME, panels, (nD, N, p, C), "panels")
+    B.cuda_f64(NAME, Y, (N * p, nD), "Y")
+    contrib = torch.empty((N * C,), dtype=torch.float64, device=Y.device)
+    fn = B.launcher(NAME, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                    + [ctypes.c_void_p], "panel_adj_contrib_launch")
+    B.check(NAME, fn(B.ptr(panels), B.ptr(Y), B.ptr(contrib), nD, N, p, C,
+                     _FORM, B.stream(Y.device)))
+    panel_adj.launches += 1
+    return contrib
+
+
+def adjoint_sum(cols, inv, contrib, n_J):
+    """Phase B alone: the (n_J,) column sums of a level's per-slot
+    contributions (N*C,), each column's slots in increasing order (``inv``
+    on the card, ``cols`` in the plain version); a launch of K3. On a mesh
+    the first device runs it over every shard's contributions."""
+    if not B.on_cuda(NAME, cols, inv, contrib):
+        return adjoint_sum_plain(cols, inv, contrib, n_J)
+    N, C = cols.shape
+    K = inv.shape[1]
+    B.cuda_i64(NAME, inv, (n_J, K), "inv")
+    B.cuda_f64(NAME, contrib, (N * C,), "contrib")
+    out = torch.empty((n_J,), dtype=torch.float64, device=contrib.device)
+    fn = B.launcher(NAME, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p], "panel_adj_sum_launch")
+    B.check(NAME, fn(B.ptr(inv), B.ptr(contrib), B.ptr(out), N, C, n_J, K,
+                     B.stream(contrib.device)))
+    panel_adj.launches += 1
+    return out
 
 
 def form(nD, N, p, C, request=0):

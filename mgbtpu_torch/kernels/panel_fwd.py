@@ -27,7 +27,8 @@ from 384 to 9,216) takes the spread form: the wide form with an element's
 rows split over blocks of 32, so the card fills and any p*nD goes, with
 the same bits again. The C entry picks the form by shape (``form`` says
 which); the element-group and wide forms take p*nD <= 1024 (one thread an
-output of an element). Limit: nD <= 12.
+output of an element), the spread form any p*nD, so any nD runs (the
+16- and 32-field models' 33 and 65 rows, too).
 """
 from __future__ import annotations
 
@@ -56,7 +57,6 @@ def panel_fwd(panels, cols, s, dz0=None):
     if not B.on_cuda(NAME, panels, cols, s, dz0):
         return panel_fwd_plain(panels, cols, s, dz0)
     nD, N, p, C = panels.shape
-    B.require(nD <= 12, NAME, f"nD={nD} exceeds 12")
     B.cuda_f64(NAME, panels, (nD, N, p, C), "panels")
     B.cuda_i64(NAME, cols, (N, C), "cols")
     B.require(s.dim() == 1 and s.dtype == torch.float64 and s.is_contiguous(),

@@ -24,6 +24,21 @@ factor is built from the FEM element structure:
 
 Padded slots carry unit diagonal and zero coupling so they factor trivially
 and contribute nothing. Index plans are int64 (int32 in the reference).
+
+SUBTREE PER DEVICE (``to_device(mesh=...)``, the reference's ``_bshard``):
+a tree level whose front count nk divides by the mesh size n, with
+nk >= n, puts fronts [d nk/n, (d+1) nk/n) on device d. The leaf order is
+contiguous, so children 2i and 2i+1 stay with their parent, and these
+levels are a prefix of the tree, leaves up. ``nd_factor`` gathers each
+device's leaf element blocks from the element shards, runs K5a per device
+up the divisible levels and moves the Schur complements to the first
+device at the first level that does not divide; the levels above run
+there. ``nd_solve`` runs K5b's forward sweep per device on a residual that
+holds the rhs at the device's own rows (the dofs its fronts eliminate);
+the first device applies every device's updates U y to the rows of the
+levels above, level by level in the fronts' order (the fold one device
+makes), solves the top levels, and sends x down for each device's
+backward sweep. A mesh gives the bits of one device.
 """
 from __future__ import annotations
 
@@ -33,6 +48,7 @@ import numpy as np
 import torch
 
 from ..kernels import front_backward, front_factor, front_forward
+from ..parallel.sharding import Mesh, shard_ranges
 from .scatter import scatter_add
 
 ND_LEAF_ELEMS = 8
@@ -283,21 +299,93 @@ class NDDevicePlan:
                 invs.append(ip)
             self.parent_gather.append(tuple(invs))
 
-    def to_device(self, device) -> "NDDev":
-        """The device-side plan: the index arrays as int64 tensors."""
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.int64), device=device)
+    def to_device(self, device=None, mesh: Mesh = None) -> "NDDev":
+        """The device-side plan: the index arrays as int64 tensors on
+        ``device``, or, with a ``mesh``, on its first device with the
+        divisible tree levels' fronts split over the mesh (see the module
+        docstring)."""
+        if mesh is not None:
+            device = mesh.first
 
-        levels = tuple(
-            NDLevel(adofs=t(L["adofs"]), bdofs=t(L["bdofs"]),
-                    b_rows=t(L["b_rows"]), b_inc=t(L["b_inc"]),
-                    k=L["k"], nk=L["nk"], amax=L["amax"], bmax=L["bmax"])
-            for L in self.levels)
-        return NDDev(levels=levels, leaf_of_elem=t(self.leaf_of_elem),
-                     leaf_loc=t(self.leaf_loc),
-                     parent_gather=tuple((t(a), t(b))
-                                         for a, b in self.parent_gather),
-                     depth=self.depth, n_J=self.n_J)
+        def t(a, dev=device):
+            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+        def level(L, lo=0, hi=None, dev=device):
+            hi = L["nk"] if hi is None else hi
+            b_rows, b_inc = ((L["b_rows"], L["b_inc"]) if (lo, hi) ==
+                             (0, L["nk"]) else
+                             boundary_incidence(L["bdofs"][lo:hi], self.n_J))
+            return NDLevel(adofs=t(L["adofs"][lo:hi], dev),
+                           bdofs=t(L["bdofs"][lo:hi], dev),
+                           b_rows=t(b_rows, dev), b_inc=t(b_inc, dev),
+                           k=L["k"], nk=hi - lo, amax=L["amax"],
+                           bmax=L["bmax"])
+
+        levels = tuple(level(L) for L in self.levels)
+        dp = NDDev(levels=levels, leaf_of_elem=t(self.leaf_of_elem),
+                   leaf_loc=t(self.leaf_loc),
+                   parent_gather=tuple((t(a), t(b))
+                                       for a, b in self.parent_gather),
+                   depth=self.depth, n_J=self.n_J)
+        if mesh is None:
+            return dp
+        n = mesh.size
+        nsh = 0
+        while nsh < len(self.levels) and self.levels[nsh]["nk"] % n == 0 \
+                and self.levels[nsh]["nk"] >= n:
+            nsh += 1
+        parts, gathers = [], []
+        for li in range(nsh):
+            L = self.levels[li]
+            q = L["nk"] // n
+            parts.append(tuple(level(L, d * q, (d + 1) * q, dev)
+                               for d, dev in enumerate(mesh.devices)))
+            if li > 0:
+                invL, invR = self.parent_gather[li - 1]
+                gathers.append(tuple(
+                    (t(invL[d * q:(d + 1) * q], dev),
+                     t(invR[d * q:(d + 1) * q], dev))
+                    for d, dev in enumerate(mesh.devices)))
+        dp.mesh, dp.parts, dp.part_gather = mesh, tuple(parts), tuple(gathers)
+        if nsh:
+            dp.leaf_parts = self._leaf_parts(mesh, t)
+            def fronts(L, d):        # device d's fronts' assigned dofs
+                q = L["nk"] // n
+                return L["adofs"][d * q:(d + 1) * q].reshape(-1)
+
+            own = [np.unique(np.concatenate([fronts(L, d) for L in
+                                             self.levels[:nsh]]))
+                   for d in range(n)]
+            own = [o[o < self.n_J] for o in own]
+            dp.own = tuple((t(o, dev), t(o)) for o, dev in
+                           zip(own, mesh.devices))
+            mine = np.zeros(self.n_J + 1, bool)
+            mine[np.concatenate(own)] = True
+            dp.top = tuple((t(L["b_rows"][~mine[L["b_rows"]]]),
+                            t(L["b_inc"][~mine[L["b_rows"]]]))
+                           for L in self.levels[:nsh])
+        return dp
+
+    def _leaf_parts(self, mesh, t):
+        """Per device: its leaves' elements as (shard, local indices on the
+        shard's device) pieces, in element order, and their flat positions
+        in the device's leaf fronts."""
+        n = mesh.size
+        L0 = self.levels[0]
+        q, f1 = L0["nk"] // n, L0["amax"] + L0["bmax"] + 1
+        N = len(self.leaf_of_elem)
+        ranges = shard_ranges(mesh, N) or [(0, N)]
+        devs = mesh.devices if len(ranges) == n else (mesh.first,)
+        out = []
+        for d, dev in enumerate(mesh.devices):
+            els = np.flatnonzero(self.leaf_of_elem // q == d)
+            loc = self.leaf_loc[els]
+            flat = (((self.leaf_of_elem[els] - d * q)[:, None, None] * f1
+                     + loc[:, :, None]) * f1 + loc[:, None, :])
+            take = tuple((e, t(els[(els >= lo) & (els < hi)] - lo, de))
+                         for e, ((lo, hi), de) in enumerate(zip(ranges, devs)))
+            out.append((take, t(flat.reshape(-1), dev)))
+        return tuple(out)
 
 
 @dataclass
@@ -315,7 +403,8 @@ class NDLevel:
 
 @dataclass
 class NDDev:
-    """Device-side nested-dissection plan."""
+    """Device-side nested-dissection plan (the whole levels on the first
+    device; under a mesh, the divisible levels' per-device parts too)."""
     levels: tuple          # of NDLevel, leaf..root
     leaf_of_elem: torch.Tensor
     leaf_loc: torch.Tensor
@@ -323,6 +412,16 @@ class NDDev:
                            # child-b-slot maps (miss -> bmax_child)
     depth: int
     n_J: int
+    mesh: Mesh = None
+    parts: tuple = ()      # per divisible level (a prefix): NDLevel a device
+    part_gather: tuple = ()   # per divisible level past the leaves: (invL,
+                              # invR) of each device's parents
+    leaf_parts: tuple = ()    # per device: ((element shard, its local
+                              # indices), ...), flat leaf-front positions
+    own: tuple = ()        # per device: its own rows, (on it, on the first)
+    top: tuple = ()        # per divisible level: the rows of the levels
+                           # above among its boundary rows, and their
+                           # positions in its updates (b_inc's rows)
 
 
 # ---------------------------------------------------------------------------
@@ -332,70 +431,186 @@ class NDDev:
 def nd_factor(dp: NDDev, He, diag_shift, factor=front_factor):
     """Batched multifrontal factorization of sum-of-element-blocks + shift.
 
-    ``He`` (N, C, C) element blocks (already equilibrated if desired),
-    ``diag_shift`` a scalar added to every assigned diagonal. ``factor``
-    factors one tree level's fronts (the kernel K5a; a comparison passes
-    another). Returns the per-level factors ((L, U), ...) leaf..root."""
+    ``He`` (N, C, C) element blocks (already equilibrated if desired), or
+    a tuple of each element shard's blocks under a mesh; ``diag_shift`` a
+    scalar added to every assigned diagonal. ``factor`` factors one tree
+    level's fronts (the kernel K5a; a comparison passes another). Returns
+    the per-level factors ((L, U), ...) leaf..root; a divisible level's
+    entry is a tuple of each device's (L, U)."""
     fact = []
     S_prev = None
-    dtype, device = He.dtype, He.device
+    first = dp.levels[0].adofs.device
     for li, L in enumerate(dp.levels):
-        amax, bmax, nk = L.amax, L.bmax, L.nk
-        f = amax + bmax
+        if li < len(dp.parts):
+            outs = []
+            for d, P in enumerate(dp.parts[li]):
+                if li == 0:
+                    take, flat = dp.leaf_parts[d]
+                    dev = flat.device
+                    blocks = [dp.mesh.gather(
+                        (He[e] if isinstance(He, tuple) else He)[sel], dev)
+                        for e, sel in take]
+                    F = _leaf_fronts(torch.cat(blocks), flat, P)
+                else:
+                    F = _child_fronts(S_prev[d], *dp.part_gather[li - 1][d],
+                                      P.nk)
+                outs.append(_factor_level(F, P, dp.n_J, diag_shift, factor))
+            fact.append(tuple((Lf, U) for Lf, U, _ in outs))
+            S_prev = [S for _, _, S in outs]
+            continue
         if li == 0:
-            # leaf assembly: one scatter-add of the (N, C, C) element blocks
-            flat = ((dp.leaf_of_elem[:, None, None] * (f + 1)
-                     + dp.leaf_loc[:, :, None]) * (f + 1)
+            if isinstance(He, tuple):
+                He = torch.cat([dp.mesh.gather(h, first) for h in He])
+            f1 = L.amax + L.bmax + 1
+            flat = ((dp.leaf_of_elem[:, None, None] * f1
+                     + dp.leaf_loc[:, :, None]) * f1
                     + dp.leaf_loc[:, None, :])
-            F = torch.zeros((nk * (f + 1) * (f + 1),), dtype=dtype,
-                            device=device)
-            F = scatter_add(F, flat.reshape(-1), He.reshape(-1)
-                            ).reshape(nk, f + 1, f + 1)
+            F = _leaf_fronts(He, flat.reshape(-1), L)
         else:
-            invL, invR = dp.parent_gather[li - 1]
-            Sp = torch.nn.functional.pad(S_prev, (0, 1, 0, 1))
-            SL, SR = Sp[0::2], Sp[1::2]
-            ar = torch.arange(nk, device=device)[:, None, None]
-            F = SL[ar, invL[:, :, None], invL[:, None, :]] + \
-                SR[ar, invR[:, :, None], invR[:, None, :]]
-        # unit diagonal on padded/dummy slots; shift on real assigned slots
-        apad = L.adofs >= dp.n_J
-        bpad = L.bdofs >= dp.n_J
-        one = torch.ones((), dtype=dtype, device=device)
-        zero = torch.zeros((), dtype=dtype, device=device)
-        diag_a = torch.where(apad, one,
-                             torch.full(L.adofs.shape, float(diag_shift),
-                                        dtype=dtype, device=device))
-        ii = torch.arange(amax, device=device)
-        F[:, ii, ii] += diag_a
-        jjb = amax + torch.arange(bmax, device=device)
-        F[:, jjb, jjb] += torch.where(bpad, one, zero)
-        Lf, U, S_prev = factor(F, amax, bmax)
+            if isinstance(S_prev, list):
+                S_prev = torch.cat([dp.mesh.gather(S, first)
+                                    for S in S_prev])
+            F = _child_fronts(S_prev, *dp.parent_gather[li - 1], L.nk)
+        Lf, U, S_prev = _factor_level(F, L, dp.n_J, diag_shift, factor)
         fact.append((Lf, U))
     return tuple(fact)
+
+
+def _leaf_fronts(He, flat, L):
+    """The leaf fronts (nk, f+1, f+1): one scatter-add of the element
+    blocks He at their flat positions."""
+    f1 = L.amax + L.bmax + 1
+    F = torch.zeros((L.nk * f1 * f1,), dtype=He.dtype, device=He.device)
+    return scatter_add(F, flat, He.reshape(-1)).reshape(L.nk, f1, f1)
+
+
+def _child_fronts(S_prev, invL, invR, nk):
+    """The fronts of nk parents from their children's Schur complements,
+    gathered through the parent-slot maps."""
+    Sp = torch.nn.functional.pad(S_prev, (0, 1, 0, 1))
+    SL, SR = Sp[0::2], Sp[1::2]
+    ar = torch.arange(nk, device=S_prev.device)[:, None, None]
+    return SL[ar, invL[:, :, None], invL[:, None, :]] + \
+        SR[ar, invR[:, :, None], invR[:, None, :]]
+
+
+def _factor_level(F, L, n_J, diag_shift, factor):
+    """One tree level's fronts F: unit diagonal on padded/dummy slots, the
+    shift on real assigned slots, then K5a; returns (Lf, U, S)."""
+    amax, bmax = L.amax, L.bmax
+    dtype, device = F.dtype, F.device
+    apad = L.adofs >= n_J
+    bpad = L.bdofs >= n_J
+    one = torch.ones((), dtype=dtype, device=device)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    diag_a = torch.where(apad, one,
+                         torch.full(L.adofs.shape, float(diag_shift),
+                                    dtype=dtype, device=device))
+    ii = torch.arange(amax, device=device)
+    F[:, ii, ii] += diag_a
+    jjb = amax + torch.arange(bmax, device=device)
+    F[:, jjb, jjb] += torch.where(bpad, one, zero)
+    return factor(F, amax, bmax)
+
+
+def _pairs(fact):
+    """Every (L, U) of a factor, a divisible level's per-device ones
+    included."""
+    for lvl in fact:
+        yield from (lvl if isinstance(lvl[0], tuple) else (lvl,))
 
 
 def nd_finite(fact) -> bool:
     """All factor entries finite (the factorization's PD certificate).
     One host sync."""
-    flags = torch.stack([torch.isfinite(Lf).all() & torch.isfinite(U).all()
-                         for Lf, U in fact])
+    dev = fact[-1][0].device if torch.is_tensor(fact[-1][0]) \
+        else fact[-1][0][0].device
+    flags = torch.stack([(torch.isfinite(Lf).all()
+                          & torch.isfinite(U).all()).to(dev)
+                         for Lf, U in _pairs(fact)])
     return bool(flags.all())
 
 
 def nd_solve(dp: NDDev, fact, rhs):
     """Solve H x = rhs with the factors from nd_factor (one rhs): one call of
     the kernel K5b per tree level and sweep, each updating the padded
-    residual, then the padded solution, in place."""
+    residual, then the padded solution, in place (per device on the
+    divisible levels, see the module docstring)."""
     r = torch.cat([rhs, rhs.new_zeros(1)])
-    ys = [front_forward(Lf, U, L.adofs, r, L.b_rows, L.b_inc)[0]
-          for L, (Lf, U) in zip(dp.levels, fact)]
+    nsh = len(dp.parts)
+    ys = [None] * len(dp.levels)
+    if nsh:
+        upds = [[] for _ in range(nsh)]
+        for d, rb in enumerate(dp.mesh.broadcast(r)):
+            own = dp.own[d][0]
+            rd = torch.zeros_like(rb)
+            rd[own] = rb[own]
+            for li in range(nsh):
+                P = dp.parts[li][d]
+                Lf, U = fact[li][d]
+                y, upd = front_forward(Lf, U, P.adofs, rd, P.b_rows, P.b_inc)
+                ys[li] = (ys[li] or ()) + (y,)
+                upds[li].append(upd.reshape(-1))
+        for li in range(nsh):
+            # the rows of the levels above take the level's updates from
+            # every device, in the order one device folds them
+            rows, inc = dp.top[li]
+            flat = torch.cat([dp.mesh.gather(u, r.device) for u in upds[li]]
+                             + [r.new_zeros(1)])
+            acc = r[rows]
+            for t in range(inc.shape[1]):
+                acc = acc - flat[inc[:, t]]
+            r[rows] = acc
+    for li in range(nsh, len(dp.levels)):
+        L = dp.levels[li]
+        Lf, U = fact[li]
+        ys[li] = front_forward(Lf, U, L.adofs, r, L.b_rows, L.b_inc)[0]
     x = torch.zeros_like(r)
-    for li in range(len(dp.levels) - 1, -1, -1):
+    for li in range(len(dp.levels) - 1, nsh - 1, -1):
         L = dp.levels[li]
         Lf, U = fact[li]
         front_backward(Lf, U, L.adofs, L.bdofs, ys[li], x)
+    if nsh:
+        for d, xd in enumerate(dp.mesh.broadcast(x, copy=True)):
+            for li in range(nsh - 1, -1, -1):
+                P = dp.parts[li][d]
+                Lf, U = fact[li][d]
+                front_backward(Lf, U, P.adofs, P.bdofs, ys[li][d], xd)
+            own, own_first = dp.own[d]
+            x[own_first] = dp.mesh.gather(xd[own], x.device)
     return x[:-1]
+
+
+def nd_memory_report(dp: NDDev) -> dict:
+    """Memory model of the factorization (bytes, float64), per level and
+    in all (the reference's ``nd_memory_report``, ``mgbtpu/ops/
+    ndchol.py:791``, without its double-float words): the stored factor
+    blocks (L: nk amax^2, U: nk bmax amax) and the peak transient
+    front/Schur pair of a level (F: nk (f+1)^2, S: nk bmax^2, alive only
+    while that level factors). Per device: under a mesh a divisible
+    level's blocks lie 1/n on each device and the levels above on the
+    first; ``device_factor_bytes[d]`` is device d's share, the first
+    device's including the top of the tree."""
+    word = 8
+    n = 1 if dp.mesh is None else dp.mesh.size
+    per_level, dev_bytes = [], [0] * n
+    factor = peak = 0
+    for li, L in enumerate(dp.levels):
+        f = L.amax + L.bmax
+        fb = L.nk * (L.amax * L.amax + L.bmax * L.amax) * word
+        tb = L.nk * ((f + 1) * (f + 1) + L.bmax * L.bmax) * word
+        sharded = li < len(dp.parts)
+        for d in range(n):
+            dev_bytes[d] += fb // n if sharded else (fb if d == 0 else 0)
+        factor += fb
+        peak = max(peak, tb // n if sharded else tb)
+        per_level.append(dict(k=L.k, nk=L.nk, amax=L.amax, bmax=L.bmax,
+                              factor_bytes=fb, transient_bytes=tb,
+                              device_bytes=fb // n if sharded else fb,
+                              sharded=sharded))
+    return dict(levels=per_level, factor_bytes=factor,
+                peak_transient_bytes=peak, peak_bytes=factor + peak,
+                device_factor_bytes=dev_bytes)
 
 
 # ---------------------------------------------------------------------------

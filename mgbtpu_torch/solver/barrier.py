@@ -8,11 +8,19 @@ Given a barrier family ``barrier(mode, args, Dz, bw, wc)`` (see
     f1(s) = G' (bw * F1 + wc)
     f2(s) = G' diag-blocks(bw * F2) G
 
-with the level's PanelOps passed as an argument. ``bw`` is the per-node
-barrier weight; nodes with bw == 0 are dropped before arithmetic, so an
-infeasible excluded node (F = +/-inf) cannot poison the sum. The linear term
-uses the physical quadrature weights, passed combined as wc = w * t * c.
+with the level's operators (``PanelOps`` or ``ShardedOps``) passed as an
+argument. ``bw`` is the per-node barrier weight; nodes with bw == 0 are
+dropped before arithmetic, so an infeasible excluded node (F = +/-inf)
+cannot poison the sum. The linear term uses the physical quadrature
+weights, passed combined as wc = w * t * c.
 On the power cone the per-node part is kernel K2, Dz is K1 and G' is K3.
+
+Dz0, wc, bw and args come one entry a shard of the level's ``ops``
+(``ops.split``; a level of one device is one shard): each function runs
+per shard on the broadcast s, and what it sums is summed once on the first
+device in the order one device sums it (f0 over the shards' node values,
+f1 over their per-slot contributions; f2's Gram form keeps each shard's
+node factors), so a mesh gives the bits of one device.
 """
 from __future__ import annotations
 
@@ -25,22 +33,23 @@ from ..kernels import cholesky_nan
 def make_level_fns(barrier):
     """Level functions with signature f(s, ops, Dz0, wc, bw, args)."""
 
+    def per_shard(mode, s, ops, Dz0, wc, bw, args):
+        return [barrier(mode, a, z, b, w) for a, z, b, w in
+                zip(args, ops.shard_G(s, Dz0), bw, wc)]
+
     def f0(s, ops, Dz0, wc, bw, args):
-        Dz = ops.apply_G(s, Dz0)
-        return barrier(0, args, Dz, bw, wc).sum()
+        return ops.gather(per_shard(0, s, ops, Dz0, wc, bw, args)).sum()
 
     def f1(s, ops, Dz0, wc, bw, args):
-        Dz = ops.apply_G(s, Dz0)
-        return ops.apply_Gt(barrier(1, args, Dz, bw, wc))
+        return ops.adjoint(per_shard(1, s, ops, Dz0, wc, bw, args))
 
     def f2(s, ops, Dz0, wc, bw, args):
-        Dz = ops.apply_G(s, Dz0)
-        Y = barrier(2, args, Dz, bw, wc)
+        Ys = per_shard(2, s, ops, Dz0, wc, bw, args)
         if ops.nd is not None:
             # large level: matrix-free Gram Hessian, solved by CG
             # preconditioned with the nested-dissection direct factor
-            return GramHessian(ops=ops, Lnode=node_factors(Y))
-        return ops.assemble_dense(Y)
+            return GramHessian(ops=ops, Lnode=tuple(map(node_factors, Ys)))
+        return ops.dense_hessian(Ys)
 
     return f0, f1, f2
 

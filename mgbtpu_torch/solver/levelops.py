@@ -12,6 +12,26 @@ touched columns and the dense panels G_k[rows(e), cols(e)], after which
     H       = P' Y P, dense       einsum + index_add_ (levels <= DENSE_MAX)
 
 ``build_panel_ops`` is host numpy, copied from the reference.
+
+Under a mesh (``parallel/sharding.py``) a level whose element count
+divides by the mesh size is a ``ShardedOps``: each shard holds the
+``PanelOps`` of its contiguous element range (its cols and panels, nodes
+e*p .. (e+1)*p - 1 of its elements e, as ``apply_D_full`` orders them) on
+its device. K1 runs per shard on the broadcast s; K3's phase A and K4's
+per-slot phase run per shard, and the first device sums every shard's
+per-slot contributions, concatenated in shard order, in one phase B over
+the level's inverse incidence: the level's slots in their order, so the
+bits of one device. So do the Gram diagonal's per-slot values and the
+dense assembly's per-element blocks: computed per shard, scattered once on
+the first device in the level's order.
+
+Both classes give the solver (``barrier.py``, ``newton.py``, ``mgb.py``)
+one interface, per-node tensors travelling as one tensor a shard: ``split``
+and ``gather`` move a per-node tensor to the shards and back, ``shard_G``
+is K1 a shard, ``adjoint``, ``dense_hessian``, ``gram_apply`` and
+``gram_diagonal`` sum over the level, ``gram_blocks`` keeps the element
+blocks a shard. A PanelOps is a level of one shard, whose sums are its
+one-device kernels, so the solver has one path.
 """
 from __future__ import annotations
 
@@ -24,6 +44,7 @@ import torch
 
 from .. import kernels
 from ..ops.scatter import scatter_add
+from ..parallel.sharding import Mesh, shard_ranges
 
 
 @dataclass
@@ -38,6 +59,7 @@ class PanelOps:
     C: int
     inv: torch.Tensor        # (n_J, K) int64: each column's flat slots
                              # e*C + c in increasing order, padded with N*C
+                             # (None on a mesh's shard)
     host_cols: np.ndarray    # host copy of cols (the ND plan's input)
     nd: Any = None           # ops.ndchol.NDDev: direct-solver plan of a
                              # level above DENSE_MAX (None: dense level)
@@ -64,29 +86,139 @@ class PanelOps:
         H = torch.zeros((n * n,), dtype=He.dtype, device=He.device)
         return scatter_add(H, flat, He.reshape(-1)).reshape(n, n)
 
-    def assemble_dense(self, Ynode):
-        """(n_nodes, nD, nD) per-node Hessian values -> dense (n_J, n_J)
-        via the batched triple product."""
+    def dense_blocks(self, Ynode):
+        """(n_nodes, nD, nD) per-node Hessian values -> the per-element
+        blocks (N, C, C) of the batched triple product."""
         Yr = Ynode.reshape(self.N, self.p, self.nD, self.nD)
-        He = torch.einsum("iNpc,Npij,jNpd->Ncd", self.panels, Yr,
-                          self.panels)
-        return self._scatter_blocks(He)
+        return torch.einsum("iNpc,Npij,jNpd->Ncd", self.panels, Yr,
+                            self.panels)
+
+    def assemble_dense(self, Ynode):
+        """(n_nodes, nD, nD) per-node Hessian values -> dense (n_J, n_J)."""
+        return self._scatter_blocks(self.dense_blocks(Ynode))
 
     def assemble_gram(self, Lnode):
         """Gram-form assembly H = sum_i (L_i' P_i)' (L_i' P_i)."""
         return self._scatter_blocks(gram_element_blocks(self, Lnode))
 
+    # the level interface (see the module docstring): one shard
+    def split(self, a):
+        return (a,)
+
+    def gather(self, parts):
+        (q,) = parts
+        return q
+
+    def shard_G(self, s, dz0s):
+        (dz0,) = dz0s
+        return (self.apply_G(s, dz0),)
+
+    def adjoint(self, Ys):
+        return self.apply_Gt(self.gather(Ys))
+
+    def dense_hessian(self, Ys):
+        return self.assemble_dense(self.gather(Ys))
+
+    def gram_apply(self, Ls, v):
+        return gram_matvec(self, self.gather(Ls), v)
+
+    def gram_diagonal(self, Ls):
+        return gram_diag(self, self.gather(Ls))
+
+    def gram_blocks(self, Ls, col_scale=None):
+        return gram_element_blocks(self, self.gather(Ls), col_scale)
+
+
+@dataclass
+class ShardedOps:
+    """One level's panel operators over a mesh: ``shards[d]`` the PanelOps
+    of elements [d N/n, (d+1) N/n) on ``mesh.devices[d]``, their nodes
+    ``nodes[d]``; the sizes, and ``cols`` and ``inv``, are the whole
+    level's (on the first device)."""
+    mesh: Mesh
+    shards: tuple
+    nodes: tuple             # (lo, hi) node range of each shard
+    n_nodes: int
+    nD: int
+    n_J: int
+    p: int
+    N: int
+    C: int
+    host_cols: np.ndarray
+    cols: torch.Tensor
+    inv: torch.Tensor
+    nd: Any = None
+
+    def split(self, a):
+        """A per-node tensor (n_nodes, ...) on the first device -> its
+        shards' rows on their devices (views where the device is its
+        own)."""
+        return tuple(a[lo:hi].to(d)
+                     for (lo, hi), d in zip(self.nodes, self.mesh.devices))
+
+    def gather(self, parts):
+        """The shards' pieces, concatenated in shard order on the first
+        device."""
+        return torch.cat([self.mesh.gather(q, self.mesh.first)
+                          for q in parts])
+
+    def column_sums(self, contribs):
+        """(n_J,) from each shard's per-slot contributions: K3's phase B
+        once, on the first device."""
+        return kernels.adjoint_sum(self.cols, self.inv, self.gather(contribs),
+                                   self.n_J)
+
+    def shard_G(self, s, dz0s):
+        """(n_J,) coefficients -> each shard's (n_nodes_d, nD) operator
+        values (+ its dz0): K1 per shard on the broadcast s."""
+        return tuple(o.apply_G(sd, z) for o, sd, z in
+                     zip(self.shards, self.mesh.broadcast(s), dz0s))
+
+    def adjoint(self, Ys):
+        """Each shard's node values -> the (n_J,) adjoint: K3's phase A per
+        shard, its phase B once."""
+        return self.column_sums(kernels.panel_adj_contrib(o.panels, Y)
+                                for o, Y in zip(self.shards, Ys))
+
+    def dense_hessian(self, Ynodes):
+        """The dense (n_J, n_J) Hessian from each shard's (n_nodes_d, nD,
+        nD) values: each shard's element blocks, scattered on the first
+        device."""
+        return PanelOps._scatter_blocks(self, self.gather(
+            o.dense_blocks(Y) for o, Y in zip(self.shards, Ynodes)))
+
+    def gram_apply(self, Ls, v):
+        """The Gram matvec: K4's per-slot phase per shard on the broadcast
+        v, then K3's phase B once."""
+        return self.column_sums(
+            kernels.gram_matvec_contrib(o.panels, o.cols, L, vd)
+            for o, L, vd in zip(self.shards, Ls, self.mesh.broadcast(v)))
+
+    def gram_diagonal(self, Ls):
+        """diag(H): each shard's per-slot values, summed on the first
+        device."""
+        return PanelOps.scatter_flat(self, self.gather(
+            _slot_diag(o, L) for o, L in zip(self.shards, Ls)))
+
+    def gram_blocks(self, Ls, col_scale=None):
+        """Each shard's Gram element blocks, on its device."""
+        scales = (self.mesh.broadcast(col_scale) if col_scale is not None
+                  else [None] * self.mesh.size)
+        return tuple(gram_element_blocks(o, L, c)
+                     for o, L, c in zip(self.shards, Ls, scales))
+
 
 @dataclass
 class GramHessian:
     """Matrix-free Hessian in Gram form, H = (L' P)' (L' P): returned by the
-    level f2 on levels above the dense threshold (``ops.nd`` set)."""
-    ops: PanelOps
-    Lnode: torch.Tensor      # (n_nodes, nD, nD) lower factors of bw*F2
+    level f2 on levels above the dense threshold (``ops.nd`` set), with
+    ``Lnode`` one tensor a shard of ``ops`` (see ``split``)."""
+    ops: Any
+    Lnode: tuple             # (n_nodes_d, nD, nD) lower factors of bw*F2
 
 
 def gram_matvec(ops: PanelOps, Lnode, v):
-    """H v = B'(B v), fully matrix-free: kernel K4."""
+    """H v = B'(B v) on one device, fully matrix-free: kernel K4."""
     return kernels.gram_matvec(ops.panels, ops.cols, ops.inv, Lnode, v)
 
 
@@ -97,8 +229,12 @@ def _gram_B(ops: PanelOps, Lnode):
 
 def gram_diag(ops: PanelOps, Lnode):
     """diag(H) = sum over (e,p,i) of B[e,p,i,c]^2."""
+    return ops.scatter_flat(_slot_diag(ops, Lnode))
+
+
+def _slot_diag(ops: PanelOps, Lnode):
     B = _gram_B(ops, Lnode)
-    return ops.scatter_flat((B * B).sum(dim=(1, 2)))
+    return (B * B).sum(dim=(1, 2))
 
 
 def gram_element_blocks(ops: PanelOps, Lnode, col_scale=None):
@@ -110,13 +246,49 @@ def gram_element_blocks(ops: PanelOps, Lnode, col_scale=None):
     return torch.einsum("Nkc,Nkd->Ncd", Bf, Bf)
 
 
-def build_panel_ops(D_fine, nu: int, R: sp.spmatrix, p: int,
-                    device) -> PanelOps:
+def build_panel_ops(D_fine, nu: int, R: sp.spmatrix, p: int, device,
+                    mesh: Mesh = None):
     """Host-side plan construction (copied from the reference).
 
     ``D_fine``: list of (BlockDiagHost, comp) fine operators; ``R``: the
     level prolongation (nu*m x n_J); ``p``: broken nodes per element.
+    With a ``mesh`` whose size divides the element count, a ShardedOps
+    (``device`` is then the mesh's first device).
     """
+    cols, panels, m, n_J = _panel_arrays(D_fine, nu, R, p)
+    N, C = cols.shape
+    nD = panels.shape[0]
+    ranges = None if mesh is None else shard_ranges(mesh, N)
+    if ranges is None:
+        return _panel_ops(cols, panels, m, n_J, p, device)
+    # a shard's column sums run on the first device, over the whole
+    # level's inverse incidence: the shards keep none
+    shards = tuple(_panel_ops(cols[lo:hi], panels[:, lo:hi], (hi - lo) * p,
+                              n_J, p, d, inv=False)
+                   for (lo, hi), d in zip(ranges, mesh.devices))
+    return ShardedOps(mesh=mesh, shards=shards,
+                      nodes=tuple((lo * p, hi * p) for lo, hi in ranges),
+                      n_nodes=m, nD=nD, n_J=n_J, p=p, N=N, C=C,
+                      host_cols=cols,
+                      cols=torch.as_tensor(cols, device=mesh.first),
+                      inv=torch.as_tensor(inverse_incidence(cols, n_J),
+                                          device=mesh.first))
+
+
+def _panel_ops(cols, panels, n_nodes, n_J, p, device, inv=True) -> PanelOps:
+    N, C = cols.shape
+    return PanelOps(
+        cols=torch.as_tensor(cols, device=device),
+        panels=torch.as_tensor(np.ascontiguousarray(panels), device=device),
+        n_nodes=n_nodes, nD=panels.shape[0], n_J=n_J, p=p, N=N, C=C,
+        inv=(torch.as_tensor(inverse_incidence(cols, n_J), device=device)
+             if inv else None),
+        host_cols=cols)
+
+
+def _panel_arrays(D_fine, nu, R, p):
+    """(cols (N, C), panels (nD, N, p, C), fine nodes m, n_J) on the
+    host."""
     from ..ops.blockdiag import block_column_sparse
 
     R = sp.csr_matrix(R)
@@ -168,12 +340,7 @@ def build_panel_ops(D_fine, nu: int, R: sp.spmatrix, p: int,
         # slot of each col within its element's sorted column list
         slot = _vector_slots(cols, counts, e, coo.col)
         panels[k, e, i, slot] += coo.data
-    return PanelOps(
-        cols=torch.as_tensor(cols, device=device),
-        panels=torch.as_tensor(panels, device=device),
-        n_nodes=m, nD=nD, n_J=n_J, p=p, N=N, C=C,
-        inv=torch.as_tensor(inverse_incidence(cols, n_J), device=device),
-        host_cols=cols)
+    return cols, panels, m, n_J
 
 
 def inverse_incidence(cols: np.ndarray, n_J: int) -> np.ndarray:

@@ -10,6 +10,7 @@ mgb_solve :798-843).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -92,20 +93,24 @@ def flat_weights(w):
 # Per-problem kernels: panel plans + Newton runner, cached per AMGSystem
 # ---------------------------------------------------------------------------
 
-def nd_plan(M: AMGSystem, ops, leaf_elems, device):
+def nd_plan(M: AMGSystem, ops, leaf_elems, device, mesh=None):
     """The nested-dissection plan of one level's panel operators, from the
     element centroids of the fine geometry (symbolic analysis on the host,
-    once per level)."""
+    once per level); subtree-per-device under a ``mesh``."""
     from ..ops.ndchol import NDDevicePlan, NDPlan
 
     X = np.asarray(M.geometry.xflat(), np.float64)
     exy = X.reshape(ops.N, ops.p, -1).mean(axis=1)
     return NDDevicePlan(NDPlan(ops.host_cols, ops.n_J, exy,
-                               leaf_elems=leaf_elems)).to_device(device)
+                               leaf_elems=leaf_elems)).to_device(device,
+                                                                 mesh=mesh)
 
 
 class ProblemKernels:
-    """Per-level solvers for one (AMGSystem, barrier family, device)."""
+    """Per-level solvers for one (AMGSystem, barrier family, device), over
+    a mesh when one is given (``device`` is then its first device; a level
+    whose elements divide by the mesh size runs per shard, see
+    ``parallel/sharding.py``)."""
 
     # Levels above DENSE_MAX coefficients solve by CG preconditioned with
     # the nested-dissection direct factor (matrix-free Gram Hessian); the
@@ -115,12 +120,15 @@ class ProblemKernels:
     DENSE_MAX = int(os.environ.get("MGBTPU_DENSE_MAX", 1024))
     ND_LEAF_ELEMS = int(os.environ.get("MGBTPU_ND_LEAF", 8))
 
-    def __init__(self, M: AMGSystem, barrier, line_search, device):
+    def __init__(self, M: AMGSystem, barrier, line_search, device,
+                 mesh=None):
         self.M = M
         self.barrier = barrier
-        self.device = device
+        self.device = device if mesh is None else mesh.first
+        self.mesh = mesh
         self.p = M.geometry.x.shape[0]
         self._ops = {}
+        self._args = (None, None)   # the last args and their shards
         self.fns = make_level_fns(barrier)
         self._newton = make_newton_core(*self.fns, line_search=line_search)
 
@@ -131,15 +139,26 @@ class ProblemKernels:
         if l in self._ops:
             return self._ops[l]
         ops = build_panel_ops(self.M.D_fine, self.M.nu, self.M.R_fine[l],
-                              self.p, self.device)
+                              self.p, self.device, mesh=self.mesh)
         if ops.n_J > self.DENSE_MAX and ops.N >= 4:
-            ops.nd = nd_plan(self.M, ops, self.ND_LEAF_ELEMS, self.device)
+            ops.nd = nd_plan(self.M, ops, self.ND_LEAF_ELEMS, self.device,
+                             self.mesh)
         self._ops[l] = ops
         return ops
 
+    def _shard_args(self, ops, args):
+        """The per-node args grids per shard (``ops.split``), split once
+        per args: every level of a mesh shards its nodes alike, since
+        each level's operators span the same fine elements."""
+        if self._args[0] is not args:
+            self._args = (args, tuple(zip(*(ops.split(a) for a in args))))
+        return self._args[1]
+
     def _fargs(self, l, z, wc, bw, args):
+        ops = self.ops(l)
         Dz0 = self.tensor(self.M.apply_D_full(z))
-        return (self.ops(l), Dz0, self.tensor(wc), self.tensor(bw), args)
+        return (ops, ops.split(Dz0), ops.split(self.tensor(wc)),
+                ops.split(self.tensor(bw)), self._shard_args(ops, args))
 
     def run_newton(self, l, z, wc, bw, args, *, maxit, stopping,
                    pred_r=None):
@@ -159,10 +178,9 @@ class ProblemKernels:
         ``_matched_t``: two Hessian solves at s = 0."""
         _, f1, f2 = self.fns
         l = self.M.depth - 1
-        ops = self.ops(l)
-        Dz0 = self.tensor(self.M.apply_D_full(z))
+        ops, Dz0, wc0, bw, args = self._fargs(l, z, wc0, bw, args)
+        wcc = ops.split(self.tensor(wcc))
         s0 = torch.zeros((ops.n_J,), dtype=torch.float64, device=self.device)
-        bw, wc0, wcc = self.tensor(bw), self.tensor(wc0), self.tensor(wcc)
         g_phi = f1(s0, ops, Dz0, wc0, bw, args)
         g_c = f1(s0, ops, Dz0, wcc, bw, args) - g_phi
         H = f2(s0, ops, Dz0, wcc, bw, args)
@@ -184,27 +202,31 @@ class ProblemKernels:
         """Per-node barrier values F0 (unmasked) at host Dz, for the
         initial feasibility check."""
         Dzt = self.tensor(Dz)
-        m = Dzt.shape[0]
-        ones = torch.ones((m,), dtype=torch.float64, device=self.device)
-        return self.barrier(0, args, Dzt, ones, torch.zeros_like(Dzt)
-                            ).cpu().numpy()
+        parts = ((args, Dzt),)
+        if self.mesh is not None:
+            ops = self.ops(self.M.depth - 1)
+            parts = zip(self._shard_args(ops, args), ops.split(Dzt))
+        return np.concatenate([self.barrier(
+            0, a, y, torch.ones_like(y[:, 0]), torch.zeros_like(y)
+        ).cpu().numpy() for a, y in parts])
 
 
 def _kernels_for(M: AMGSystem, Q: Convex, NC, line_search,
-                 device) -> ProblemKernels:
+                 device, mesh=None) -> ProblemKernels:
     """The cached per-level solvers of Q's barrier on M (``NC`` None), or of
-    its phase-I barrier with cobarrier width NC: one per (Q, form), so that
-    repeat solves of the same problem (the parabolic steps) reuse the panel
-    operators and nested-dissection plans. The entry holds Q (through its
-    barrier), so ``id(Q)`` stays unique while it lives."""
+    its phase-I barrier with cobarrier width NC: one per (Q, form, device,
+    mesh), so that repeat solves of the same problem (the parabolic steps)
+    reuse the panel operators and nested-dissection plans. The entry holds
+    Q (through its barrier) and the mesh, so ``id(Q)`` and ``id(mesh)``
+    stay unique while it lives."""
     cache = getattr(M, "_torch_kernel_cache", None)
     if cache is None:
         cache = {}
         M._torch_kernel_cache = cache
-    key = (id(Q), NC, line_search, str(device))
+    key = (id(Q), NC, line_search, str(device), id(mesh))
     if key not in cache:
         barrier = Q.barrier if NC is None else make_feasibility_fs(Q, NC)
-        cache[key] = ProblemKernels(M, barrier, line_search, device)
+        cache[key] = ProblemKernels(M, barrier, line_search, device, mesh)
     return cache[key]
 
 
@@ -446,7 +468,7 @@ def mgb_driver(Mpair, f_grid, g_grid, Q: Convex, *, device, tol=None, t=0.1,
                t_feasibility=None, feasibility_Rmax=None, maxit=10000,
                kappa=6.5, early_stop=None, max_newton=None,
                stopping_criterion=None, line_search=None, finalize="default",
-               barrier_nodes=None, progress=None, log=None):
+               barrier_nodes=None, progress=None, log=None, mesh=None):
     M1, M2 = Mpair
     tol = tol if tol is not None else float(np.sqrt(EPS))
     t_feasibility = t_feasibility if t_feasibility is not None else t
@@ -482,7 +504,7 @@ def mgb_driver(Mpair, f_grid, g_grid, Q: Convex, *, device, tol=None, t=0.1,
         raise ValueError(f"f grid must be ({m}, {nD}), got {c0.shape}")
     z2 = z0.T.reshape(-1).copy()            # stacked (nu*m,), component-major
 
-    kern1 = _kernels_for(M1, Q, None, line_search, device)
+    kern1 = _kernels_for(M1, Q, None, line_search, device, mesh)
     q_args = tuple(kern1.tensor(a) for a in Q.args)
 
     SOL_feasibility = None
@@ -499,7 +521,7 @@ def mgb_driver(Mpair, f_grid, g_grid, Q: Convex, *, device, tol=None, t=0.1,
         c1 = np.zeros((m, nD2))
         c1[:, nD] = 1.0
         z1 = np.concatenate([z2, u0])
-        kern2 = _kernels_for(M2, Q, nD + 1, line_search, device)
+        kern2 = _kernels_for(M2, Q, nD + 1, line_search, device, mesh)
         Rbox = max(10.0, 10.0 * float(np.abs(z2).max()))
         Rmax = max(float(feasibility_Rmax), Rbox)
 
@@ -632,15 +654,19 @@ def assemble(mg, *, dim=None, state_variables=None, D=None, x=None, p=1.0,
 
 
 def mgb_solve(prob: MGBProblem, *, verbose=False, logfile=None, device=None,
-              **kwargs) -> MGBSOL:
+              mesh=None, profile_dir=None, **kwargs) -> MGBSOL:
     """Solve an assembled problem; returns an MGBSOL (host arrays).
 
     Keyword arguments mirror the reference's solver controls: tol, t,
     t_feasibility, feasibility_Rmax, maxit, kappa, early_stop, max_newton,
     stopping_criterion, line_search, finalize, barrier_nodes, progress.
     ``device``: "cuda" (the default; raises without a card) or "cpu".
+    ``mesh``: a ``make_mesh`` mesh to shard the solve over; the device is
+    then the mesh's first, and a ``device`` that names another raises.
+    ``profile_dir``: write a ``torch.profiler`` trace of the solve there
+    (a Chrome trace, ``mgb_solve.<pid>.<ns>.pt.trace.json``).
     """
-    device = resolve_device(device)
+    device = _solve_device(device, mesh)
     logger = Logger(stream=logfile)
     progress = kwargs.pop("progress", None)
     if verbose and progress is None:
@@ -652,16 +678,52 @@ def mgb_solve(prob: MGBProblem, *, verbose=False, logfile=None, device=None,
                 state["last"] = pct
                 print(f"\rmgb_solve: {pct:3d}%", end="", flush=True)
     try:
-        logger("mgb_solve", "device = ", device)
-        SOL = mgb_driver(prob.M, prob.f_grid, prob.g_grid, prob.Q,
-                         device=device, progress=progress, log=logger,
-                         **kwargs)
+        logger("mgb_solve", "device = ", device,
+               "" if mesh is None else f", mesh of {mesh.size}")
+        with _profiling(profile_dir, device):
+            SOL = mgb_driver(prob.M, prob.f_grid, prob.g_grid, prob.Q,
+                             device=device, progress=progress, log=logger,
+                             mesh=mesh, **kwargs)
     finally:
         logger.close()
     if verbose:
         print()
     return MGBSOL(SOL["z"], SOL["SOL_feasibility"], SOL["SOL_main"],
                   logger.text(), prob.geometry)
+
+
+def _solve_device(device, mesh):
+    """The solve's device: ``device`` (default cuda), or the mesh's first
+    device, which a given ``device`` must name."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev != mesh.first:
+            raise ValueError(f"mgb_solve: device {dev} is not the mesh's "
+                             f"first device {mesh.first}")
+    return mesh.first
+
+
+@contextlib.contextmanager
+def _profiling(profile_dir, device):
+    """A torch.profiler trace of the block written to ``profile_dir``
+    (nothing when it is None)."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"mgb_solve.{os.getpid()}.{time.time_ns()}"
+        ".pt.trace.json"))
 
 
 def mgb_cleanup(obj=None):

@@ -22,7 +22,7 @@ import os as _os
 
 import torch
 
-from .levelops import GramHessian, gram_diag, gram_element_blocks, gram_matvec
+from .levelops import GramHessian
 
 RUNNING, CONVERGED, DIVERGED, BAD_INIT, BAD_HESSIAN, BAD_DIRECTION = range(6)
 
@@ -99,10 +99,10 @@ def make_nd_pre(H: GramHessian):
     from ..ops.ndchol import nd_factor, nd_finite
 
     ops = H.ops
-    d = gram_diag(ops, H.Lnode)
+    d = ops.gram_diagonal(H.Lnode)
     dinv = torch.where(d > 0, torch.rsqrt(d), torch.ones_like(d))
-    He = gram_element_blocks(ops, H.Lnode, dinv)
-    eps = torch.finfo(H.Lnode.dtype).eps
+    He = ops.gram_blocks(H.Lnode, dinv)
+    eps = torch.finfo(d.dtype).eps
     fact = nd_factor(ops.nd, He, 2 * eps)
     SYNCS["n"] += 1
     if not nd_finite(fact):
@@ -126,7 +126,7 @@ def dense_ir_solve(H: GramHessian, g, pre, rtol):
     ops, Lnode = H.ops, H.Lnode
 
     def mv_s(u):
-        return dinv * gram_matvec(ops, Lnode, dinv * u)
+        return dinv * ops.gram_apply(Lnode, dinv * u)
 
     def inner(r0):
         rs = dinv * r0
@@ -160,7 +160,7 @@ def dense_ir_solve(H: GramHessian, g, pre, rtol):
     while (ko == 0 or rnorm > tau) and ko < IR_OUTER:
         delta, k_in = inner(r)
         x = x + delta
-        r = g - gram_matvec(ops, Lnode, x)
+        r = g - ops.gram_apply(Lnode, x)
         rq = dinv * r
         rnorm = math.sqrt(_item(torch.dot(rq, rq)))
         ko += 1
@@ -307,7 +307,8 @@ def make_newton_core(f0, f1, f2, *, line_search=("backtracking", 0.5, 0.1)):
         if not pred_r > 0:
             return x0
         ops, Dz0, wc, bw, args = fargs
-        g_lin = f1(x0, ops, Dz0, wc, torch.zeros_like(bw), args)
+        zero_bw = tuple(map(torch.zeros_like, bw))
+        g_lin = f1(x0, ops, Dz0, wc, zero_bw, args)
         d, _ = solve(H0, g_lin, pre0, RTOL_LOOSE)
         step = pred_r * d
         if not _all_finite(step):

@@ -32,17 +32,21 @@ def torsion(pkg, mg, **model_kw):
     return m, dict(eq=eq, cone=cone, lin=lin)
 
 
-def five_constraints(pkg, mg, **model_kw):
+def five_constraints(pkg, mg, n_bounds=4, **model_kw):
     m = pkg.Model(mg, **model_kw)
     u = m.variable("u")
     s = m.variable("s")
     eq = m.dirichlet(u, lambda x: x[0])
     cone = m.epigraph(s, u.grad(), p=1.0)
     out = dict(eq=eq, cone=cone)
-    for c in range(4):
+    for c in range(n_bounds):
         out[f"u<={2 + c}"] = m.constrain(u <= 2.0 + c)
     m.minimize(s + 0.5 * u)
     return m, out
+
+
+def seventeen_constraints(pkg, mg, **model_kw):
+    return five_constraints(pkg, mg, n_bounds=16, **model_kw)
 
 
 def three_fields(pkg, mg, **model_kw):
@@ -56,5 +60,41 @@ def three_fields(pkg, mg, **model_kw):
     return m, dict(cone=cone)
 
 
+def field_coefficients(n):
+    return [(-1.0) ** i / (i + 1) for i in range(n)]
+
+
+def n_fields(pkg, mg, n, coefficients=None, **model_kw):
+    c = field_coefficients(n) if coefficients is None else coefficients
+    m = pkg.Model(mg, **model_kw)
+    fs = [m.variable(f"u{i}") for i in range(n)]
+    s = m.variable("s", start=1.0)
+    grads = fs[0].grad()
+    for f in fs:
+        m.dirichlet(f, 0.0)
+    for f in fs[1:]:
+        grads = grads + f.grad()
+    cone = m.epigraph(s, grads, p=2.0)
+    obj = 0.5 * s
+    for ci, f in zip(c, fs):
+        obj = obj + ci * f
+    m.minimize(obj)
+    return m, dict(cone=cone)
+
+
+def sixteen_fields(pkg, mg, **model_kw):
+    return n_fields(pkg, mg, 16, **model_kw)
+
+
+def thirty_two_fields(pkg, mg, **model_kw):
+    return n_fields(pkg, mg, 32, **model_kw)
+
+
 MODELS = {"torsion": torsion, "five_constraints": five_constraints,
-          "three_fields": three_fields}
+          "three_fields": three_fields,
+          "seventeen_constraints": seventeen_constraints,
+          "sixteen_fields": sixteen_fields,
+          "thirty_two_fields": thirty_two_fields}
+# the models past K6's 16-piece, 32-row kernels, each on fem1d's 5 nodes
+WIDE_MODELS = ("seventeen_constraints", "sixteen_fields",
+               "thirty_two_fields")

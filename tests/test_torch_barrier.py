@@ -131,8 +131,9 @@ def test_level_functions_match_jax(scale):
     s = scale * rng.standard_normal(oj.n_J)
     fa_j = (oj, jnp.asarray(Dz0), jnp.asarray(wc), jnp.asarray(bw)) + \
         tuple(pj.Q.args)
-    fa_t = (ot, torch.tensor(Dz0), torch.tensor(wc), torch.tensor(bw),
-            tuple(torch.tensor(a) for a in Qt.args))
+    # one device: the level's one shard (``PanelOps.split``)
+    fa_t = (ot, (torch.tensor(Dz0),), (torch.tensor(wc),),
+            (torch.tensor(bw),), (tuple(torch.tensor(a) for a in Qt.args),))
     for k in range(3):
         ref = np.asarray(fj[k](jnp.asarray(s), *fa_j))
         got = ft[k](torch.tensor(s), *fa_t).numpy()

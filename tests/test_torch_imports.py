@@ -46,7 +46,8 @@ def test_scan_covers_the_port():
                    ("frontends", "model.py"),
                    ("frontends", "gmsh.py"),
                    ("plot", "plotting.py"),
-                   ("plot", "html3d.py")):
+                   ("plot", "html3d.py"),
+                   ("parallel", "sharding.py")):
         assert any(f.endswith(os.path.join(*module)) for f in files)
 
 

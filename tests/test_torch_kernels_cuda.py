@@ -152,6 +152,21 @@ def test_panel_fwd_fem3d_shapes(dev, nD, C):
             _in_form(K.panel_fwd, STAGED, *args)
 
 
+@pytest.mark.parametrize("nD", [33, 65])
+def test_panel_fwd_model_rows(dev, nD):
+    """K1 at the 16- and 32-field models' rows (nD = 33 and 65) on fem1d's
+    2-node elements, past the 12 rows K1 took before, against its plain
+    version, Dz0 given, repeat calls bitwise."""
+    rng = np.random.default_rng(nD)
+    panels, cols, _, n_J = _panels(rng, dev, nD=nD, N=4, p=2, C=6, n_J=40)
+    N, p = panels.shape[1], panels.shape[2]
+    s = torch.as_tensor(rng.standard_normal(n_J), device=dev)
+    dz0 = torch.as_tensor(rng.standard_normal((N * p, nD)), device=dev)
+    out = K.panel_fwd(panels, cols, s, dz0)
+    assert _rel(out, K.panel_fwd_plain(panels, cols, s, dz0)) <= TOL
+    assert _same_bits(out, K.panel_fwd(panels, cols, s, dz0))
+
+
 @pytest.mark.parametrize("p,nD,C", [(7, 4, 13), (3, 11, 14), (64, 12, 30)])
 def test_panel_fwd_forms_agree(dev, p, nD, C):
     """The wide form gives the element-group form's bits wherever both
@@ -707,7 +722,7 @@ def _wide_tables(m, rng, table, room):
     }[table]
 
 
-WIDE = ["six_pieces", "cone_nz7_p15", "cone_nz7_p1", "cone_nz9_p2",
+WIDE_TABLES = ["six_pieces", "cone_nz7_p15", "cone_nz7_p1", "cone_nz9_p2",
         "wide_linear", "sixteen_pieces", "cone_widest", "linear_widest",
         "mixed"]
 ROOM = {"barrier": 32, "cobarrier": 31, "phase_one": 28}
@@ -715,7 +730,7 @@ ROOM = {"barrier": 32, "cobarrier": 31, "phase_one": 28}
 
 @pytest.mark.parametrize("form", ["barrier", "cobarrier", "phase_one"])
 @pytest.mark.parametrize("mode", [0, 1, 2])
-@pytest.mark.parametrize("table", WIDE)
+@pytest.mark.parametrize("table", WIDE_TABLES)
 def test_node_barrier_wide_tables(dev, table, mode, form):
     """K6's wide tables (more than 4 pieces, up to 32 rows, the
     runtime-width cone, the wide linear block, narrow pieces in their wide
@@ -726,7 +741,7 @@ def test_node_barrier_wide_tables(dev, table, mode, form):
     227 KB, and their other modes at 16)."""
     from mgbtpu_torch.kernels.node_barrier import instance, last_block
 
-    rng = np.random.default_rng(900 + WIDE.index(table))
+    rng = np.random.default_rng(900 + WIDE_TABLES.index(table))
     m = 3001
     Q, nD = _wide_tables(m, rng, table, ROOM[form])
     t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
@@ -761,6 +776,89 @@ def test_node_barrier_wide_tables(dev, table, mode, form):
         assert last_block() == (8 if mode == 2 else 16)
 
 
+def _table_tables(m, rng, table):
+    """Tables past the parameter kernels (16 pieces, 32 rows, widths 32):
+    (Convex, D rows). 17 pieces (cones of nz 2 and 3 and linear blocks,
+    with a select grid) over 20 rows; the 16-field model's cone (nz = 17
+    over 33 rows, a full A); the 32-field model's (nz = 33 over 65 rows,
+    its Hessian's rows too wide for shared memory: built in global
+    memory); a linear block of 40 x 34 with repeated rows beside a narrow
+    cone, over 36 rows."""
+    x = np.zeros((m, 2))
+    cone, lin = mt.convex_euclidian_power, mt.convex_linear
+
+    def rand_A(n):
+        return np.tile(np.eye(n).reshape(1, -1), (m, 1)) \
+            + 0.01 * rng.standard_normal((m, n * n))
+
+    if table == "seventeen_pieces":
+        pieces = [cone(x=x, idx=(k, k + 1, 19), p=(1.0, 2.0, 1.5)[k % 3])
+                  if k % 2 == 0 else
+                  lin(x=x, idx=(k, (k + 4) % 18),
+                      A_grid=rng.standard_normal((m, 2)),
+                      b_grid=rng.uniform(2.0, 4.0, (m, 1)))
+                  for k in range(16)]
+        pieces.append(cone(x=x, idx=(18, 19), p=2.0))
+        sel = (rng.uniform(size=(m, 17)) < 0.8).astype(float)
+        return mt.convex_piecewise(tuple(pieces), select_grid=sel, x=x), 20
+    if table == "cone_nz17":
+        return cone(x=x, idx=tuple(range(1, 32, 2)) + (32,),
+                    A_grid=rand_A(17), p=2.0), 33
+    if table == "cone_nz33":
+        return cone(x=x, idx=tuple(range(1, 64, 2)) + (64,), p=2.0), 65
+    wide = lin(x=x, idx=tuple(range(33)) + (5,),
+               A_grid=rng.standard_normal((m, 40 * 34)),
+               b_grid=rng.uniform(30.0, 40.0, (m, 40)))
+    return mt.intersect(x, wide, cone(x=x, idx=(33, 34, 35), p=1.0)), 36
+
+
+TABLE_KERNEL = ["seventeen_pieces", "cone_nz17", "cone_nz33",
+                "linear_40x34"]
+
+
+@pytest.mark.parametrize("form", ["barrier", "cobarrier", "phase_one"])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("table", TABLE_KERNEL)
+def test_node_barrier_table_kernels(dev, table, mode, form):
+    """The table kernels (a table past 16 pieces, 32 rows or a width of
+    32, read from a device buffer) in every mode and form, with infeasible
+    and masked nodes, bitwise equal to the plain version and to a repeat
+    call; the nz = 33 cone's Hessian builds its rows in global memory."""
+    from mgbtpu_torch.kernels.node_barrier import instance, last_in_global
+
+    rng = np.random.default_rng(950 + TABLE_KERNEL.index(table))
+    m = 1001
+    Q, nD = _table_tables(m, rng, table)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    Dz = rng.uniform(-0.3, 0.3, (m, nD))
+    s_rows = sorted({pc.idx[-1] for pc in Q.pieces if pc.kind == POWER})
+    Dz[:, s_rows] = rng.uniform(2.0, 4.0, (m, len(s_rows)))
+    Dz[:20] *= rng.choice([-6.0, 6.0], (20, nD))        # infeasible nodes
+    if form == "phase_one":
+        call = _phase_one_call(mode, Q, Dz, rng, t)
+    else:
+        y, co = Dz, None
+        if form == "cobarrier":
+            y = np.concatenate([Dz, rng.uniform(-0.5, 0.5, (m, 1))], axis=1)
+            co = nD + 1
+        bw = np.full(m, 1.0 / m)
+        bw[10:20] = 0.0
+        args = tuple(t(a) for a in Q.args)
+        call = (mode, t(y), Q.pieces, args, args[0] if Q.select else None,
+                t(bw), t(rng.standard_normal(y.shape)), co, None)
+    inst = instance(Q.pieces, mode, call[1].shape[1], call[7],
+                    call[8] is not None)
+    assert inst.table
+    before = K.node_barrier.table_launches
+    out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
+    assert _rel(out, ref) <= TOL
+    assert _same_bits(out, ref)
+    assert _same_bits(out, K.node_barrier(*call))
+    assert K.node_barrier.table_launches == before + 2
+    if table == "cone_nz33" and mode == 2:
+        assert last_in_global()
+
+
 @pytest.mark.parametrize("mode", [1, 2])
 @pytest.mark.parametrize("order", ["linear_first", "cone_first"])
 def test_node_barrier_signed_zero_fold_wide(dev, order, mode):
@@ -792,16 +890,18 @@ def test_node_barrier_signed_zero_fold_wide(dev, order, mode):
 
 def test_node_barrier_has_no_local_memory(dev):
     """ptxas (-v, the committed flags) reports 0 bytes of stack and no
-    spills for every function of node_barrier.cu: K6's 18 kernels, one per
-    (mode, form) with register instances and one with runtime-width ones
-    (which keep their vectors in shared memory, not in local memory), and
-    any callee that was not inlined."""
+    spills for every function of node_barrier.cu: K6's 27 kernels, one per
+    (mode, form) with register instances, one with runtime-width ones
+    (which keep their vectors in shared memory, not in local memory) and
+    one reading its table from a device buffer, and any callee that was
+    not inlined."""
     from mgbtpu_torch.kernels import _build
 
     _build.build_all(("node_barrier",), force=True)
     _, info = _build.PTXAS["node_barrier"]
     assert sum("node_barrier_kernel" in k for k in info) == 9
     assert sum("node_barrier_wide_kernel" in k for k in info) == 9
+    assert sum("node_barrier_table_kernel" in k for k in info) == 9
     for name, r in info.items():
         assert (r["stack"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), \
             (name, r)
@@ -812,11 +912,11 @@ def test_node_barrier_refuses_what_it_does_not_take(dev):
     m = 16
     Q, nD = _tables(m, rng)["rof"]
     args = tuple(torch.as_tensor(a, device=dev) for a in Q.args)
-    y = torch.zeros((m, 33), dtype=torch.float64, device=dev)
+    y = torch.zeros((m, 2), dtype=torch.float64, device=dev)
     ones = torch.ones(m, dtype=torch.float64, device=dev)
-    with pytest.raises(ValueError, match="rows exceed"):
+    with pytest.raises(ValueError, match="idx"):
         K.node_barrier(0, y, Q.pieces, args, args[0], ones, y)
-    y = y[:, :nD]
+    y = torch.zeros((m, nD), dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="cobarrier form"):
         K.node_barrier(0, y, Q.pieces, args, args[0], ones, y,
                        box=(ones, ones))

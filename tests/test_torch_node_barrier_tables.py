@@ -2,9 +2,10 @@
 piece table that the port's constructors build (each zoo problem's set,
 ``assemble``'s p-Laplace cone, ``parabolic_solve``'s pair, and
 ``convex_linear``/``convex_piecewise``/``intersect`` of the zoo's pieces)
-has a kernel instance in barrier and phase-I form, within the kernel's
-limits (16 pieces, 32 rows, widths up to 32); a table outside them is
-refused with ValueError on the CPU as on the card. Also the ctypes mirror's layout check and the ptxas report's
+has a kernel instance in barrier and phase-I form, in the parameter
+kernels (16 pieces, 32 rows, widths up to 32); a table past them takes
+the table kernels, and only what is no table is refused with ValueError,
+on the CPU as on the card. Also the ctypes mirror's layout check and the ptxas report's
 parser, on made-up library answers. The kernel itself runs only on the card
 (``tests/test_torch_kernels_cuda.py``)."""
 import ctypes
@@ -132,17 +133,28 @@ def test_the_front_ends_tables_have_instances(mg):
 
 def test_the_widest_tables_have_instances():
     """16 pieces over 28 rows, 32 in the phase-I form, and the widest cone
-    and linear block, within the limits; the ctypes mirror holds 16 pieces
-    of 32 rows each."""
+    and linear block, in the parameter kernels; the ctypes mirror holds 16
+    pieces of 32 rows each. One piece, one row or one width more takes the
+    table kernels, every piece in its runtime-width instance."""
     pieces = tuple(_cone((k, k + 1, 27)) for k in range(16))
     for mode in (0, 1, 2):
         assert instance(pieces, mode, 28).codes == (4,) * 16
         assert instance(pieces, mode, 32, 29, True).form == 2
+        assert not instance(pieces, mode, 32, 29, True).table
     widest = (Piece(POWER, tuple(range(32)), 32, 0),
               Piece(LINEAR, tuple(range(32)), 32))
     inst = instance(widest, 2, 32)
     assert inst.wide and inst.codes == (CONE_WIDE, LINEAR_WIDE)
+    assert not inst.table
     assert len(_Table().pc) == 16 and len(_Table().pc[0].idx) == 32
+    for table, ny in ((pieces + pieces[:1], 28), (pieces, 33),
+                      ((Piece(POWER, tuple(range(33)), 33, 2),), 33),
+                      ((Piece(LINEAR, (0,), 33),), 4),
+                      ((Piece(LINEAR, (0, 1, 2) * 11, 1),), 4)):
+        inst = instance(table, 2, ny)
+        assert inst.table and str(inst).startswith(
+            "node_barrier_table_kernel<mode 2, barrier>")
+        assert all(c >= CONE_WIDE for c in inst.codes)
 
 
 def _cone(idx, spec=1, offset=0):
@@ -150,15 +162,15 @@ def _cone(idx, spec=1, offset=0):
 
 
 @pytest.mark.parametrize("pieces,mode,ny,co,box,what", [
-    ((_cone((0, 1)),) * 17, 2, 4, None, False, "17 pieces"),
+    ((_cone((0, 1)),) * 17 + (_cone((0, 4)),), 2, 4, None, False, "idx"),
     ((), 2, 4, None, False, "0 pieces"),
-    ((_cone((0, 1)),), 2, 33, None, False, "rows exceed"),
-    ((_cone((0, 1, 2, 3) * 8 + (4,)),), 2, 8, None, False,
-     "outside the kernel"),
-    ((_cone((0, 1), spec=3),), 0, 4, None, False, "outside the kernel"),
-    ((Piece(LINEAR, (0,), 33),), 1, 4, None, False, "outside the kernel"),
-    ((Piece(LINEAR, (0, 1, 2, 3, 4, 5) * 5 + (6, 7, 0), 1),), 1, 8, None,
-     False, "outside the kernel"),
+    ((_cone((0, 1)),), 2, 0, None, False, "0 rows"),
+    ((Piece(POWER, (0, 1, 2, 3) * 8 + (4,), 32),), 2, 8, None, False,
+     "is no piece"),
+    ((_cone((0, 1), spec=3),), 0, 4, None, False, "is no piece"),
+    ((Piece(LINEAR, (0,), 0),), 1, 4, None, False, "is no piece"),
+    ((Piece(LINEAR, (0, 1, 2, 3, 4, 5) * 5 + (6, 7, 40), 1),), 1, 40, None,
+     False, "idx"),
     ((_cone((0, 4)),), 1, 4, None, False, "idx"),
     ((_cone((0, 3)),), 1, 5, 4, True, "idx"),       # row 3 is the slack
     ((_cone((0, 1)),), 3, 4, None, False, "mode 3"),
@@ -174,21 +186,25 @@ def test_tables_outside_the_limits_are_refused(pieces, mode, ny, co, box,
 
 def test_the_wrapper_refuses_them_on_the_cpu():
     """The plain version is the kernel's stand-in on the CPU: it takes the
-    tables the kernel takes, no more."""
+    tables the kernel takes (an nz = 33 cone, 33 rows: the table kernels
+    on the card), and refuses what the kernel refuses."""
     m = 6
 
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float64)
 
     wide = _cone((0, 1, 2, 3, 4, 5) * 5 + (0, 1, 2))       # nz = 33
-    with pytest.raises(ValueError, match="outside the kernel"):
-        node_barrier(0, ones(m, 6), (wide,),
-                     (ones(m, 33 * 33), ones(m, 33), ones(m), ones(m)), None,
-                     ones(m), ones(m, 6))
-    with pytest.raises(ValueError, match="rows exceed"):
-        node_barrier(0, ones(m, 33), (_cone((0, 1)),),
+    grids = (ones(m, 33 * 33), ones(m, 33), ones(m), ones(m))
+    assert instance((wide,), 0, 6).table
+    assert node_barrier(0, ones(m, 6), (wide,), grids, None, ones(m),
+                        ones(m, 6)).shape == (m,)
+    assert node_barrier(1, ones(m, 33), (_cone((0, 1)),),
+                        (ones(m, 4), ones(m, 2), ones(m), ones(m)), None,
+                        ones(m), ones(m, 33)).shape == (m, 33)
+    with pytest.raises(ValueError, match="idx"):
+        node_barrier(0, ones(m, 6), (_cone((0, 6)),),
                      (ones(m, 4), ones(m, 2), ones(m), ones(m)), None,
-                     ones(m), ones(m, 33))
+                     ones(m), ones(m, 6))
 
 
 def test_instance_codes_and_names():

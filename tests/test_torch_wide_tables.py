@@ -1,7 +1,7 @@
 """PyTorch port, K6's wide piece tables on the CPU: the tables past the
 limits K6 had before (4 pieces, 12 rows, cones nz <= 5, linear blocks
-4 x 5), now up to 16 pieces over 32 rows, cones nz <= 32 and linear blocks
-32 x 32.
+4 x 5): up to 16 pieces over 32 rows, cones nz <= 32 and linear blocks
+32 x 32 in the parameter kernels, and past those in the table kernels.
 
 - The five-piece problem that the port refused (a p = 1 cone on rows 1, 2
   and four linear bounds on row 0, on fem1d's 5 nodes) solved by the port's
@@ -13,8 +13,20 @@ limits K6 had before (4 pieces, 12 rows, cones nz <= 5, linear blocks
   routes past K2 to K6), a wide linear block (nc = 6, ni = 7) and 16 pieces
   over 28 rows (32 in phase I).
 - The new limits raise on every device; K2 keeps the lone cones it takes.
+- The three fem1d models past the parameter kernels (``port_models``:
+  17 constraints; 16 fields with gradients, 33 rows under a cone of
+  nz = 17; 32 fields, 65 rows, nz = 33) solved by the port's plain path
+  against their JAX x64 records (``ref_model_wide.npz``,
+  ``tests/test_torch_reference_wide_models.py``): z to 1e-8, the same
+  ramp, and K6's plain version on their tables against ``jax.vmap`` of the
+  JAX barriers to 1e-13 in modes 0 and 1 (``jax.vmap`` of the nz = 17
+  Hessian takes 88 s a call here: mode 2 at those widths is held through
+  the solves and through ``at_h_a``'s bitwise equality with the scalar
+  fold).
 """
 import importlib
+import os
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +36,10 @@ import torch
 
 import mgbtpu
 import mgbtpu_torch as mt
+import port_models
+from jax_references import DATA, record_of
 from mgbtpu.solver.mgb import make_feasibility_fs as feas_ref
+from mgbtpu_torch.convex._common import ssum
 from mgbtpu_torch.kernels import power_cone as K2
 from mgbtpu_torch.solver.mgb import make_feasibility_fs
 from port_parity import same_ramp
@@ -95,11 +110,20 @@ def _cases(pkg, rng):
         else:
             sixteen.append(cone(idx=(k, 27), p=2.0, **kw))
     out["sixteen_pieces"] = (pkg.intersect(x, *sixteen), 28)
+    seventeen = [cone(idx=(1, 2), p=1.0, **kw)] + [
+        lin(idx=(0,), A=lambda _: np.array([[-1.0]]),
+            b=lambda _, c=c: np.array([2.0 + c]), **kw) for c in range(16)]
+    out["seventeen_pieces"] = (pkg.intersect(x, *seventeen), 3)
+    out["cone_nz17"] = (cone(idx=tuple(range(1, 32, 2)) + (32,),
+                             A_grid=_rand_A(rng, 17), p=2.0, **kw), 33)
+    out["cone_nz33"] = (cone(idx=tuple(range(1, 64, 2)) + (64,), p=2.0,
+                             **kw), 65)
     return out
 
 
 NAMES = ["six_pieces", "cone_nz7", "cone_nz7_p1", "wide_linear",
          "sixteen_pieces"]
+TABLES = ["seventeen_pieces", "cone_nz17", "cone_nz33"]
 
 
 def _pair(name):
@@ -140,10 +164,16 @@ def _ones_zeros(Y):
 
 
 # every table in every form, but the 16 pieces (whose JAX Hessian alone
-# takes ~7 s to trace here) in the phase-I form only, its 32 rows
+# takes ~7 s to trace here) in the phase-I form only, its 32 rows; past the
+# parameter kernels, the 17 pieces in every form, the wide cones in modes 0
+# and 1 (their JAX Hessians, eager, take minutes)
 CALLS = [(n, m, f) for n in NAMES[:-1] for m in (0, 1, 2)
          for f in ("barrier", "cobarrier", "phase_one")] + [
-    ("sixteen_pieces", m, "phase_one") for m in (0, 1, 2)]
+    ("sixteen_pieces", m, "phase_one") for m in (0, 1, 2)] + [
+    ("seventeen_pieces", m, f) for m in (0, 1, 2)
+    for f in ("barrier", "phase_one")] + [
+    ("cone_nz17", 0, "barrier"), ("cone_nz17", 1, "phase_one"),
+    ("cone_nz33", 0, "phase_one"), ("cone_nz33", 1, "cobarrier")]
 
 
 @pytest.mark.parametrize("name,mode,form", CALLS)
@@ -177,7 +207,51 @@ def test_wide_table_matches_jax(name, mode, form):
     _same(got.numpy(), np.asarray(ref))
     co = None if form == "barrier" else nD + 1
     inst = K6.instance(Qt.pieces, mode, ny, co, form == "phase_one")
-    assert len(inst.codes) == len(Qt.pieces) and ny <= K6.MAX_ROWS
+    assert len(inst.codes) == len(Qt.pieces)
+    assert inst.table == (name in TABLES) == (ny > K6.MAX_ROWS
+                                              or len(Qt.pieces) > 16)
+
+
+def test_at_h_a_is_the_scalar_fold():
+    """K2's A' Hz A, folded over all entries at once, gives the bits of
+    the scalar left fold over (k, l) pairs that the JAX package writes
+    (``_AtHA``)."""
+    rng = np.random.default_rng(11)
+    nz = 9
+    A = torch.tensor(rng.standard_normal((N, nz * nz)))
+    Hz = [[torch.tensor(rng.standard_normal(N)) for _ in range(nz)]
+          for _ in range(nz)]
+    got = K2.at_h_a(A, Hz, nz)
+    for i in range(nz):
+        for j in range(nz):
+            ref = ssum([A[:, k * nz + i] * Hz[k][l] * A[:, l * nz + j]
+                        for k in range(nz) for l in range(nz)])
+            assert torch.equal(got[i][j], ref)
+
+
+WIDE = os.path.join(DATA, "ref_model_wide.npz")
+TABLE_OF = {"seventeen_constraints": (17, 3), "sixteen_fields": (1, 33),
+            "thirty_two_fields": (1, 65)}
+
+
+@pytest.mark.parametrize("name", port_models.WIDE_MODELS)
+def test_wide_model_matches_x64(name):
+    """The models past the parameter kernels solve on the port's CPU path
+    to their JAX x64 records: z to 1e-8 of x64, the same steps, and the
+    same Newton its on the first three ramp steps; from the fourth the
+    decrement on these 8 nodes sits at the objective's roundoff floor
+    (ROADMAP Queue 3, fem1d), each step within +-1 and all within +-4."""
+    mg = mt.amg(mt.fem1d(nodes=np.linspace(-1.0, 1.0, 5)))
+    m, _ = port_models.MODELS[name](mt, mg, device="cpu")
+    sol = m.solve(**port_models.SOLVE)
+    Q, M = m._lowered["prob"].Q, m._lowered["prob"].M[0]
+    assert (len(Q.pieces), len(M.D_fine)) == TABLE_OF[name]
+    assert K6.instance(Q.pieces, 2, len(M.D_fine)).table
+    rec = record_of(np.load(WIDE), name)
+    ref = SimpleNamespace(z=rec["z"], SOL_main=dict(
+        its=rec["its"], steps_accepted=int(rec["steps"][0]),
+        steps_attempted=int(rec["steps"][1])))
+    same_ramp(ref, sol, floor_from=3)
 
 
 def test_instances_of_the_wide_shapes():
@@ -211,15 +285,17 @@ def _cone(nz, rows=None):
 
 
 @pytest.mark.parametrize("pieces,ny,what", [
-    ((_cone(2),) * 17, 4, "17 pieces exceed 16"),
-    ((_cone(2),), 33, "33 rows exceed 32"),
-    ((_cone(33, (0, 1) * 16 + (2,)),), 4, "outside the kernel's limits"),
-    ((K6.Piece(K6.LINEAR, (0,), 33),), 4, "outside the kernel's limits"),
-    ((K6.Piece(K6.LINEAR, (0, 1, 2) * 11, 1),), 4, "outside the kernel"),
+    ((_cone(2),) * 17 + (_cone(2, (0, 4)),), 4, "idx"),
+    ((_cone(2),), 0, "0 rows"),
+    ((_cone(33, (0, 1) * 16),), 4, "is no piece"),
+    ((K6.Piece(K6.LINEAR, (0,), 0),), 4, "is no piece"),
+    ((K6.Piece(K6.LINEAR, (0, 1, 2) * 11 + (4,), 1),), 4, "idx"),
 ])
 def test_the_new_limits_raise(pieces, ny, what):
     """On every device: the host check runs before the device is looked
-    at, and the plain version refuses what the kernel refuses."""
+    at, and the plain version refuses what the kernel refuses. Past 16
+    pieces, 32 rows and widths of 32 only what is no table raises: the
+    table kernels take the rest."""
     with pytest.raises(ValueError, match=what):
         K6.instance(pieces, 0, ny)
     m = 4
