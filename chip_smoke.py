@@ -5,6 +5,7 @@
     python3 chip_smoke.py --level 7       # also K1/K2/K6 and one solve at L=7
     python3 chip_smoke.py --fem3d-level 3 # the fem3d phases at L=3, not 4
     python3 chip_smoke.py --profile       # also profile one L=5 solve
+    python3 chip_smoke.py --precond-full  # also the V-cycle ramp at L=4
 
 In order: prints the card's name and power limit; builds the seven CUDA
 kernels from ``mgbtpu_torch/kernels/csrc`` (one nvcc per source, in
@@ -95,6 +96,29 @@ roundoff floor from the 4th within +-1, the polish within +-4) with the
 table kernels launched, K6 bitwise on each model's table, and their
 tables again at 4,096 seeded nodes, bitwise in every mode and form, the
 Hessians timed (the nz = 33 cone's is the table kernel's record).
+Then the large-level preconditioners that ``MGBTPU_BIG_PRE`` selects
+(``precond_phases``; vcycle, fsai, fsai2, fsai2a): (a) at the top level
+of fem2d_P2 L=5 (n_J = 5,057) with the default DENSE_MAX and DENSE_BASE,
+one ``make_pcg_pre`` + ``pcg_solve`` a choice at p=2, t=100, s=0 and at
+the p=1 ramp's last t from its stored solution: at p=2 held to
+``ref_pcg_L5_<choice>.npz`` (x within 1e-8 relative, the CG count within
++-1, the chosen levels, the V-cycle's lambda_max); at the deep state,
+where the Hessian carries Dz's last bits through slacks of ~1/t, x and
+the CG count printed beside the record's and a converged solve held to
+its own exit test; with the level
+subset, lambda_max, CG, the walls of the level setup, the preconditioner
+and the solve, and the launches printed (K1-K4 must launch), one
+application of each preconditioner and one K4 Hessian apply timed, and
+K4 against its plain version and timed at the V-cycle's levels (the
+record ``gram_matvec vcycle``); (b) ``assemble`` -> ``mgb_solve`` of
+fem2d_P2 p=1 at L=3 with DENSE_MAX=50 and DENSE_BASE=40 under each
+choice (K1-K4 must launch, K5 must not), held to
+``ref_fem2d_p2_L3_<choice>.npz``: the steps equal, z within 1e-6 and the
+Newton its by the zoo bar, or within twice the largest move of the
+record's own perturbed JAX runs where that is larger (``precond_bars``),
+its, CG beside the record's, host syncs and wall printed. With
+``--precond-full``, the V-cycle ramp at L=4 with the default knobs against
+``ref_fem2d_p2_L4_vcycle.npz`` the same way (minutes).
 Each ``--level
 L`` then holds K1, K2
 and K6 against their plain versions and times them at level L's top-level
@@ -2113,6 +2137,272 @@ def mesh_phases(mg5, prob, sol0, wall0, torch, K, smi):
               f"{torch.cuda.device_count()} card")
 
 
+PRECOND = ("vcycle", "fsai", "fsai2", "fsai2a")   # MGBTPU_BIG_PRE choices
+PERTURBED = ("plain_dots", "ulp_f", "ulp_g")     # the records' own reruns
+PCG_CAP = 150                                    # pcg_solve's CG budget
+
+
+class big_pre:
+    """``newton.BIG_PRE`` and ProblemKernels' level knobs set for a block
+    (as a user's MGBTPU_BIG_PRE, MGBTPU_DENSE_MAX, MGBTPU_DENSE_BASE)."""
+
+    def __init__(self, choice, **knobs):
+        self.choice, self.knobs = choice, knobs
+
+    def __enter__(self):
+        from mgbtpu_torch.solver import mgb as MT, newton as NT
+
+        self.old = (NT.BIG_PRE, {k: getattr(MT.ProblemKernels, k)
+                                 for k in self.knobs})
+        NT.BIG_PRE = self.choice
+        for k, v in self.knobs.items():
+            setattr(MT.ProblemKernels, k, v)
+
+    def __exit__(self, *exc):
+        from mgbtpu_torch.solver import mgb as MT, newton as NT
+
+        NT.BIG_PRE = self.old[0]
+        for k, v in self.old[1].items():
+            setattr(MT.ProblemKernels, k, v)
+
+
+def precond_bars(ref, tol_z):
+    """(z bar, bar on the main ramp's steps but the last, bar on the last,
+    whether the steps are held equal): ``tol_z``, 5 % and FLOOR_ITS, or
+    twice the largest move of the record's own perturbed JAX runs (a
+    last-bit change that leaves the method as it is) where that is larger;
+    the accepted/attempted steps equal unless those runs change them.
+    Many of these CG solves stop at their cap, where a last-bit difference
+    steers the ramp."""
+    z, its = ref["z"], ref["its"].sum(axis=0)
+    body, last = int(its[:-1].sum()), int(its[-1])
+    dz = db = dl = 0
+    for n in PERTURBED:
+        its_n = ref[f"{n}/its"].sum(axis=0)
+        dz = max(dz, np.linalg.norm(ref[f"{n}/z"] - z) / np.linalg.norm(z))
+        db = max(db, abs(int(its_n[:-1].sum()) - body))
+        dl = max(dl, abs(int(its_n[-1]) - last))
+    steady = all(np.array_equal(ref[f"{n}/steps"], ref["steps"])
+                 for n in PERTURBED)
+    return (max(tol_z, 2 * dz), max(TOL_ITS * body, 2 * db),
+            max(FLOOR_ITS, 2 * dl), steady)
+
+
+def check_precond_record(tag, sol, ref):
+    """A solve under a large-level preconditioner against its x64 record
+    (``precond_bars``, z at the card's TOL_Z): the same steps, z, the
+    Newton its; the CG totals printed beside the record's."""
+    S = sol.SOL_main
+    its, its_ref = S["its"].sum(axis=0), ref["its"].sum(axis=0)
+    zerr = float(np.linalg.norm(sol.z - ref["z"]) / np.linalg.norm(ref["z"]))
+    bz, bb, bl, steady = precond_bars(ref, TOL_Z)
+    steps = [S["steps_accepted"], S["steps_attempted"]]
+    print(f"[reference] {tag}: |z - z_ref|/|z_ref| = {zerr!r} (bar "
+          f"{float(bz)!r}); main its {int(its[:-1].sum())} + {int(its[-1])} "
+          f"(final step) vs {int(its_ref[:-1].sum())} + {int(its_ref[-1])} "
+          f"(x64; bars {float(bb)!r}, {float(bl)!r}); cg {int(S['cg'].sum())} vs "
+          f"{int(ref['cg'].sum())} (x64); steps {steps} vs "
+          f"{ref['steps'].tolist()}" + ("" if steady else " (not held: the "
+                                         "record's own reruns change them)"))
+    fails = []
+    if steady and steps != ref["steps"].tolist():
+        fails.append("steps")
+    if not zerr <= bz:
+        fails.append(f"solution error {zerr}")
+    if abs(int(its[:-1].sum()) - int(its_ref[:-1].sum())) > bb:
+        fails.append("its before the final step")
+    if abs(int(its[-1]) - int(its_ref[-1])) > bl:
+        fails.append("final-step its")
+    if fails:
+        raise RuntimeError(f"{tag}: " + "; ".join(fails))
+
+
+def precond_state(choice, state, prob, torch, K):
+    """One ``make_pcg_pre`` + ``pcg_solve`` on the card at the top level of
+    ``prob`` (fem2d_P2 L=5, default knobs) under ``choice``, at the record's
+    ``state``. At p=2, t=100 held to ``ref_pcg_L5_<choice>.npz`` (x within
+    1e-8 relative, the CG count within +-1, lambda_max within 1e-12); at
+    the deep state x and the CG count are printed beside the record's and
+    a converged solve is held to its own exit test. Returns the launches,
+    the context, the Hessian, the preconditioner and the level's ops."""
+    import mgbtpu_torch
+    from mgbtpu_torch.solver import mgb as MT, newton as NT
+    from mgbtpu_torch.solver.newton import SYNCS
+
+    tag = f"{choice} L=5 {state}"
+    ref = np.load(os.path.join(DATA, f"ref_pcg_L5_{choice}.npz"))
+    mgbtpu_torch.mgb_cleanup(prob)
+    M1 = prob.M[0]
+    kern = MT._kernels_for(M1, prob.Q, None, NT.linesearch_backtracking(),
+                           torch.device("cuda"))
+    l = M1.depth - 1
+    t0 = time.time()
+    ops = kern.ops(l)
+    setup = time.time() - t0
+    ctx = ops.pcg_ctx
+    if ctx is None or ctx.nd is not None:
+        raise RuntimeError(f"{tag}: the level has no {choice} context")
+    w = M1.w
+    t = float(ref[f"{state}/t"])
+    z = (np.asarray(prob.g_grid).T.reshape(-1) if state == "p2" else
+         np.load(REF)["z"].T.reshape(-1))
+    fa = kern._fargs(l, z, w[:, None] * (t * prob.f_grid),
+                     MT.barrier_weights(w, None),
+                     tuple(kern.tensor(a) for a in prob.Q.args))
+    s0 = torch.zeros((ops.n_J,), dtype=torch.float64, device="cuda")
+    SYNCS["n"] = 0
+    K.reset_launches()
+    H, g = kern.fns[2](s0, *fa), kern.fns[1](s0, *fa)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pre = NT.make_pcg_pre(H)
+    torch.cuda.synchronize()
+    t_pre = time.time() - t0
+    la_pre = K.gram_matvec.launches
+    x, k = NT.pcg_solve(H, g, pre=pre)
+    torch.cuda.synchronize()
+    t_solve = time.time() - t0 - t_pre
+    la = K.launches()
+    k_ref = int(ref[f"{state}/cg"])
+    xr = torch.as_tensor(ref[f"{state}/x"], device="cuda")
+    d = x - xr
+    err2 = float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(xr))
+    errH = float((torch.dot(d, ops.gram_apply(H.Lnode, d))
+                  / torch.dot(xr, ops.gram_apply(H.Lnode, xr))).sqrt())
+    levels = [o.n_J for o in ctx.coarse_ops]
+    lmax = pre[1][1][ctx.n_levels][1] if pre[0] == "vcycle" else None
+    print(f"[precond] {tag}: n_J {ops.n_J}, chosen levels {levels} "
+          f"(dense base {levels[ctx.dense_level]}), lambda_max {lmax!r} "
+          f"(x64 {float(ref[f'{state}/lambda_max']) if lmax else None!r}); "
+          f"cg {k} (x64 {k_ref}); |x - x_ref|/|x_ref| {err2!r}, in the "
+          f"H-norm {errH!r}; wall: level setup {setup!r} s, preconditioner "
+          f"{t_pre!r} s, pcg_solve {t_solve!r} s; K4 launches "
+          f"{la['gram_matvec']} ({la_pre} in the preconditioner); "
+          f"launches {la}; host syncs {SYNCS['n']}")
+    if levels != ref[f"{state}/levels"].tolist():
+        raise RuntimeError(f"{tag}: chosen levels {levels}")
+    if state == "p2":
+        if abs(k - k_ref) > 1:
+            raise RuntimeError(f"{tag}: cg {k} vs {k_ref}")
+        if lmax is not None and abs(
+                lmax - float(ref[f"{state}/lambda_max"])) > 1e-12 * lmax:
+            raise RuntimeError(f"{tag}: lambda_max {lmax}")
+        if not err2 <= 1e-8:
+            raise RuntimeError(f"{tag}: x differs by {err2}")
+    if state == "deep" and k < PCG_CAP:
+        # pcg_solve's own exit test, checked afresh: at t = 1/tol the
+        # Hessian carries Dz's last bits through slacks of ~1/t (K1's sums
+        # and the batched node Cholesky differ from the CPU's in their last
+        # bits), so x and the CG count are reported beside the record's,
+        # and the solve is held to its tolerance
+        from mgbtpu_torch.solver.newton import PCG_RTOL, pcg_operators
+
+        _, mv_s, dt = pcg_operators(H, pre)
+        res = float(torch.linalg.vector_norm(mv_s(x * dt) - g / dt)
+                    / torch.linalg.vector_norm(g / dt))
+        print(f"[precond] {tag}: equilibrated residual {res!r}")
+        if not res <= 2 * PCG_RTOL:
+            raise RuntimeError(f"{tag}: residual {res}")
+    require_launches(tag, la, ["panel_fwd", "power_cone", "panel_adj",
+                               "gram_matvec"])
+    return la, ctx, H, pre, ops
+
+
+def precond_times(H, pre, ops, torch, tag):
+    """Device ms of one application of the preconditioner M_s (the
+    V-cycle's cycle, or FSAI's G'(G r) with fsai2's coarse correction:
+    library calls, and K4 on the V-cycle's levels) and of one equilibrated
+    Hessian apply (K4 at the top level): a CG iteration's two big parts."""
+    from mgbtpu_torch.solver.newton import pcg_operators
+
+    M_s, mv_s, _ = pcg_operators(H, pre)
+    r = torch.randn(ops.n_J, dtype=torch.float64, device="cuda")
+    ms, hid = device_ms(lambda: M_s(r), reps=20)
+    k4, hid4 = device_ms(lambda: mv_s(r))
+    print(f"[time] {tag}: device ms per CG iteration: the preconditioner "
+          f"({pre[0]}) {ms!r}{'' if hid else ' (host not hidden: an upper bound)'}"
+          f", the Hessian apply (K4 at n_J {ops.n_J}) {k4!r}"
+          f"{'' if hid4 else ' (host not hidden)'}; wall ms per call (host "
+          f"launch rate) {wall_ms(lambda: M_s(r), reps=20)!r}")
+    return ms, k4
+
+
+def precond_phases(torch, K, smi, full=False):
+    """The large-level preconditioners (``MGBTPU_BIG_PRE``): (a) each
+    choice's ``make_pcg_pre`` + ``pcg_solve`` at the top level of fem2d_P2
+    L=5 (n_J = 5,057) with the default knobs, at p=2, t=100 and at the p=1
+    ramp's last t, held to ``ref_pcg_L5_<choice>.npz``; then K4 at the
+    V-cycle's levels against its plain version and timed; (b) each
+    choice's ``assemble`` -> ``mgb_solve`` of fem2d_P2 p=1 at L=3 with
+    DENSE_MAX=50 and DENSE_BASE=40, held to ``ref_fem2d_p2_L3_<choice>.npz``
+    (``precond_bars``); with ``full``, the V-cycle ramp at L=4 with the
+    default knobs against ``ref_fem2d_p2_L4_vcycle.npz``. Returns the
+    kernel record of K4 at the V-cycle's levels."""
+    from mgbtpu_torch import amg, assemble, fem2d_P2, mgb_solve, subdivide
+    from mgbtpu_torch.solver.newton import SYNCS
+
+    mg5 = amg(subdivide(fem2d_P2(), 5))
+    probs = {"p2": assemble(mg5, p=2.0, device="cuda"),
+             "deep": assemble(mg5, p=1.0, device="cuda")}
+    launches = rows = None
+    for choice in PRECOND:
+        with big_pre(choice):
+            for state in ("p2", "deep"):
+                la, ctx, H, pre, ops = precond_state(choice, state,
+                                                     probs[state], torch, K)
+                if state == "p2":
+                    precond_times(H, pre, ops, torch, f"{choice} L=5 p2")
+                if choice == "vcycle" and state == "deep":
+                    launches = la
+                    rng = np.random.default_rng(1905)
+                    # the top level and the chosen coarse levels (with the
+                    # default knobs at L=5 only the dense base)
+                    levels = [ops] + list(ctx.coarse_ops)
+                    rows = [gram_matvec_phase(o, torch, K, rng,
+                                              f"vcycle L=5 n_J={o.n_J}")
+                            for o in levels]
+    err, row = rows[0]
+    record = dict(name="gram_matvec vcycle", route="cuda",
+                  source="mgbtpu_torch/kernels/csrc/gram_matvec.cu",
+                  replaces="mgbtpu/ops/pallas_dd.py:142",
+                  launches=launches["gram_matvec"],
+                  max_abs_err=max(e for e, _ in rows), **row)
+
+    mg3 = amg(subdivide(fem2d_P2(), 3))
+    for choice in PRECOND:
+        tag = f"{choice} fem2d_P2 p=1 L=3 (DENSE_MAX=50, DENSE_BASE=40)"
+        with big_pre(choice, DENSE_MAX=50, DENSE_BASE=40):
+            prob = assemble(mg3, p=1.0, device="cuda")
+            SYNCS["n"] = 0
+            secs, sol, la, _ = counted(torch, K,
+                                       lambda: mgb_solve(prob,
+                                                         device="cuda"))
+        report(tag, secs, sol, SYNCS["n"])
+        print(f"[kernels] launches in the {tag} solve ({secs!r} s wall on "
+              f"{smi}): {la}")
+        require_launches(tag, la, ["panel_fwd", "power_cone", "panel_adj",
+                                   "gram_matvec"])
+        if la["front_factor"] or la["front_solve"]:
+            raise RuntimeError(f"{tag}: the ND solver ran")
+        check_precond_record(tag, sol, np.load(os.path.join(
+            DATA, f"ref_fem2d_p2_L3_{choice}.npz")))
+    if full:
+        tag = "vcycle fem2d_P2 p=1 L=4 (default knobs)"
+        with big_pre("vcycle"):
+            prob = assemble(amg(subdivide(fem2d_P2(), 4)), p=1.0,
+                            device="cuda")
+            SYNCS["n"] = 0
+            secs, sol, la, _ = counted(torch, K,
+                                       lambda: mgb_solve(prob,
+                                                         device="cuda"))
+        report(tag, secs, sol, SYNCS["n"])
+        print(f"[kernels] launches in the {tag} solve ({secs!r} s wall on "
+              f"{smi}): {la}")
+        check_precond_record(tag, sol, np.load(os.path.join(
+            DATA, "ref_fem2d_p2_L4_vcycle.npz")))
+    return record
+
+
 def golden_check(tag, got, gold):
     """``tests/test_golden.py``'s bar: the 2-norm of the difference from
     the golden vector below 1e-6."""
@@ -2133,6 +2423,9 @@ def main(argv=None) -> int:
                     "kernel shapes (default 4)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one L=5 solve (torch.profiler)")
+    ap.add_argument("--precond-full", action="store_true",
+                    help="also run the V-cycle ramp at L=4 with the default "
+                    "knobs against its x64 record (minutes)")
     args = ap.parse_args(argv)
     t_start = time.time()
 
@@ -2208,6 +2501,7 @@ def main(argv=None) -> int:
     wide_node_barrier_phases(torch, K)
     records.append(slice9_solves(mg5, torch, K, smi))
     records.append(table_kernel_phases(torch, K, smi))
+    records.append(precond_phases(torch, K, smi, full=args.precond_full))
 
     for L in args.level:
         mgL, probL, run_L = solve(L, torch)

@@ -27,7 +27,7 @@ from .solver import (MGBProblem, MGBSOL, assemble, default_D, default_f,
                      linesearch_illinois, mgb_cleanup, mgb_solve,
                      stopping_exact, stopping_inexact)
 from .solver.parabolic import ParabolicSOL, parabolic_solve
-from .utils import Log, MGBConvergenceFailure, chebfun, interpolate
+from .utils import Log, MGBConvergenceFailure, chebfun, interpolate, map_rows
 from .utils.checkpoint import load_solution, save_solution, warm_start_grid
 from .frontends import gmsh_import
 from .frontends.model import Model
@@ -50,7 +50,7 @@ __all__ = [
     "linesearch_backtracking", "linesearch_illinois", "mgb_cleanup",
     "mgb_solve", "stopping_exact", "stopping_inexact", "parabolic_solve",
     "ParabolicSOL", "Log", "MGBConvergenceFailure", "chebfun",
-    "interpolate", "save_solution", "load_solution", "warm_start_grid",
+    "interpolate", "map_rows", "save_solution", "load_solution", "warm_start_grid",
     "zoo", "gmsh_import", "Model", "animation_html", "plot", "plot3d_html",
     "save_animation", "make_mesh",
 ]

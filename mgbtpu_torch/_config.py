@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 DTYPE = torch.float64
@@ -35,3 +36,22 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"mgbtpu_torch: unsupported device {dev}")
     return dev
+
+
+def check_dtype(dtype=None):
+    """The ``dtype=`` keyword the JAX package's entry points take. The port
+    computes in float64 only: ``None`` and float64 (numpy, torch or the
+    name) pass; any other dtype raises ``ValueError`` rather than solving
+    in a precision other than the one asked for (the JAX package's float32
+    path is its double-float emulation for a chip without f64, which the
+    port does not have)."""
+    if dtype is None or dtype is torch.float64:
+        return
+    try:
+        ok = np.dtype(dtype) == np.float64
+    except TypeError:
+        ok = False
+    if not ok:
+        raise ValueError(
+            f"mgbtpu_torch computes in float64 only; dtype={dtype!r} is not "
+            "supported (pass dtype=None or numpy.float64)")

@@ -265,6 +265,14 @@ class AMGSystem:
     def n_nodes(self):
         return len(self.w)
 
+    def D_sparse(self, k) -> sp.csr_matrix:
+        """The fine operator row D_fine[k] as one sparse matrix over the
+        stacked state (``block_column_sparse``)."""
+        from ..ops.blockdiag import block_column_sparse
+
+        op, comp = self.D_fine[k]
+        return block_column_sparse(op, comp, self.nu)
+
     def apply_D_full(self, z: np.ndarray) -> np.ndarray:
         """Dz for the full stacked state z (host): (n_nodes, nD)."""
         m = self.n_nodes

@@ -27,6 +27,10 @@ class BlockDiagHost:
         N, p, q = self.data.shape
         return (N * p, N * q)
 
+    @property
+    def nblocks(self):
+        return self.data.shape[0]
+
     def to_sparse(self) -> sp.csr_matrix:
         N, p, q = self.data.shape
         return sp.block_diag([self.data[e] for e in range(N)], format="csr") \
@@ -39,6 +43,34 @@ class BlockDiagHost:
     def rmatvec(self, v: np.ndarray) -> np.ndarray:
         N, p, q = self.data.shape
         return np.einsum("epq,ep->eq", self.data, v.reshape(N, p)).reshape(-1)
+
+    def __matmul__(self, v):
+        return self.matvec(np.asarray(v))
+
+
+def extract_block_diag(A: sp.spmatrix, p: int, q: int | None = None) -> BlockDiagHost:
+    """Extract the (N, p, q) block-diagonal structure from a sparse matrix.
+
+    Raises if A has entries outside the block-diagonal pattern. Mirrors the
+    reference's ``_extract_block_diag`` round-trip contract
+    (``src/BlockMatrices.jl:97-116``).
+    """
+    q = p if q is None else q
+    A = sp.csr_matrix(A)
+    n_r, n_c = A.shape
+    if n_r % p or n_c % q:
+        raise ValueError("matrix dims not divisible by block size")
+    N = n_r // p
+    if n_c // q != N:
+        raise ValueError("row/col block counts differ")
+    out = np.zeros((N, p, q), dtype=A.dtype)
+    coo = A.tocoo()
+    er, lr = np.divmod(coo.row, p)
+    ec, lc = np.divmod(coo.col, q)
+    if np.any(er != ec):
+        raise ValueError("matrix has entries outside the block diagonal")
+    out[er, lr, lc] = coo.data
+    return BlockDiagHost(out)
 
 
 def block_column_sparse(op, active: int, nu: int) -> sp.csr_matrix:

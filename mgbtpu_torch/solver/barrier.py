@@ -45,9 +45,10 @@ def make_level_fns(barrier):
 
     def f2(s, ops, Dz0, wc, bw, args):
         Ys = per_shard(2, s, ops, Dz0, wc, bw, args)
-        if ops.nd is not None:
+        if ops.pcg_ctx is not None:
             # large level: matrix-free Gram Hessian, solved by CG
-            # preconditioned with the nested-dissection direct factor
+            # preconditioned with the nested-dissection direct factor or
+            # the preconditioner BIG_PRE picked (solver/newton.py)
             return GramHessian(ops=ops, Lnode=tuple(map(node_factors, Ys)))
         return ops.dense_hessian(Ys)
 

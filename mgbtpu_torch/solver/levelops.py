@@ -61,8 +61,13 @@ class PanelOps:
                              # e*C + c in increasing order, padded with N*C
                              # (None on a mesh's shard)
     host_cols: np.ndarray    # host copy of cols (the ND plan's input)
-    nd: Any = None           # ops.ndchol.NDDev: direct-solver plan of a
-                             # level above DENSE_MAX (None: dense level)
+    pcg_ctx: Any = None      # PCGContext of a level above DENSE_MAX (None:
+                             # a dense level)
+
+    @property
+    def nd(self):
+        """The nested-dissection plan of the level's context, if any."""
+        return None if self.pcg_ctx is None else self.pcg_ctx.nd
 
     def apply_G(self, s, dz0=None):
         """(n_J,) level coefficients -> (n_nodes, nD) operator values
@@ -147,7 +152,9 @@ class ShardedOps:
     host_cols: np.ndarray
     cols: torch.Tensor
     inv: torch.Tensor
-    nd: Any = None
+    pcg_ctx: Any = None
+
+    nd = PanelOps.nd
 
     def split(self, a):
         """A per-node tensor (n_nodes, ...) on the first device -> its
@@ -209,12 +216,94 @@ class ShardedOps:
 
 
 @dataclass
+class EllOp:
+    """Row-padded (ELL) sparse matrix: matvec = gather + a small row
+    reduction; the transpose-matvec runs as the same over the transposed
+    ELL of the matrix. The hierarchy transfers of the V-cycle."""
+    idx: torch.Tensor        # (n_rows, K) int64 column ids, padded by repeat
+    val: torch.Tensor        # (n_rows, K), padding entries are 0
+    t_idx: torch.Tensor      # (n_cols, Kt): the transposed ELL
+    t_val: torch.Tensor
+    n_rows: int
+    n_cols: int
+
+    def mv(self, x):
+        return (self.val * x[self.idx]).sum(dim=1)
+
+    def rmv(self, y):
+        return (self.t_val * y[self.t_idx]).sum(dim=1)
+
+
+def _ell_arrays(A: sp.csr_matrix):
+    n = A.shape[0]
+    counts = np.diff(A.indptr)
+    K = max(int(counts.max()) if n else 1, 1)
+    idx = np.zeros((n, K), dtype=np.int64)
+    val = np.zeros((n, K), dtype=np.float64)
+    if A.nnz:
+        rows = np.repeat(np.arange(n), counts)
+        slots = np.arange(A.nnz) - np.repeat(A.indptr[:-1], counts)
+        idx[rows, slots] = A.indices
+        val[rows, slots] = A.data
+        # pad rows by repeating their last valid column (keeps idx in range)
+        has = counts > 0
+        last = np.zeros(n, dtype=np.int64)
+        last[has] = A.indices[A.indptr[1:][has] - 1]
+        pad = np.arange(K)[None, :] >= counts[:, None]
+        idx[pad] = np.broadcast_to(last[:, None], (n, K))[pad]
+    return idx, val
+
+
+def build_ell(A: sp.spmatrix, device) -> EllOp:
+    """Host-side ELL tiling of a scipy sparse matrix (copied from the
+    reference), float64 on ``device``."""
+    A = sp.csr_matrix(A, dtype=np.float64)
+    idx, val = _ell_arrays(A)
+    t_idx, t_val = _ell_arrays(sp.csr_matrix(A.T))
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return EllOp(idx=dev(idx), val=dev(val), t_idx=dev(t_idx),
+                 t_val=dev(t_val), n_rows=A.shape[0], n_cols=A.shape[1])
+
+
+@dataclass
+class PCGContext:
+    """The large-level solver of one level (n_J > DENSE_MAX), picked by
+    ``newton.BIG_PRE`` when the level is set up: the nested-dissection plan
+    (``nd``, the default), or the V-cycle and FSAI data:
+
+    ``coarse_ops[l]`` are the panel operators of the chosen hierarchy
+    levels (coarse to just below the solve level); ``transfers[l]`` maps
+    chosen level l's coefficients to level l+1's (the last into the solve
+    level). Levels <= ``dense_level`` get dense shifted-Cholesky inverses;
+    the rest are smoothed with matrix-free Gram matvecs (K4). ``fsai`` is
+    the FSAI plan of the solve level, ``coarse_T`` the composed transfer
+    dense base -> solve level (BSR) of the two-level FSAI correction, and
+    ``start[l]`` the power iteration's start vector on chosen level l
+    (``start[n_levels]``: the solve level's)."""
+    coarse_ops: tuple = ()
+    transfers: tuple = ()
+    n_levels: int = 0
+    dense_level: int = -1
+    fsai: Any = None
+    coarse_T: Any = None
+    nd: Any = None
+    start: tuple = ()
+
+
+@dataclass
 class GramHessian:
     """Matrix-free Hessian in Gram form, H = (L' P)' (L' P): returned by the
-    level f2 on levels above the dense threshold (``ops.nd`` set), with
+    level f2 on levels above the dense threshold (``ops.pcg_ctx`` set), with
     ``Lnode`` one tensor a shard of ``ops`` (see ``split``)."""
     ops: Any
     Lnode: tuple             # (n_nodes_d, nD, nD) lower factors of bw*F2
+
+    @property
+    def ctx(self):
+        return self.ops.pcg_ctx
 
 
 def gram_matvec(ops: PanelOps, Lnode, v):

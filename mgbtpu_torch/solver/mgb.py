@@ -17,16 +17,17 @@ import time
 import numpy as np
 import torch
 
-from .._config import EPS, resolve_device
+from .._config import EPS, check_dtype, resolve_device
 from ..convex.convex import Convex, validate_convex_inputs
 from ..hierarchy.multigrid import AMGSystem, prepare_amg
 from ..utils.errors import MGBConvergenceFailure
 from ..utils.log import Logger
 from .barrier import make_level_fns
-from .levelops import GramHessian, build_panel_ops
+from .levelops import GramHessian, PCGContext, build_panel_ops
 from .newton import (CONVERGED, PREDICTOR, dense_ir_solve, equilibrated_solve,
                      linesearch_backtracking, make_nd_pre, make_newton_core,
-                     stopping_exact, stopping_inexact)
+                     make_pcg_pre, pcg_solve, stopping_exact,
+                     stopping_inexact)
 
 # kappa-acceleration bonus: a step of at most max_newton/2 + this many
 # Newton its counts as easy (mgbtpu/solver/ramp.py:43, same env name)
@@ -112,12 +113,18 @@ class ProblemKernels:
     whose elements divide by the mesh size runs per shard, see
     ``parallel/sharding.py``)."""
 
-    # Levels above DENSE_MAX coefficients solve by CG preconditioned with
-    # the nested-dissection direct factor (matrix-free Gram Hessian); the
-    # others assemble the dense Hessian and solve by LU. ND_LEAF_ELEMS is
-    # the ND leaf size (elements per leaf front). Same values and env names
-    # as the reference (mgbtpu/solver/mgb.py:228-236).
+    # Levels above DENSE_MAX coefficients solve by CG on the matrix-free
+    # Gram Hessian, preconditioned with what newton.BIG_PRE picks (the
+    # nested-dissection direct factor by default); the others assemble the
+    # dense Hessian and solve by LU. ND_LEAF_ELEMS is the ND leaf size
+    # (elements per leaf front). The V-cycle's dense base is the largest
+    # level with at most DENSE_BASE coefficients, and the cycle runs over
+    # at most MAX_VCYCLE levels (transfers composed on the host to skip the
+    # others). Same values and env names as the reference
+    # (mgbtpu/solver/mgb.py:228-236).
     DENSE_MAX = int(os.environ.get("MGBTPU_DENSE_MAX", 1024))
+    DENSE_BASE = int(os.environ.get("MGBTPU_DENSE_BASE", 2048))
+    MAX_VCYCLE = int(os.environ.get("MGBTPU_MAX_VCYCLE", 3))
     ND_LEAF_ELEMS = int(os.environ.get("MGBTPU_ND_LEAF", 8))
 
     def __init__(self, M: AMGSystem, barrier, line_search, device,
@@ -128,6 +135,7 @@ class ProblemKernels:
         self.mesh = mesh
         self.p = M.geometry.x.shape[0]
         self._ops = {}
+        self._plain = {}
         self._args = (None, None)   # the last args and their shards
         self.fns = make_level_fns(barrier)
         self._newton = make_newton_core(*self.fns, line_search=line_search)
@@ -135,16 +143,86 @@ class ProblemKernels:
     def tensor(self, a):
         return torch.as_tensor(a, dtype=torch.float64, device=self.device)
 
+    def _plain_ops(self, l):
+        """Level l's panel operators, with no large-level context."""
+        if l not in self._plain:
+            self._plain[l] = build_panel_ops(
+                self.M.D_fine, self.M.nu, self.M.R_fine[l], self.p,
+                self.device, mesh=self.mesh)
+        return self._plain[l]
+
     def ops(self, l):
-        if l in self._ops:
-            return self._ops[l]
-        ops = build_panel_ops(self.M.D_fine, self.M.nu, self.M.R_fine[l],
-                              self.p, self.device, mesh=self.mesh)
-        if ops.n_J > self.DENSE_MAX and ops.N >= 4:
-            ops.nd = nd_plan(self.M, ops, self.ND_LEAF_ELEMS, self.device,
-                             self.mesh)
-        self._ops[l] = ops
-        return ops
+        """Level l's panel operators as the Newton solve sees them: above
+        DENSE_MAX (and with four elements or more: a level of few big
+        elements has no useful partition) with the large-level context
+        ``newton.BIG_PRE`` picks, built once (reference
+        ``mgbtpu/solver/mgb.py:247-340``)."""
+        if l not in self._ops:
+            ops = self._plain_ops(l)
+            if ops.n_J > self.DENSE_MAX and ops.N >= 4:
+                ops.pcg_ctx = self._large_context(l, ops)
+            self._ops[l] = ops
+        return self._ops[l]
+
+    def _large_context(self, l, ops):
+        """The nested-dissection plan (BIG_PRE "nd"), or the V-cycle and
+        FSAI data of solve level l: the dense base (the largest level of at
+        most DENSE_BASE coefficients), at most MAX_VCYCLE - 1 smoothing
+        levels spaced geometrically up to l, the composed ELL transfers
+        between them, the FSAI plan, the composed BSR transfer dense base
+        -> l, and the power iteration's start vectors (JAX's Rademacher
+        draw, ``utils/threefry.py``). None, the dense path (which may be
+        large), for a non-nested subspace: no coefficient transfers, so no
+        V-cycle and no coarse correction, as in the reference."""
+        from . import newton
+
+        choice = newton.BIG_PRE
+        if choice == "nd":
+            return PCGContext(nd=nd_plan(self.M, ops, self.ND_LEAF_ELEMS,
+                                         self.device, self.mesh))
+        T_fine = self.M.T_fine
+        if any(T_fine[j] is None for j in range(l)):
+            return None
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"mgb_solve(mesh=...) with MGBTPU_BIG_PRE={choice!r}: the "
+                "port shards only the nested-dissection solver ('nd') of a "
+                "large level")
+        from ..ops.bsr import build_bsr
+        from ..utils.threefry import rademacher
+        from .fsai import build_fsai_plan
+        from .levelops import build_ell
+
+        dense_level = 0
+        for j in range(l):
+            if self._plain_ops(j).n_J <= self.DENSE_BASE:
+                dense_level = j
+        chosen = [dense_level]
+        candidates = list(range(dense_level + 1, l))
+        keep = min(self.MAX_VCYCLE - 1, len(candidates))
+        if keep > 0:
+            pick = np.unique(np.linspace(0, len(candidates) - 1,
+                                         keep).round().astype(int))
+            chosen += [candidates[i] for i in pick]
+        hops = chosen + [l]
+        transfers = []
+        for a, b in zip(hops[:-1], hops[1:]):
+            T = T_fine[a]
+            for j in range(a + 1, b):
+                T = T_fine[j] @ T
+            transfers.append(build_ell(T, self.device))
+        T_all = T_fine[chosen[0]]
+        for j in range(chosen[0] + 1, l):
+            T_all = T_fine[j] @ T_all
+        coarse_ops = tuple(self._plain_ops(j) for j in chosen)
+        start = tuple(self.tensor(rademacher(1905, o.n_J))
+                      for o in coarse_ops + (ops,))
+        return PCGContext(coarse_ops=coarse_ops, transfers=tuple(transfers),
+                          n_levels=len(chosen), dense_level=0,
+                          fsai=build_fsai_plan(ops.host_cols, ops.n_J,
+                                               self.device),
+                          coarse_T=build_bsr(T_all, self.device),
+                          start=start)
 
     def _shard_args(self, ops, args):
         """The per-node args grids per shard (``ops.split``), split once
@@ -184,13 +262,18 @@ class ProblemKernels:
         g_phi = f1(s0, ops, Dz0, wc0, bw, args)
         g_c = f1(s0, ops, Dz0, wcc, bw, args) - g_phi
         H = f2(s0, ops, Dz0, wcc, bw, args)
-        if isinstance(H, GramHessian):
+        if isinstance(H, GramHessian) and H.ctx.nd is not None:
             pre = make_nd_pre(H)
 
             def solve(g):
                 from .newton import IR_RTOL
 
                 return dense_ir_solve(H, g, pre, IR_RTOL)[0]
+        elif isinstance(H, GramHessian):
+            pre = make_pcg_pre(H)
+
+            def solve(g):
+                return pcg_solve(H, g, pre=pre)[0]
         else:
             def solve(g):
                 return equilibrated_solve(H, g)
@@ -468,7 +551,9 @@ def mgb_driver(Mpair, f_grid, g_grid, Q: Convex, *, device, tol=None, t=0.1,
                t_feasibility=None, feasibility_Rmax=None, maxit=10000,
                kappa=6.5, early_stop=None, max_newton=None,
                stopping_criterion=None, line_search=None, finalize="default",
-               barrier_nodes=None, progress=None, log=None, mesh=None):
+               barrier_nodes=None, progress=None, log=None, dtype=None,
+               mesh=None):
+    check_dtype(dtype)
     M1, M2 = Mpair
     tol = tol if tol is not None else float(np.sqrt(EPS))
     t_feasibility = t_feasibility if t_feasibility is not None else t
@@ -617,16 +702,19 @@ class MGBSOL:
 
 def assemble(mg, *, dim=None, state_variables=None, D=None, x=None, p=1.0,
              f=None, g=None, f_grid=None, g_grid=None, Q=None, M=None,
-             device=None):
+             device=None, dtype=None, **solver_kwargs):
     """Lower a problem specification to a closure-free MGBProblem (reference
     ``assemble``, ``src/mgb.jl:676-727``): f/g closures are sampled to
     grids, the constraint defaults to the p-Laplace power cone, and the
     (main, feasibility) AMG pair is built from the state table. ``device``
     (default cuda; raises without a card unless "cpu") is where the problem
-    is meant to be solved."""
+    is meant to be solved. ``dtype``: None or float64 (``check_dtype``);
+    other keyword arguments (solver controls) are ignored, as the JAX
+    package ignores them."""
     from ..convex import convex_euclidian_power
     from ..utils.maps import sample_rows
 
+    check_dtype(dtype)
     device = resolve_device(device)
     geom = mg.geometry
     if dim is None:
@@ -731,9 +819,9 @@ def mgb_cleanup(obj=None):
     ``mgbtpu/solver/mgb.py:1265``).
 
     Given an MGBProblem or an AMGSystem, drop the per-system solver cache
-    (``_torch_kernel_cache``: the per-level panel plans and
-    nested-dissection plans of every barrier solved on it); the next solve
-    builds them again. With no argument, drop the loaded kernel entries the
+    (``_torch_kernel_cache``: the per-level panel plans and large-level
+    contexts, nested-dissection, V-cycle or FSAI, of every barrier solved
+    on it); the next solve builds them again. With no argument, drop the loaded kernel entries the
     port keeps (``kernels.clear_caches``); the built libraries stay on disk
     and are loaded again at the next launch. There is no JAX cache here.
     """

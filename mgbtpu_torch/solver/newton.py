@@ -37,7 +37,26 @@ FORCING = _os.environ.get("MGBTPU_FORCING", "1") != "0"
 RTOL_LOOSE = float(_os.environ.get("MGBTPU_FORCING_RTOL", 1e-2))
 PREDICTOR = _os.environ.get("MGBTPU_PREDICTOR", "1") != "0"
 PRE_REFRESH = _os.environ.get("MGBTPU_PRE_REFRESH", "auto")
+PRE_REFRESH_AT = int(_os.environ.get("MGBTPU_PRE_REFRESH_AT", 96))
 PRE_REFRESH_ND_AT = int(_os.environ.get("MGBTPU_PRE_REFRESH_ND_AT", 4))
+# the large-level preconditioner (mgbtpu/solver/newton.py:281-304):
+#   "nd"     (default) nested-dissection direct factors (ops/ndchol.py);
+#   "vcycle" a Chebyshev-smoothed V-cycle over the barrier-Hessian
+#            hierarchy with a dense shifted-Cholesky base;
+#   "fsai"   a factorized sparse approximate inverse (solver/fsai.py);
+#   "fsai2"  FSAI plus a two-level Galerkin coarse correction, applied
+#            multiplicatively; "fsai2a" the same, applied additively.
+# The reference's own record of them: fsai2 diverges at L >= 6, and the
+# V-cycle's contraction collapses at deep t (the equilibrated Hessian's
+# near-null eigenvalues); the port is held to the same outcomes.
+# SMOOTHER: "cheby" (Chebyshev of degree CHEB_DEG on D^-1 H) or "jacobi"
+# (one damped sweep, omega = 0.7) in the V-cycle.
+BIG_PRE = _os.environ.get("MGBTPU_BIG_PRE", "nd")
+SMOOTHER = _os.environ.get("MGBTPU_SMOOTHER", "cheby")
+CHEB_DEG = int(_os.environ.get("MGBTPU_CHEB_DEG", 3))
+# the V-cycle's and FSAI's CG budget when the caller gives none
+PCG_RTOL = 1e-5
+PCG_MAXITER = 150
 
 # host syncs (.item() and friends) in the Newton machinery
 SYNCS = {"n": 0}
@@ -108,6 +127,215 @@ def make_nd_pre(H: GramHessian):
     if not nd_finite(fact):
         fact = nd_factor(ops.nd, He, 32 * eps)
     return fact, dinv
+
+
+def _refresh_at(H):
+    """The CG count above which the carried preconditioner is rebuilt:
+    tight for the direct-grade ND factor (CG exits in a few its when it is
+    fresh), lax for the V-cycle and FSAI (healthy at ~8 its), as the
+    reference's ``_refresh_at`` (``newton.py:214``)."""
+    return PRE_REFRESH_ND_AT if H.ctx.nd is not None else PRE_REFRESH_AT
+
+
+def make_pcg_pre(H: GramHessian):
+    """Preconditioner data of one centering of a V-cycle or FSAI level
+    (``BIG_PRE``; reference ``make_pcg_pre``, ``newton.py:653-716``):
+
+    - FSAI: the factor tiles and scale (``fsai_values``), and for
+      ``fsai2``/``fsai2a`` the Galerkin coarse Hessian's equilibrated
+      shifted-Cholesky inverse at the dense base (``T' H T`` from the same
+      node factors);
+    - V-cycle: the dense base's inverses, and for each smoothing level its
+      Gram diagonal and lambda_max(D^-1 H) (a float): 14 power steps on
+      D^-1/2 H D^-1/2 from the level's Rademacher start vector, the norm
+      ratio times 1.15.
+
+    Returns ``(kind, data)``; kind "fsai" or "vcycle"."""
+    from ..ops.blockchol import shifted_spd_inverse
+    from .levelops import gram_diag, gram_matvec
+
+    ops, ctx = H.ops, H.ctx
+    Lnode = ops.gather(H.Lnode)
+
+    def spd_inverse(o):
+        SYNCS["n"] += 1      # the finiteness test of the shift ladder
+        return shifted_spd_inverse(o.assemble_gram(Lnode))
+
+    if BIG_PRE.startswith("fsai") and ctx.fsai is not None:
+        from .fsai import fsai_values
+
+        Gtiles, dpos = fsai_values(ctx.fsai, ops, Lnode)
+        coarse = None
+        if BIG_PRE in ("fsai2", "fsai2a") and ctx.coarse_T is not None:
+            coarse = spd_inverse(ctx.coarse_ops[ctx.dense_level])
+        return "fsai", (Gtiles, dpos, coarse)
+
+    dense_chos = [spd_inverse(ctx.coarse_ops[l])
+                  for l in range(ctx.dense_level + 1)]
+
+    def smooth_data(o, v):
+        d = gram_diag(o, Lnode)
+        dis = torch.where(d > 0, torch.rsqrt(d), torch.zeros_like(d))
+        for _ in range(14):
+            v = dis * gram_matvec(o, Lnode, dis * v)
+            v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
+        lmax = torch.linalg.vector_norm(dis * gram_matvec(o, Lnode, dis * v))
+        # one sync a level: the smoother's scalars become host floats (the
+        # same IEEE arithmetic), not a dozen device ops every application
+        return d, _item(lmax * 1.15)
+
+    diags = {l: smooth_data(ctx.coarse_ops[l], ctx.start[l])
+             for l in range(ctx.dense_level + 1, ctx.n_levels)}
+    diags[ctx.n_levels] = smooth_data(ops, ctx.start[ctx.n_levels])
+    return "vcycle", (dense_chos, diags)
+
+
+def pcg_operators(H: GramHessian, pre, smooth_omega=0.7):
+    """The equilibrated operators of ``pcg_solve`` from the preconditioner
+    data ``pre`` (``make_pcg_pre``): ``(M_s, mv_s, dt)``, the
+    preconditioner apply, the Hessian apply (K4) and the equilibration
+    scale sqrt(diag H) (FSAI's ``dpos``, or the V-cycle top level's
+    diagonal).
+
+    The V-cycle reuses the hierarchy the barrier method searches over:
+    the dense base's explicit inverses, Chebyshev (or damped-Jacobi)
+    smoothing with matrix-free Gram matvecs (K4) on the other chosen
+    levels and the solve level, the composed ELL transfers between them.
+    The four preconditioners M_s: the V-cycle, FSAI G'G, and FSAI with the
+    coarse correction applied multiplicatively (``fsai2``) or additively
+    (``fsai2a``)."""
+    from .levelops import gram_matvec
+
+    ops, ctx = H.ops, H.ctx
+    Lnode = ops.gather(H.Lnode)
+    kind, data = pre
+    top = ctx.n_levels
+
+    def level_mv(l, v):
+        return gram_matvec(ops if l == top else ctx.coarse_ops[l], Lnode, v)
+
+    if kind == "vcycle":
+        dense_chos, diags = data
+        zero = torch.zeros((), dtype=Lnode.dtype, device=Lnode.device)
+        dinvs = {l: torch.where(d > 0, 1.0 / d, zero)
+                 for l, (d, _) in diags.items()}
+        jacobi = {l: torch.where(d > 0, smooth_omega / d, zero)
+                  for l, (d, _) in diags.items()}
+
+        def smooth(l, b, x0=None):
+            # Chebyshev(CHEB_DEG) on D^-1 H over [lmax/4, lmax]
+            lmax = diags[l][1]
+            dinv = dinvs[l]
+            lmin = lmax / 4.0
+            theta = (lmax + lmin) / 2.0
+            delta = (lmax - lmin) / 2.0
+            sigma = theta / delta
+            rho = 1.0 / sigma
+            if x0 is None:
+                x = dinv * b / theta
+            else:
+                x = x0 + dinv * (b - level_mv(l, x0)) / theta
+            dvec = x if x0 is None else x - x0
+            for _ in range(CHEB_DEG - 1):
+                r = b - level_mv(l, x)
+                rho_new = 1.0 / (2.0 * sigma - rho)
+                dvec = rho_new * rho * dvec + (2.0 * rho_new / delta) * (
+                    dinv * r)
+                x = x + dvec
+                rho = rho_new
+            return x
+
+        def cycle(l, r):
+            if l <= ctx.dense_level:
+                Minv_l, dinv = dense_chos[l]
+                return dinv * (Minv_l @ (dinv * r))
+            T = ctx.transfers[l - 1]
+            if SMOOTHER == "cheby":
+                x = smooth(l, r)
+                resid = r - level_mv(l, x)
+                x = x + T.mv(cycle(l - 1, T.rmv(resid)))
+                return smooth(l, r, x0=x)
+            dinv = jacobi[l]
+            x = dinv * r
+            resid = r - level_mv(l, x)
+            x = x + T.mv(cycle(l - 1, T.rmv(resid)))
+            return x + dinv * (r - level_mv(l, x))
+
+        d_top = diags[top][0]
+        dt = torch.sqrt(torch.where(d_top > 0, d_top, torch.ones_like(d_top)))
+
+        def M_s(rs):
+            return dt * cycle(top, dt * rs)
+    else:
+        from .fsai import fsai_apply
+
+        Gtiles, dt, coarse = data
+
+        def fsai(rs):
+            return fsai_apply(ctx.fsai, Gtiles, rs)
+
+        if coarse is None:
+            M_s = fsai
+        else:
+            Minv_c, dinv_c = coarse
+            T_c = ctx.coarse_T
+
+            def coarse_corr(rs):
+                # the raw-space residual dt*rs restricted through the
+                # composed transfer, the Galerkin coarse solve, prolonged
+                w = T_c.rmv(dt * rs)
+                zc = dinv_c * (Minv_c @ (dinv_c * w))
+                return dt * T_c.mv(zc)
+
+            if BIG_PRE == "fsai2a":
+                def M_s(rs):
+                    return fsai(rs) + coarse_corr(rs)
+            else:
+                def M_s(rs):
+                    x1 = fsai(rs)
+                    x2 = x1 + coarse_corr(rs - mv_s(x1))
+                    return x2 + fsai(rs - mv_s(x2))
+
+    def mv_s(u):
+        return ops.gram_apply(H.Lnode, u / dt) / dt
+
+    return M_s, mv_s, dt
+
+
+def pcg_solve(H: GramHessian, g, pre=None, rel_tol=None, maxiter=None,
+              smooth_omega=0.7):
+    """CG in equilibrated coordinates on a V-cycle or FSAI level, the
+    non-dd branch of the reference ``pcg_solve`` (``newton.py:719-910``),
+    with the operators of ``pcg_operators``: relative tolerance 1e-5 and
+    150 iterations unless given. Returns (x, CG iterations). The dots are
+    plain f64 (the reference's x64 path sends them through compensated dd
+    dots). One host sync an iteration: the exit test."""
+    rel_tol = PCG_RTOL if rel_tol is None else rel_tol
+    maxiter = PCG_MAXITER if maxiter is None else maxiter
+    M_s, mv_s, dt = pcg_operators(H, make_pcg_pre(H) if pre is None
+                                  else pre, smooth_omega)
+    bs = g / dt
+    tol = rel_tol * torch.linalg.vector_norm(bs)
+    z = M_s(bs)
+    x = torch.zeros_like(bs)
+    r = bs
+    p2 = z
+    rz = torch.dot(bs, z)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    k = 0
+    while k < maxiter and _item(torch.linalg.vector_norm(r) > tol):
+        Hp = mv_s(p2)
+        pHp = torch.dot(p2, Hp)
+        alpha = torch.where(pHp > 0, rz / pHp, zero)
+        x = x + alpha * p2
+        r = r - alpha * Hp
+        z = M_s(r)
+        rz2 = torch.dot(r, z)
+        beta = torch.where(rz != 0, rz2 / rz, zero)
+        p2 = z + beta * p2
+        rz = rz2
+        k += 1
+    return x / dt, k
 
 
 def dense_ir_solve(H: GramHessian, g, pre, rtol):
@@ -290,12 +518,17 @@ def make_newton_core(f0, f1, f2, *, line_search=("backtracking", 0.5, 0.1)):
 
     def solve(H, g, pre, rtol):
         if isinstance(H, GramHessian):
-            return dense_ir_solve(H, g, pre, rtol)
+            if H.ctx.nd is not None:
+                return dense_ir_solve(H, g, pre, rtol)
+            return pcg_solve(H, g, pre=pre, rel_tol=rtol)
         return equilibrated_solve(H, g), 0
 
     def make_pre(H):
-        # the ND factorization; dense levels refactor inside their solve
-        return make_nd_pre(H) if isinstance(H, GramHessian) else None
+        # the large level's preconditioner, carried across Newton its;
+        # dense levels refactor inside their solve
+        if not isinstance(H, GramHessian):
+            return None
+        return make_nd_pre(H) if H.ctx.nd is not None else make_pcg_pre(H)
 
     tight_rtol = 1e-5
 
@@ -355,7 +588,7 @@ def make_newton_core(f0, f1, f2, *, line_search=("backtracking", 0.5, 0.1)):
             if PRE_REFRESH == "1":
                 pre_k = make_pre(H)
             elif carry_pre:
-                pre_k = make_pre(H) if cg_last > PRE_REFRESH_ND_AT \
+                pre_k = make_pre(H) if cg_last > _refresh_at(H) \
                     else pre_prev
             else:
                 pre_k = pre0

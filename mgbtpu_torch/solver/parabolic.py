@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .._config import resolve_device
+from .._config import check_dtype, resolve_device
 from ..convex import convex_euclidian_power, intersect
 from ..hierarchy.multigrid import prepare_amg
 from ..utils.maps import sample_rows
@@ -54,12 +54,14 @@ class ParabolicSOL:
 
 def parabolic_solve(mg, *, state_variables=None, dim=None, f1=None, p=1.0,
                     h=0.2, t0=0.0, t1=1.0, ts=None, g=None, D=None, Q=None,
-                    verbose=False, device=None,
+                    verbose=False, device=None, dtype=None,
                     **solver_kwargs) -> ParabolicSOL:
     """Implicit-Euler p-Laplace flow from g(t0, x) over the time stamps
     ``ts`` (default t0, t0 + h, ..., t1); ``device`` as ``mgb_solve``
-    (default cuda, raises without a card; "cpu" for the plain path). Other
-    keyword arguments go to every step's ``mgb_solve``."""
+    (default cuda, raises without a card; "cpu" for the plain path);
+    ``dtype`` None or float64 (``check_dtype``). Other keyword arguments go
+    to every step's ``mgb_solve``."""
+    check_dtype(dtype)
     device = resolve_device(device)
     geom = mg.geometry
     if dim is None:

@@ -17,7 +17,17 @@ and ``amg_pyamg`` (``hierarchy/prolongators.py``) and ``mgb_cleanup``.
 - ``amg_pyamg`` through the stub pyamg module of
   ``tests/test_paths.py::test_pyamg_prolongator_adapter``;
 - ``mgb_cleanup`` empties the per-system caches and the loaded kernel
-  entries, and a solve after it gives the same result.
+  entries, and a solve after it gives the same result;
+- the ``dtype=`` keyword the JAX package's entry points take (``assemble``,
+  ``mgb_solve``/``Model.solve`` through ``mgb_driver``, ``parabolic_solve``),
+  and ``assemble``'s ignored solver keywords, on fem1d: None and float64
+  give the answer of the call without it; float32 raises ``ValueError``
+  (the port computes in float64 only);
+- the public names the port had lacked, each against the JAX function:
+  ``map_rows``, ``extract_block_diag`` (the round trip of
+  ``tests/test_paths.py``) with ``BlockDiagHost.nblocks``,
+  ``AMGSystem.D_sparse`` and the ``find_boundary_tensorfem`` export; and
+  ``set(mgbtpu.__all__) <= set(mgbtpu_torch.__all__)``.
 """
 import sys
 import types
@@ -215,3 +225,122 @@ def test_mgb_cleanup():
     assert not sys.modules["mgbtpu_torch.kernels.node_barrier"]._LAUNCH
     with pytest.raises(TypeError, match="MGBProblem or an AMGSystem"):
         mt.mgb_cleanup(object())
+
+
+# --- dtype= and the public names -------------------------------------------
+
+def _fem1d(pkg):
+    return pkg.amg(pkg.fem1d(nodes=np.linspace(-1, 1, 3)))
+
+
+def _solve1d(**kw):
+    mt = mgbtpu_torch
+    prob = mt.assemble(_fem1d(mt), p=1.0, device="cpu",
+                       **kw.pop("assemble", {}))
+    return mt.mgb_solve(prob, device="cpu", **kw).z
+
+
+def test_dtype_keyword_is_taken():
+    base = _solve1d()
+    for kw in (dict(assemble=dict(dtype=np.float64)),
+               dict(assemble=dict(dtype=None)),
+               dict(assemble=dict(tol=1e-6)),          # ignored, as in JAX
+               dict(dtype=np.float64), dict(dtype=torch.float64),
+               dict(dtype="float64")):
+        assert np.array_equal(_solve1d(**kw), base), kw
+    # the same keywords the JAX package's tests pass
+    gold = np.asarray([-1, -1, -1, 1, 0, 0, 2, 2.0]).reshape(2, -1).T
+    assert np.linalg.norm(base - gold) < 1e-6
+
+
+def test_dtype_keyword_parabolic_and_model():
+    mt = mgbtpu_torch
+    mg = mt.amg(mt.fem1d(nodes=np.linspace(-1, 1, 5)))
+    a = mt.parabolic_solve(mg, h=0.5, device="cpu")
+    b = mt.parabolic_solve(mg, h=0.5, device="cpu", dtype=np.float64)
+    assert all(np.array_equal(x, y) for x, y in zip(a.u, b.u))
+    import port_models
+
+    m, _ = port_models.torsion(mt, _fem1d(mt), device="cpu")
+    z1 = np.asarray(m.solve().z)
+    z2 = np.asarray(m.solve(dtype=np.float64).z)
+    assert np.array_equal(z1, z2)
+    with pytest.raises(ValueError, match="float64 only"):
+        m.solve(dtype=np.float32)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, torch.float32, "float16"])
+def test_float32_is_refused(dtype):
+    mt = mgbtpu_torch
+    mg = _fem1d(mt)
+    with pytest.raises(ValueError, match="float64 only"):
+        mt.assemble(mg, p=1.0, device="cpu", dtype=dtype)
+    prob = mt.assemble(mg, p=1.0, device="cpu")
+    with pytest.raises(ValueError, match="float64 only"):
+        mt.mgb_solve(prob, device="cpu", dtype=dtype)
+    with pytest.raises(ValueError, match="float64 only"):
+        mt.parabolic_solve(mg, h=0.5, device="cpu", dtype=dtype)
+
+
+def test_public_names_cover_the_jax_package():
+    assert set(mgbtpu.__all__) <= set(mgbtpu_torch.__all__)
+    from mgbtpu.discretize import __all__ as dj
+    from mgbtpu.ops import __all__ as oj
+    from mgbtpu_torch.discretize import __all__ as dt
+    from mgbtpu_torch.ops import __all__ as ot
+
+    assert set(oj) <= set(ot)
+    assert "find_boundary_tensorfem" in set(dj) & set(dt)
+
+
+def test_map_rows_matches_jax():
+    rng = np.random.default_rng(7)
+    a, b = rng.standard_normal((9, 3)), rng.standard_normal(9)
+    for f in (lambda r, c: r * c, lambda r, c: float(r.sum() + c),
+              lambda r, c: np.array([r[0], c, r @ r])):
+        out = mgbtpu_torch.map_rows(f, a, b)
+        ref = mgbtpu.map_rows(f, a, b)
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        assert np.array_equal(out, ref)
+
+
+def test_extract_block_diag_roundtrip():
+    """``tests/test_paths.py``'s round trip on every FEM geometry's
+    operators, and the same blocks and ``nblocks`` as the JAX function."""
+    from mgbtpu.ops import extract_block_diag as ej
+    from mgbtpu_torch.ops import BlockDiagHost, extract_block_diag
+
+    mt = mgbtpu_torch
+    for g in (mt.fem1d(nodes=np.linspace(-1, 1, 3)), mt.fem2d_P1(),
+              mt.fem2d_P2(), mt.fem3d(k=1)):
+        for op in g.operators.values():
+            assert isinstance(op, BlockDiagHost)
+            A = op.to_sparse()
+            bd = extract_block_diag(A, op.data.shape[1], op.data.shape[2])
+            assert np.abs(bd.data - op.data).max() < 1e-12
+            assert bd.nblocks == op.nblocks == op.data.shape[0]
+            ref = ej(A, op.data.shape[1], op.data.shape[2])
+            assert np.array_equal(bd.data, ref.data)
+            assert ref.nblocks == bd.nblocks
+            v = np.arange(op.shape[1], dtype=np.float64)
+            assert np.array_equal(op @ v, op.matvec(v))
+    with pytest.raises(ValueError, match="outside the block diagonal"):
+        extract_block_diag(sp.csr_matrix(np.ones((4, 4))), 2)
+
+
+def test_d_sparse_matches_jax():
+    pj = mgbtpu.assemble(mgbtpu.amg(mgbtpu.fem2d_P2()), p=1.0)
+    pt = mgbtpu_torch.assemble(mgbtpu_torch.amg(mgbtpu_torch.fem2d_P2()),
+                               p=1.0, device="cpu")
+    for Mj, Mt in zip(pj.M, pt.M):
+        for k in range(len(Mj.D_fine)):
+            close_sparse(Mt.D_sparse(k), Mj.D_sparse(k))
+
+
+def test_find_boundary_tensorfem_export_matches_jax():
+    from mgbtpu.discretize import find_boundary_tensorfem as fj
+    from mgbtpu_torch.discretize import find_boundary_tensorfem as ft
+
+    for k in (1, 2):
+        gj, gt = mgbtpu.fem2d(k=k), mgbtpu_torch.fem2d(k=k)
+        assert np.array_equal(np.asarray(ft(gt)), np.asarray(fj(gj)))

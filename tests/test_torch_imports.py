@@ -47,7 +47,11 @@ def test_scan_covers_the_port():
                    ("frontends", "gmsh.py"),
                    ("plot", "plotting.py"),
                    ("plot", "html3d.py"),
-                   ("parallel", "sharding.py")):
+                   ("parallel", "sharding.py"),
+                   ("solver", "fsai.py"),
+                   ("ops", "bsr.py"),
+                   ("ops", "blockchol.py"),
+                   ("utils", "threefry.py")):
         assert any(f.endswith(os.path.join(*module)) for f in files)
 
 

@@ -1106,3 +1106,101 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                       K.panel_adj_plain(wide, cols, inv, Y, 3))
     with pytest.raises(RuntimeError, match="panel_adj launch failed"):
         _in_form(K.panel_adj, WIDE, wide, cols, inv, Y, 3)   # K3 has none
+
+
+# --- the large-level preconditioners (MGBTPU_BIG_PRE) on the card ----------
+# K4 at the shapes of the levels the V-cycle chooses, the BSR apply of the
+# composed coarse transfer and the FSAI values, each on the card against
+# the same computation on the CPU (library calls and K4's plain version).
+
+PRECOND_LEVELS = [(3, dict(DENSE_MAX=50, DENSE_BASE=40)),
+                  (4, dict(DENSE_MAX=50, DENSE_BASE=40)), (4, {}), (5, {})]
+
+
+def _precond_ctx(L, knobs, device, choice="vcycle"):
+    """The top level's operators under ``choice`` for fem2d_P2 p=1 level L
+    with ``knobs`` (DENSE_MAX, DENSE_BASE) on ``device``."""
+    from mgbtpu_torch.solver import mgb as MT
+    from mgbtpu_torch.solver import newton as NT
+
+    old = NT.BIG_PRE, {k: getattr(MT.ProblemKernels, k) for k in knobs}
+    NT.BIG_PRE = choice
+    for k, v in knobs.items():
+        setattr(MT.ProblemKernels, k, v)
+    try:
+        prob = mt.assemble(mt.amg(mt.subdivide(mt.fem2d_P2(), L)), p=1.0,
+                           device=device)
+        M1 = prob.M[0]
+        kern = MT._kernels_for(M1, prob.Q, None,
+                               NT.linesearch_backtracking(),
+                               torch.device(device))
+        return kern.ops(M1.depth - 1)
+    finally:
+        NT.BIG_PRE = old[0]
+        for k, v in old[1].items():
+            setattr(MT.ProblemKernels, k, v)
+
+
+@pytest.mark.parametrize("L,knobs", PRECOND_LEVELS)
+def test_gram_matvec_at_vcycle_levels(dev, L, knobs):
+    """K4 on the solve level and every level the V-cycle chooses (the
+    smoothing levels and the dense base), against its plain version; a
+    repeat call bitwise."""
+    ops = _precond_ctx(L, knobs, "cuda")
+    ctx = ops.pcg_ctx
+    assert ctx is not None and ctx.nd is None
+    rng = np.random.default_rng(L)
+    for o in (ops,) + tuple(ctx.coarse_ops):
+        m = o.N * o.p
+        Ln = torch.as_tensor(np.tril(rng.standard_normal((m, o.nD, o.nD))),
+                             device=dev)
+        v = torch.as_tensor(rng.standard_normal(o.n_J), device=dev)
+        args = (o.panels, o.cols, o.inv, Ln, v)
+        out = K.gram_matvec(*args)
+        assert _rel(out, K.gram_matvec_plain(*args)) <= TOL, o.n_J
+        assert _same_bits(out, K.gram_matvec(*args))
+
+
+@pytest.mark.parametrize("L,knobs", PRECOND_LEVELS)
+def test_bsr_coarse_transfer_on_the_card(dev, L, knobs):
+    """The composed coarse transfer's BSR products on the card equal the
+    CPU's (the tile products' sums in another order: 1e-13); the segment
+    sums are fixed-order (a repeat call gives the same bits)."""
+    T_dev = _precond_ctx(L, knobs, "cuda").pcg_ctx.coarse_T
+    T_cpu = _precond_ctx(L, knobs, "cpu").pcg_ctx.coarse_T
+    rng = np.random.default_rng(10 + L)
+    x = rng.standard_normal(T_cpu.pattern.n_cols)
+    y = rng.standard_normal(T_cpu.pattern.n_rows)
+    for f in ("mv", "rmv"):
+        a = x if f == "mv" else y
+        out = getattr(T_dev, f)(torch.as_tensor(a, device=dev))
+        ref = getattr(T_cpu, f)(torch.as_tensor(a))
+        assert _rel(out, ref.to(dev)) <= TOL
+        assert _same_bits(out, getattr(T_dev, f)(torch.as_tensor(a,
+                                                                device=dev)))
+
+
+@pytest.mark.parametrize("L,knobs", PRECOND_LEVELS)
+def test_fsai_values_on_the_card(dev, L, knobs):
+    """FSAI's factor tiles and scale on the card against the CPU's from the
+    same seeded node factors: the element Gram blocks sum in another order
+    on the card, and the jittered k x k Gauss-Jordan solves (condition up
+    to ~1e6) carry that into the tiles: 1e-10 relative, the bar the CPU
+    tests hold the port's values to against JAX's; the scale 1e-13."""
+    from mgbtpu_torch.solver.fsai import fsai_apply, fsai_values
+
+    o_dev = _precond_ctx(L, knobs, "cuda", "fsai2")
+    o_cpu = _precond_ctx(L, knobs, "cpu", "fsai2")
+    rng = np.random.default_rng(20 + L)
+    Ln = np.tril(rng.standard_normal((o_cpu.n_nodes, o_cpu.nD, o_cpu.nD)))
+    Ln[:, np.arange(o_cpu.nD), np.arange(o_cpu.nD)] = 1.0 + rng.uniform(
+        0, 1, (o_cpu.n_nodes, o_cpu.nD))
+    Gd, dd = fsai_values(o_dev.pcg_ctx.fsai, o_dev,
+                         torch.as_tensor(Ln, device=dev))
+    Gc, dc = fsai_values(o_cpu.pcg_ctx.fsai, o_cpu, torch.as_tensor(Ln))
+    assert _rel(dd, dc.to(dev)) <= TOL
+    assert _rel(Gd, Gc.to(dev)) <= 1e-10
+    r = rng.standard_normal(o_cpu.n_J)
+    out = fsai_apply(o_dev.pcg_ctx.fsai, Gd, torch.as_tensor(r, device=dev))
+    ref = fsai_apply(o_cpu.pcg_ctx.fsai, Gc, torch.as_tensor(r))
+    assert _rel(out, ref.to(dev)) <= 1e-10
