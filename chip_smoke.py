@@ -5,7 +5,9 @@
     python3 chip_smoke.py --level 7       # also K1/K2/K6 and one solve at L=7
     python3 chip_smoke.py --fem3d-level 3 # the fem3d phases at L=3, not 4
     python3 chip_smoke.py --profile       # also profile one L=5 solve
-    python3 chip_smoke.py --precond-full  # also the V-cycle ramp at L=4
+    python3 chip_smoke.py --precond-full  # also the V-cycle ramps at L=4
+                                          # and, over a mesh, at L=3
+    python3 chip_smoke.py --level 6       # also L=6 against its x64 record
 
 In order: prints the card's name and power limit; builds the seven CUDA
 kernels from ``mgbtpu_torch/kernels/csrc`` (one nvcc per source, in
@@ -116,16 +118,31 @@ choice (K1-K4 must launch, K5 must not), held to
 ``ref_fem2d_p2_L3_<choice>.npz``: the steps equal, z within 1e-6 and the
 Newton its by the zoo bar, or within twice the largest move of the
 record's own perturbed JAX runs where that is larger (``precond_bars``),
-its, CG beside the record's, host syncs and wall printed. With
+its, CG beside the record's, host syncs and wall printed. Then the same
+preconditioners under ``make_mesh(devices=[cuda:0] * 4)``: (a)'s
+``pcg_solve`` at p=2 for each choice, held to its record and bitwise
+equal to the unsharded call (x and the CG count), K1-K4 on every shard
+(``ShardSpy``), the transfers in the preconditioner's setup and per CG
+iteration printed; and the V-cycle ramp of fem2d_P2 p=1 at L=2
+(DENSE_MAX=50, DENSE_BASE=40; its top level of 73 coefficients over 8
+elements) under the mesh, bitwise equal to the same ramp unsharded,
+K1-K4 on every shard, walls and transfers printed. With
 ``--precond-full``, the V-cycle ramp at L=4 with the default knobs against
-``ref_fem2d_p2_L4_vcycle.npz`` the same way (minutes).
+``ref_fem2d_p2_L4_vcycle.npz`` the same way (minutes), and the mesh
+V-cycle ramp at L=3, bitwise equal to (b)'s and held to its record.
 Each ``--level
 L`` then holds K1, K2
 and K6 against their plain versions and times them at level L's top-level
 shapes (K6 on the obstacle table and parabolic_solve's pair on random rows,
 bitwise in all six calls, timed on the obstacle's Hessian and the pair's
-phase-I Hessian), and solves fem2d_P2 p=1 at L once, printing that
-solve's launches per kernel (K2's by mode). Each solution and its Newton
+phase-I Hessian), K5a on every tree level of L's nested-dissection plan
+(seeded SPD element blocks; per level and per ``nd_factor``, beside the
+bound, the plain version and the library composition) and K5b on those
+factors (per ``nd_solve``, beside its bound), and solves fem2d_P2 p=1 at
+L once, printing that solve's launches per kernel (K2's by mode; K1-K5
+must launch) and holding it to ``ref_fem2d_p2_L<L>.npz`` (L = 4, 5, 6,
+7) by the L=5 bars: z within 1e-6, the Newton its in total within 5 %,
+the per-level its, CG and steps printed beside the record's. Each solution and its Newton
 iterations are held against the stored JAX x64 run
 (``mgbtpu_torch/data/*.npz``): relative 2-norm error <= 1e-6; Newton
 iterations within 5 % (for the zoo and parabolic solves: the main ramp's
@@ -492,11 +509,32 @@ def top_level_ops(M, tag, torch):
 
 def level_phases(mg, prob, L, torch, K):
     """K1, K2 and K6 against their plain versions and timed at level L's
-    top-level shapes."""
+    top-level shapes; K5a and K5b on its nested-dissection plan's fronts
+    (``level_front_phases``)."""
     ops = top_level_ops(prob.M[0], f"L={L}", torch)
-    fwd_cone_phases(prob, ops, torch, K, np.random.default_rng(L), f"L={L}")
+    rng = np.random.default_rng(L)
+    fwd_cone_phases(prob, ops, torch, K, rng, f"L={L}")
     node_barrier_level(mg, prob, f"L={L}", 100 + L, torch, K)
+    level_front_phases(prob, ops, L, torch, K, rng)
     torch.cuda.synchronize()
+
+
+def level_front_phases(prob, ops, L, torch, K, rng):
+    """K5a on every tree level of level L's nested-dissection plan (the
+    fronts of one ``nd_factor`` of seeded SPD element blocks) against its
+    plain version, per level and per ``nd_factor`` timed beside its bound,
+    the plain version and the library composition; K5b on those factors,
+    per ``nd_solve`` beside its bound (``solve_phases``)."""
+    from mgbtpu_torch.solver.mgb import ProblemKernels, nd_plan
+
+    t0 = time.time()
+    nd = nd_plan(prob.M[0], ops, ProblemKernels.ND_LEAF_ELEMS,
+                 torch.device("cuda"))
+    print(f"[setup] L={L} ND plan {time.time() - t0!r} s")
+    levels, fact = recorded_fronts(nd, ops.N, ops.C, torch, K, rng)
+    factor_levels_phase(f"L={L}", levels, torch, K, reps=20, plain_reps=10)
+    del levels
+    solve_phases(nd, fact, torch, K, rng, tag=f" L={L}")
 
 
 def kernel_phases(prob, torch, K):
@@ -707,7 +745,7 @@ def front_l7_phases(torch, K):
     return err
 
 
-def solve_phases(nd, fact, torch, K, rng):
+def solve_phases(nd, fact, torch, K, rng, tag=""):
     """K5b on the real factors of one ``nd_factor``: each tree level's
     fused call in both sweeps, and the whole ``nd_solve``, against the plain
     versions; the device time per ``nd_solve`` and per launch, beside the
@@ -733,7 +771,8 @@ def solve_phases(nd, fact, torch, K, rng):
             got.append((*fwd(Lf, U, L.adofs, r, L.b_rows, L.b_inc), r,
                         bwd(Lf, U, L.adofs, L.bdofs, y, x), x))
         for part, out, ref in zip(("y", "upd", "r", "xA", "x"), *got):
-            errs.append(compare(f"front_solve level {li} {part}", out, ref))
+            errs.append(compare(f"front_solve{tag} level {li} {part}", out,
+                                ref))
 
     def nd_solve_plain():
         """``nd_solve``'s composition through K5b's plain versions."""
@@ -746,9 +785,9 @@ def solve_phases(nd, fact, torch, K, rng):
         return x[:-1]
 
     x = nd_solve(nd, fact, rhs)
-    errs.append(compare("nd_solve (front_solve, every level)", x,
+    errs.append(compare(f"nd_solve{tag} (front_solve, every level)", x,
                         nd_solve_plain()))
-    same_bits("nd_solve (front_solve, every level)", x,
+    same_bits(f"nd_solve{tag} (front_solve, every level)", x,
               nd_solve(nd, fact, rhs))
     before = K.front_solve.launches
     nd_solve(nd, fact, rhs)
@@ -768,13 +807,14 @@ def solve_phases(nd, fact, torch, K, rng):
     rs = [torch.as_tensor(rng.standard_normal((Lf.shape[0], Lf.shape[1], 1)),
                           device=dev) for Lf, _ in sweeps]
     row = timings(
-        f"front_solve (one nd_solve: {per_solve} launches)",
+        f"front_solve{tag} (one nd_solve: {per_solve} launches)",
         lambda: nd_solve(nd, fact, rhs),
         nd_solve_plain,
         lambda: [torch.linalg.solve_triangular(Lf.mT if t else Lf, r,
                                                upper=t)
                  for (Lf, t), r in zip(sweeps, rs)], plain_reps=2, reps=10)
-    print(f"[time] front_solve: device ms per launch {row['ms'] / per_solve!r}"
+    print(f"[time] front_solve{tag}: device ms per launch "
+          f"{row['ms'] / per_solve!r}"
           f" ({per_solve} per nd_solve); bound per nd_solve {bnd!r} ms "
           f"({by})")
     return dict(name="front_solve",
@@ -1250,7 +1290,9 @@ def check_totals(tag, sol, ref, polish_its=None):
           f"{int(S['its'].sum())} vs {int(ref['its'].sum())} (x64); per "
           f"level {S['its'].sum(axis=1).tolist()} vs "
           f"{ref['its_per_level'].tolist()}; last ramp step "
-          f"{last} vs {last_ref}; cg {int(S['cg'].sum())} vs {cg_ref}"
+          f"{last} vs {last_ref}; cg {int(S['cg'].sum())} vs {cg_ref}; "
+          f"steps {[S['steps_accepted'], S['steps_attempted']]} vs "
+          f"{ref['steps'].tolist()}"
           + ("" if polish_its is None else f"; held: the steps before the "
              f"last, {its} vs {its_ref}, the last within {polish_its}"))
     if not zerr <= TOL_Z:
@@ -1984,7 +2026,8 @@ class ShardSpy:
         distinct = len(set(mesh.devices)) == n
         owner = {}
         for kern in kerns:
-            for ops in kern._ops.values():
+            # every level built: the solve levels and the V-cycle's
+            for ops in kern._plain.values():
                 for d, o in enumerate(getattr(ops, "shards", ())):
                     owner[o.panels.data_ptr()] = d
                 nd = ops.nd
@@ -2217,24 +2260,29 @@ def check_precond_record(tag, sol, ref):
         raise RuntimeError(f"{tag}: " + "; ".join(fails))
 
 
-def precond_state(choice, state, prob, torch, K):
+def precond_state(choice, state, prob, torch, K, mesh=None):
     """One ``make_pcg_pre`` + ``pcg_solve`` on the card at the top level of
     ``prob`` (fem2d_P2 L=5, default knobs) under ``choice``, at the record's
-    ``state``. At p=2, t=100 held to ``ref_pcg_L5_<choice>.npz`` (x within
-    1e-8 relative, the CG count within +-1, lambda_max within 1e-12); at
-    the deep state x and the CG count are printed beside the record's and
-    a converged solve is held to its own exit test. Returns the launches,
-    the context, the Hessian, the preconditioner and the level's ops."""
+    ``state``, over ``mesh`` where given. At p=2, t=100 held to
+    ``ref_pcg_L5_<choice>.npz`` (x within 1e-8 relative, the CG count
+    within +-1, lambda_max within 1e-12); at the deep state x and the CG
+    count are printed beside the record's and a converged solve is held to
+    its own exit test. The transfers between shards (``TRANSFERS``) are
+    printed for the preconditioner's setup and for the solve. Returns the
+    launches, the context, the Hessian, the preconditioner, the level's
+    ops, x and the CG count."""
     import mgbtpu_torch
+    from mgbtpu_torch.parallel.sharding import TRANSFERS, reset_transfers
     from mgbtpu_torch.solver import mgb as MT, newton as NT
     from mgbtpu_torch.solver.newton import SYNCS
 
-    tag = f"{choice} L=5 {state}"
+    tag = f"{choice} L=5 {state}" + (
+        "" if mesh is None else f" mesh of {mesh.size} shards on cuda:0")
     ref = np.load(os.path.join(DATA, f"ref_pcg_L5_{choice}.npz"))
     mgbtpu_torch.mgb_cleanup(prob)
     M1 = prob.M[0]
     kern = MT._kernels_for(M1, prob.Q, None, NT.linesearch_backtracking(),
-                           torch.device("cuda"))
+                           torch.device("cuda", 0), mesh)
     l = M1.depth - 1
     t0 = time.time()
     ops = kern.ops(l)
@@ -2254,14 +2302,18 @@ def precond_state(choice, state, prob, torch, K):
     K.reset_launches()
     H, g = kern.fns[2](s0, *fa), kern.fns[1](s0, *fa)
     torch.cuda.synchronize()
+    reset_transfers()
     t0 = time.time()
     pre = NT.make_pcg_pre(H)
     torch.cuda.synchronize()
     t_pre = time.time() - t0
-    la_pre = K.gram_matvec.launches
+    tr_pre = dict(TRANSFERS)
+    la_pre = K.launches()["gram_matvec"]    # (a mesh's ShardSpy wraps K4)
+    reset_transfers()
     x, k = NT.pcg_solve(H, g, pre=pre)
     torch.cuda.synchronize()
     t_solve = time.time() - t0 - t_pre
+    tr_solve = dict(TRANSFERS)
     la = K.launches()
     k_ref = int(ref[f"{state}/cg"])
     xr = torch.as_tensor(ref[f"{state}/x"], device="cuda")
@@ -2279,6 +2331,10 @@ def precond_state(choice, state, prob, torch, K):
           f"{t_pre!r} s, pcg_solve {t_solve!r} s; K4 launches "
           f"{la['gram_matvec']} ({la_pre} in the preconditioner); "
           f"launches {la}; host syncs {SYNCS['n']}")
+    if mesh is not None:
+        print(f"[mesh] {tag}: transfers in make_pcg_pre {tr_pre}; in "
+              f"pcg_solve {tr_solve}, per CG iteration "
+              f"{ {n: v / max(k, 1) for n, v in tr_solve.items()} }")
     if levels != ref[f"{state}/levels"].tolist():
         raise RuntimeError(f"{tag}: chosen levels {levels}")
     if state == "p2":
@@ -2305,7 +2361,86 @@ def precond_state(choice, state, prob, torch, K):
             raise RuntimeError(f"{tag}: residual {res}")
     require_launches(tag, la, ["panel_fwd", "power_cone", "panel_adj",
                                "gram_matvec"])
-    return la, ctx, H, pre, ops
+    return la, ctx, H, pre, ops, x, k
+
+
+def mesh_pcg_phases(prob, xs, torch, K, smi):
+    """Each choice's ``make_pcg_pre`` + ``pcg_solve`` at fem2d_P2 L=5's top
+    level at p=2, t=100 (``precond_state``, held to the record as there)
+    over ``make_mesh(devices=[cuda:0] * 4)``: x and the CG count bitwise
+    equal to the unsharded call's of this process (``xs``), K1-K4 on every
+    shard (``ShardSpy``), the transfers per CG iteration printed."""
+    import mgbtpu_torch as mt
+
+    mesh = mt.make_mesh(devices=[torch.device("cuda", 0)] * MESH_SHARDS)
+    for choice in PRECOND:
+        tag = f"{choice} L=5 p2 mesh of {MESH_SHARDS} shards on cuda:0"
+        with big_pre(choice), ShardSpy(prob.M[0].n_nodes) as spy:
+            out = precond_state(choice, "p2", prob, torch, K, mesh=mesh)
+        la, ctx, _, _, ops, x, k = out
+        per = spy.per_shard(mesh_kernels(prob.M[0], mesh), mesh)
+        x1, k1 = xs[choice]
+        same = bool(torch.equal(x, x1)) and k == k1
+        print(f"[mesh] {tag}: {type(ops).__name__} levels "
+              f"{[type(o).__name__ for o in ctx.coarse_ops]}; launches per "
+              f"shard (0..{MESH_SHARDS - 1}, then whole levels) {per}; x "
+              f"and cg {k} bitwise equal to the unsharded call's: {same}")
+        if not same:
+            raise RuntimeError(f"{tag}: differs from the unsharded call "
+                               f"(cg {k} vs {k1})")
+        missing = [f"{n} on shard {d}" for n in
+                   ("panel_fwd", "power_cone", "panel_adj", "gram_matvec")
+                   for d in range(MESH_SHARDS)
+                   if per.get(n, [0] * (MESH_SHARDS + 1))[d] == 0]
+        if missing:
+            raise RuntimeError(f"{tag}: not launched: {missing}")
+        mt.mgb_cleanup(prob)
+
+
+def mesh_ramp_phase(mg, L, unsharded, torch, K, smi):
+    """``assemble`` -> ``mgb_solve`` of fem2d_P2 p=1 on ``mg`` (level L)
+    under the V-cycle (DENSE_MAX=50, DENSE_BASE=40) over
+    ``make_mesh(devices=[cuda:0] * 4)``: bitwise equal to the same ramp
+    unsharded (``unsharded``, (seconds, solution) of this process, or run
+    here when None), K1-K4 on every shard, the transfers and the walls
+    printed; at L=3 also held to the record."""
+    import mgbtpu_torch as mt
+    from mgbtpu_torch import assemble, mgb_solve
+    from mgbtpu_torch.parallel.sharding import TRANSFERS, reset_transfers
+    from mgbtpu_torch.solver.newton import SYNCS
+
+    mesh = mt.make_mesh(devices=[torch.device("cuda", 0)] * MESH_SHARDS)
+    tag = (f"vcycle fem2d_P2 p=1 L={L} (DENSE_MAX=50, DENSE_BASE=40) mesh "
+           f"of {MESH_SHARDS} shards on cuda:0")
+    with big_pre("vcycle", DENSE_MAX=50, DENSE_BASE=40):
+        if unsharded is None:
+            prob = assemble(mg, p=1.0, device="cuda")
+            SYNCS["n"] = 0
+            secs, sol, _, _ = counted(torch, K, lambda: mgb_solve(
+                prob, device="cuda"))
+            report(f"vcycle L={L} unsharded", secs, sol, SYNCS["n"])
+            unsharded = (secs, sol)
+        prob = assemble(mg, p=1.0, device="cuda")
+        reset_transfers()
+        secs, sol, la, per, syncs, _ = mesh_solve(
+            tag, prob, mesh, torch, K, smi,
+            ["panel_fwd", "power_cone", "panel_adj", "gram_matvec"], prob.M)
+    top = mesh_kernels(prob.M[0], mesh)[0].ops(prob.M[0].depth - 1)
+    s1, sol1 = unsharded
+    same = bool(np.array_equal(sol.z, sol1.z))
+    cg = int(sol.SOL_main["cg"].sum())
+    print(f"[mesh] {tag}: bitwise equal to the unsharded ramp: {same}; wall "
+          f"{secs!r} s against the unsharded {s1!r} s; chosen levels "
+          f"{[(type(o).__name__, o.n_J) for o in top.pcg_ctx.coarse_ops]}; "
+          f"transfers {dict(TRANSFERS)}, per CG iteration "
+          f"{ {n: v / max(cg, 1) for n, v in TRANSFERS.items()} }")
+    if not same:
+        raise RuntimeError(f"{tag}: differs from the unsharded ramp")
+    if la["front_factor"] or la["front_solve"]:
+        raise RuntimeError(f"{tag}: the ND solver ran")
+    if L == 3:
+        check_precond_record(tag, sol, np.load(os.path.join(
+            DATA, "ref_fem2d_p2_L3_vcycle.npz")))
 
 
 def precond_times(H, pre, ops, torch, tag):
@@ -2332,12 +2467,15 @@ def precond_phases(torch, K, smi, full=False):
     choice's ``make_pcg_pre`` + ``pcg_solve`` at the top level of fem2d_P2
     L=5 (n_J = 5,057) with the default knobs, at p=2, t=100 and at the p=1
     ramp's last t, held to ``ref_pcg_L5_<choice>.npz``; then K4 at the
-    V-cycle's levels against its plain version and timed; (b) each
-    choice's ``assemble`` -> ``mgb_solve`` of fem2d_P2 p=1 at L=3 with
-    DENSE_MAX=50 and DENSE_BASE=40, held to ``ref_fem2d_p2_L3_<choice>.npz``
-    (``precond_bars``); with ``full``, the V-cycle ramp at L=4 with the
-    default knobs against ``ref_fem2d_p2_L4_vcycle.npz``. Returns the
-    kernel record of K4 at the V-cycle's levels."""
+    V-cycle's levels against its plain version and timed; (a)'s p=2 solves
+    over a mesh (``mesh_pcg_phases``); (b) each choice's ``assemble`` ->
+    ``mgb_solve`` of fem2d_P2 p=1 at L=3 with DENSE_MAX=50 and
+    DENSE_BASE=40, held to ``ref_fem2d_p2_L3_<choice>.npz``
+    (``precond_bars``); the V-cycle ramp at L=2 over a mesh
+    (``mesh_ramp_phase``); with ``full``, the L=3 one over a mesh, and the
+    V-cycle ramp at L=4 with the default knobs against
+    ``ref_fem2d_p2_L4_vcycle.npz``. Returns the kernel record of K4 at the
+    V-cycle's levels."""
     from mgbtpu_torch import amg, assemble, fem2d_P2, mgb_solve, subdivide
     from mgbtpu_torch.solver.newton import SYNCS
 
@@ -2345,12 +2483,14 @@ def precond_phases(torch, K, smi, full=False):
     probs = {"p2": assemble(mg5, p=2.0, device="cuda"),
              "deep": assemble(mg5, p=1.0, device="cuda")}
     launches = rows = None
+    xs = {}
     for choice in PRECOND:
         with big_pre(choice):
             for state in ("p2", "deep"):
-                la, ctx, H, pre, ops = precond_state(choice, state,
-                                                     probs[state], torch, K)
+                la, ctx, H, pre, ops, x, k = precond_state(
+                    choice, state, probs[state], torch, K)
                 if state == "p2":
+                    xs[choice] = (x, k)
                     precond_times(H, pre, ops, torch, f"{choice} L=5 p2")
                 if choice == "vcycle" and state == "deep":
                     launches = la
@@ -2368,6 +2508,9 @@ def precond_phases(torch, K, smi, full=False):
                   launches=launches["gram_matvec"],
                   max_abs_err=max(e for e, _ in rows), **row)
 
+    mesh_pcg_phases(probs["p2"], xs, torch, K, smi)
+    del probs
+
     mg3 = amg(subdivide(fem2d_P2(), 3))
     for choice in PRECOND:
         tag = f"{choice} fem2d_P2 p=1 L=3 (DENSE_MAX=50, DENSE_BASE=40)"
@@ -2377,6 +2520,8 @@ def precond_phases(torch, K, smi, full=False):
             secs, sol, la, _ = counted(torch, K,
                                        lambda: mgb_solve(prob,
                                                          device="cuda"))
+        if choice == "vcycle":
+            vcycle3 = (secs, sol)
         report(tag, secs, sol, SYNCS["n"])
         print(f"[kernels] launches in the {tag} solve ({secs!r} s wall on "
               f"{smi}): {la}")
@@ -2386,7 +2531,11 @@ def precond_phases(torch, K, smi, full=False):
             raise RuntimeError(f"{tag}: the ND solver ran")
         check_precond_record(tag, sol, np.load(os.path.join(
             DATA, f"ref_fem2d_p2_L3_{choice}.npz")))
+    # the mesh ramp at L=2 by default: at L=3 it took 40.1 s over 4 shards
+    # of one H100 (18.1 s unsharded)
+    mesh_ramp_phase(amg(subdivide(fem2d_P2(), 2)), 2, None, torch, K, smi)
     if full:
+        mesh_ramp_phase(mg3, 3, vcycle3, torch, K, smi)
         tag = "vcycle fem2d_P2 p=1 L=4 (default knobs)"
         with big_pre("vcycle"):
             prob = assemble(amg(subdivide(fem2d_P2(), 4)), p=1.0,
@@ -2416,8 +2565,8 @@ def golden_check(tag, got, gold):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--level", type=int, action="append", default=[],
-                    help="also time K1/K2/K6 at this level's top-level "
-                    "shapes and solve fem2d_P2 there once")
+                    help="also time K1/K2/K5/K6 at this level's shapes and "
+                    "solve fem2d_P2 there once, against its x64 record")
     ap.add_argument("--fem3d-level", type=int, default=4,
                     help="the level of the fem3d k=3 solve and of the wide "
                     "kernel shapes (default 4)")
@@ -2425,7 +2574,8 @@ def main(argv=None) -> int:
                     help="also profile one L=5 solve (torch.profiler)")
     ap.add_argument("--precond-full", action="store_true",
                     help="also run the V-cycle ramp at L=4 with the default "
-                    "knobs against its x64 record (minutes)")
+                    "knobs against its x64 record (minutes), and the L=3 "
+                    "V-cycle ramp over a mesh")
     args = ap.parse_args(argv)
     t_start = time.time()
 
@@ -2504,12 +2654,7 @@ def main(argv=None) -> int:
     records.append(precond_phases(torch, K, smi, full=args.precond_full))
 
     for L in args.level:
-        mgL, probL, run_L = solve(L, torch)
-        level_phases(mgL, probL, L, torch, K)
-        _, (sL, solL, syL), la, _ = counted(torch, K, run_L)
-        report(f"L={L}", sL, solL, syL)
-        print(f"[kernels] launches in the L={L} solve: {la}; power_cone by "
-              f"mode 0/1/2: {K.power_cone_eval.mode_launches}")
+        level_run(L, torch, K, smi)
     if args.profile:
         profile(run, s2)
     print(f"[time] chip_smoke: {time.time() - t_start!r} s in all")
@@ -2523,6 +2668,29 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def level_run(L, torch, K, smi):
+    """``--level L``: the kernels at level L's shapes (``level_phases``),
+    then one fem2d_P2 p=1 solve at L with its launches (K1-K5 must launch),
+    held to ``ref_fem2d_p2_L<L>.npz`` where there is one
+    (``check_totals``)."""
+    t_level = time.time()
+    mgL, probL, run_L = solve(L, torch)
+    level_phases(mgL, probL, L, torch, K)
+    _, (sL, solL, syL), la, _ = counted(torch, K, run_L)
+    report(f"L={L}", sL, solL, syL)
+    print(f"[kernels] launches in the L={L} solve: {la}; power_cone by "
+          f"mode 0/1/2: {K.power_cone_eval.mode_launches}")
+    require_launches(f"fem2d_P2 p=1 L={L}", la,
+                     [n for n in la if n != "node_barrier"])
+    ref = os.path.join(DATA, f"ref_fem2d_p2_L{L}.npz")
+    if os.path.exists(ref):
+        check_totals(f"fem2d_P2 p=1 L={L}", solL, np.load(ref))
+    else:
+        print(f"[reference] fem2d_P2 p=1 L={L}: no x64 record")
+    print(f"[time] --level {L}: {time.time() - t_level!r} s (setup, kernel "
+          f"phases and the solve) on {smi}")
 
 
 def print_ptxas(secs, info):

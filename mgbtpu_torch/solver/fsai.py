@@ -171,19 +171,19 @@ def _gj_solve_last(Bk):
     return M[:, :, k]
 
 
-def fsai_values(plan: FSAIPlan, ops, Lnode):
-    """FSAI factor values from the current node factors ``Lnode`` (one
-    tensor, the level's nodes).
+def fsai_values(plan: FSAIPlan, ops, Ls):
+    """FSAI factor values from the current node factors ``Ls`` (one tensor
+    a shard of ``ops``, as ``GramHessian.Lnode``): the element Gram blocks
+    come from each shard and are summed on the first device, where the
+    factor lives.
 
     Returns ``(Gtiles, dpos)``: the BSR value tiles of the factor G built
     on the equilibrated matrix Hs = D H D, D = diag(1/sqrt(diag H)), and
     ``dpos = sqrt(diag H)`` (the CG equilibration scale). Each local block
     is equilibrated from its own diagonal: the same values as a global
     equilibration."""
-    from .levelops import gram_element_blocks
-
-    dtype, device = Lnode.dtype, Lnode.device
-    He = gram_element_blocks(ops, Lnode)                    # (N, C, C)
+    He = ops.gram_blocks_first(Ls)                          # (N, C, C)
+    dtype, device = He.dtype, He.device
     Hvals = scatter_add(
         torch.zeros((plan.n_J * plan.kh,), dtype=dtype, device=device),
         plan.scat_idx, He.reshape(-1))

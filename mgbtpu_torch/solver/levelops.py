@@ -25,13 +25,17 @@ bits of one device. So do the Gram diagonal's per-slot values and the
 dense assembly's per-element blocks: computed per shard, scattered once on
 the first device in the level's order.
 
-Both classes give the solver (``barrier.py``, ``newton.py``, ``mgb.py``)
-one interface, per-node tensors travelling as one tensor a shard: ``split``
-and ``gather`` move a per-node tensor to the shards and back, ``shard_G``
-is K1 a shard, ``adjoint``, ``dense_hessian``, ``gram_apply`` and
-``gram_diagonal`` sum over the level, ``gram_blocks`` keeps the element
-blocks a shard. A PanelOps is a level of one shard, whose sums are its
-one-device kernels, so the solver has one path.
+Both classes give the solver (``barrier.py``, ``newton.py``, ``fsai.py``,
+``mgb.py``) one interface, per-node tensors travelling as one tensor a
+shard: ``split`` and ``gather`` move a per-node tensor to the shards and
+back, ``shard_G`` is K1 a shard, ``adjoint``, ``dense_hessian``,
+``gram_apply``, ``gram_diagonal`` and ``gram_dense`` sum over the level,
+``gram_blocks`` keeps the element blocks a shard and ``gram_blocks_first``
+gathers them on the first device. A PanelOps is a level of one shard, whose
+sums are its one-device kernels, so the solver has one path. Every level of
+one problem spans the same fine elements, so a mesh shards their nodes
+alike: the node factors of the solve level serve the V-cycle's coarser
+levels as they are.
 """
 from __future__ import annotations
 
@@ -102,10 +106,6 @@ class PanelOps:
         """(n_nodes, nD, nD) per-node Hessian values -> dense (n_J, n_J)."""
         return self._scatter_blocks(self.dense_blocks(Ynode))
 
-    def assemble_gram(self, Lnode):
-        """Gram-form assembly H = sum_i (L_i' P_i)' (L_i' P_i)."""
-        return self._scatter_blocks(gram_element_blocks(self, Lnode))
-
     # the level interface (see the module docstring): one shard
     def split(self, a):
         return (a,)
@@ -132,6 +132,13 @@ class PanelOps:
 
     def gram_blocks(self, Ls, col_scale=None):
         return gram_element_blocks(self, self.gather(Ls), col_scale)
+
+    def gram_blocks_first(self, Ls):
+        return self.gram_blocks(Ls)
+
+    def gram_dense(self, Ls):
+        """Gram-form assembly H = sum_i (L_i' P_i)' (L_i' P_i)."""
+        return self._scatter_blocks(self.gram_blocks_first(Ls))
 
 
 @dataclass
@@ -213,6 +220,16 @@ class ShardedOps:
                   else [None] * self.mesh.size)
         return tuple(gram_element_blocks(o, L, c)
                      for o, L, c in zip(self.shards, Ls, scales))
+
+    def gram_blocks_first(self, Ls):
+        """Every element's Gram block (N, C, C): each shard's, gathered in
+        shard order on the first device."""
+        return self.gather(self.gram_blocks(Ls))
+
+    def gram_dense(self, Ls):
+        """The dense (n_J, n_J) Gram Hessian: the element blocks scattered
+        once on the first device in the level's order."""
+        return PanelOps._scatter_blocks(self, self.gram_blocks_first(Ls))
 
 
 @dataclass

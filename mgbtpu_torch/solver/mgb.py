@@ -173,21 +173,18 @@ class ProblemKernels:
         -> l, and the power iteration's start vectors (JAX's Rademacher
         draw, ``utils/threefry.py``). None, the dense path (which may be
         large), for a non-nested subspace: no coefficient transfers, so no
-        V-cycle and no coarse correction, as in the reference."""
+        V-cycle and no coarse correction, as in the reference. Under a
+        mesh the chosen levels are the sharded levels (their Gram products
+        run per shard); the transfers, the FSAI plan, the coarse transfer
+        and the start vectors live on the first device."""
         from . import newton
 
-        choice = newton.BIG_PRE
-        if choice == "nd":
+        if newton.BIG_PRE == "nd":
             return PCGContext(nd=nd_plan(self.M, ops, self.ND_LEAF_ELEMS,
                                          self.device, self.mesh))
         T_fine = self.M.T_fine
         if any(T_fine[j] is None for j in range(l)):
             return None
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"mgb_solve(mesh=...) with MGBTPU_BIG_PRE={choice!r}: the "
-                "port shards only the nested-dissection solver ('nd') of a "
-                "large level")
         from ..ops.bsr import build_bsr
         from ..utils.threefry import rademacher
         from .fsai import build_fsai_plan

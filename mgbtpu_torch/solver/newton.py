@@ -150,21 +150,24 @@ def make_pcg_pre(H: GramHessian):
       D^-1/2 H D^-1/2 from the level's Rademacher start vector, the norm
       ratio times 1.15.
 
+    Every level takes the solve level's node factors through the level
+    interface (``levelops``): under a mesh the Gram sums and products run
+    per shard and sum once on the first device, where the preconditioner
+    data live, so a mesh gives the bits of one device.
+
     Returns ``(kind, data)``; kind "fsai" or "vcycle"."""
     from ..ops.blockchol import shifted_spd_inverse
-    from .levelops import gram_diag, gram_matvec
 
-    ops, ctx = H.ops, H.ctx
-    Lnode = ops.gather(H.Lnode)
+    ops, ctx, Ls = H.ops, H.ctx, H.Lnode
 
     def spd_inverse(o):
         SYNCS["n"] += 1      # the finiteness test of the shift ladder
-        return shifted_spd_inverse(o.assemble_gram(Lnode))
+        return shifted_spd_inverse(o.gram_dense(Ls))
 
     if BIG_PRE.startswith("fsai") and ctx.fsai is not None:
         from .fsai import fsai_values
 
-        Gtiles, dpos = fsai_values(ctx.fsai, ops, Lnode)
+        Gtiles, dpos = fsai_values(ctx.fsai, ops, Ls)
         coarse = None
         if BIG_PRE in ("fsai2", "fsai2a") and ctx.coarse_T is not None:
             coarse = spd_inverse(ctx.coarse_ops[ctx.dense_level])
@@ -174,12 +177,12 @@ def make_pcg_pre(H: GramHessian):
                   for l in range(ctx.dense_level + 1)]
 
     def smooth_data(o, v):
-        d = gram_diag(o, Lnode)
+        d = o.gram_diagonal(Ls)
         dis = torch.where(d > 0, torch.rsqrt(d), torch.zeros_like(d))
         for _ in range(14):
-            v = dis * gram_matvec(o, Lnode, dis * v)
+            v = dis * o.gram_apply(Ls, dis * v)
             v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
-        lmax = torch.linalg.vector_norm(dis * gram_matvec(o, Lnode, dis * v))
+        lmax = torch.linalg.vector_norm(dis * o.gram_apply(Ls, dis * v))
         # one sync a level: the smoother's scalars become host floats (the
         # same IEEE arithmetic), not a dozen device ops every application
         return d, _item(lmax * 1.15)
@@ -203,20 +206,21 @@ def pcg_operators(H: GramHessian, pre, smooth_omega=0.7):
     levels and the solve level, the composed ELL transfers between them.
     The four preconditioners M_s: the V-cycle, FSAI G'G, and FSAI with the
     coarse correction applied multiplicatively (``fsai2``) or additively
-    (``fsai2a``)."""
-    from .levelops import gram_matvec
-
+    (``fsai2a``). The Hessian applies go through the level interface
+    (K4's per-slot phase per shard under a mesh, K3's phase B once); the
+    transfers, the dense inverses and the recurrences run on the first
+    device."""
     ops, ctx = H.ops, H.ctx
-    Lnode = ops.gather(H.Lnode)
     kind, data = pre
     top = ctx.n_levels
 
     def level_mv(l, v):
-        return gram_matvec(ops if l == top else ctx.coarse_ops[l], Lnode, v)
+        return (ops if l == top else ctx.coarse_ops[l]).gram_apply(H.Lnode, v)
 
     if kind == "vcycle":
         dense_chos, diags = data
-        zero = torch.zeros((), dtype=Lnode.dtype, device=Lnode.device)
+        d_top = diags[top][0]
+        zero = torch.zeros((), dtype=d_top.dtype, device=d_top.device)
         dinvs = {l: torch.where(d > 0, 1.0 / d, zero)
                  for l, (d, _) in diags.items()}
         jacobi = {l: torch.where(d > 0, smooth_omega / d, zero)
@@ -261,7 +265,6 @@ def pcg_operators(H: GramHessian, pre, smooth_omega=0.7):
             x = x + T.mv(cycle(l - 1, T.rmv(resid)))
             return x + dinv * (r - level_mv(l, x))
 
-        d_top = diags[top][0]
         dt = torch.sqrt(torch.where(d_top > 0, d_top, torch.ones_like(d_top)))
 
         def M_s(rs):

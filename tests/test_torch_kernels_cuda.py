@@ -1196,8 +1196,8 @@ def test_fsai_values_on_the_card(dev, L, knobs):
     Ln[:, np.arange(o_cpu.nD), np.arange(o_cpu.nD)] = 1.0 + rng.uniform(
         0, 1, (o_cpu.n_nodes, o_cpu.nD))
     Gd, dd = fsai_values(o_dev.pcg_ctx.fsai, o_dev,
-                         torch.as_tensor(Ln, device=dev))
-    Gc, dc = fsai_values(o_cpu.pcg_ctx.fsai, o_cpu, torch.as_tensor(Ln))
+                         (torch.as_tensor(Ln, device=dev),))
+    Gc, dc = fsai_values(o_cpu.pcg_ctx.fsai, o_cpu, (torch.as_tensor(Ln),))
     assert _rel(dd, dc.to(dev)) <= TOL
     assert _rel(Gd, Gc.to(dev)) <= 1e-10
     r = rng.standard_normal(o_cpu.n_J)

@@ -17,8 +17,8 @@ CPU against the JAX package on the same seeded inputs:
   assert; the other three choices at L=3 the same way;
 - the choice reaches the solve: with BIG_PRE="vcycle" the level's context
   is a V-cycle one (no ND plan) and the Newton solve goes through
-  ``pcg_solve``; the refresh threshold follows the context; a non-"nd"
-  choice under a mesh raises ``NotImplementedError``.
+  ``pcg_solve``; the refresh threshold follows the context. (Every choice
+  under a mesh: ``tests/test_torch_mesh_precond*.py``.)
 
 JAX results are computed once per module (``_JAX``).
 """
@@ -166,8 +166,8 @@ def _fsai_system(ops):
 
     plan = ops.pcg_ctx.fsai
     Lnode = _identity_lnode(ops)
-    Gtiles, dpos = fsai_values(plan, ops, Lnode)
-    H = ops.assemble_gram(Lnode).numpy()
+    Gtiles, dpos = fsai_values(plan, ops, (Lnode,))
+    H = ops.gram_dense((Lnode,)).numpy()
     d = dpos.numpy()
     return plan, Lnode, Gtiles, d, H / d[:, None] / d[None, :]
 
@@ -200,7 +200,7 @@ def test_fsai_diag_normalization(knobs):
     ops = _fsai_ops(knobs)
     plan, Lnode, Gtiles, d, Hs = _fsai_system(ops)
     assert np.isfinite(Gtiles.numpy()).all()
-    H = ops.assemble_gram(Lnode).numpy()
+    H = ops.gram_dense((Lnode,)).numpy()
     assert np.allclose(d, np.sqrt(np.diag(H)), rtol=1e-6)
     G = _dense_G(plan, Gtiles)
     assert abs(np.triu(G, 1)).max() == 0.0
@@ -245,7 +245,7 @@ def test_fsai2_coarse_correction_cuts_cg(knobs):
     ctx = ops.pcg_ctx
     plan, Lnode, Gtiles, d, Hs = _fsai_system(ops)
     assert ctx.coarse_T is not None
-    Hc = ctx.coarse_ops[ctx.dense_level].assemble_gram(Lnode).numpy()
+    Hc = ctx.coarse_ops[ctx.dense_level].gram_dense((Lnode,)).numpy()
     Hc_inv = np.linalg.inv(Hc)
 
     def coarse_corr(rs):
@@ -291,7 +291,7 @@ def test_fsai_values_match_jax(knobs):
     Ln[:, np.arange(ops.nD), np.arange(ops.nD)] = 1.0 + rng.uniform(
         0, 1, (ops.n_nodes, ops.nD))
     Gj, dj = jax.jit(values_j)(pj, oj, jnp.asarray(Ln))
-    Gt, dt = values_t(plan, ops, torch.tensor(Ln))
+    Gt, dt = values_t(plan, ops, (torch.tensor(Ln),))
     assert _rel(dt.numpy(), np.asarray(dj)) <= 1e-10
     assert _rel(Gt.numpy(), np.asarray(Gj)) <= 1e-10
 
@@ -405,12 +405,3 @@ def test_vcycle_context_is_not_nd(knobs, monkeypatch):
 def test_nd_stays_the_default(knobs):
     _, ops = _top_ops("nd", knobs)
     assert ops.pcg_ctx.nd is not None and ops.pcg_ctx.coarse_ops == ()
-
-
-@pytest.mark.parametrize("choice", ["vcycle", "fsai2"])
-def test_mesh_with_a_non_nd_choice_raises(choice, knobs):
-    prob, _ = _top_ops("nd", knobs)      # the problem only
-    knobs(choice)
-    mesh = mgbtpu_torch.make_mesh(devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match=choice):
-        mgbtpu_torch.mgb_solve(prob, mesh=mesh)

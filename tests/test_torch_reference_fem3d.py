@@ -2,8 +2,10 @@
 default k=3 Q3 hexes), p=1, at L=3 and L=4
 (``mgbtpu_torch/data/ref_fem3d_k3_L{3,4}.npz``, held against by
 ``chip_smoke.py``): re-derived from JAX here so they cannot drift from the
-reference. The L=4 solve takes about two minutes of JAX x64 on one CPU and
-is marked ``slow`` (outside tier-1). Regenerate both with
+reference in the ``slow`` tests (L=3 about seven minutes of JAX x64 beside
+other tests, L=4 about two minutes alone); the tier-1 case checks that the
+L=3 record is whole and that what derived it is unchanged (its fingerprint,
+``jax_references``). Regenerate both (and their fingerprints) with
 
     JAX_PLATFORMS=cpu python tests/test_torch_reference_fem3d.py
 """
@@ -12,8 +14,8 @@ import os
 import numpy as np
 import pytest
 
-from jax_references import (DATA, assert_same_record, p_laplace_reference,
-                            save)
+from jax_references import (DATA, assert_record_holds, assert_same_record,
+                            p_laplace_reference, save, write_fingerprint)
 
 
 def ref_path(L):
@@ -28,6 +30,15 @@ def _reproduces(L):
 
 
 def test_fem3d_l3_reference_reproduces():
+    """The L=3 record is whole and what derived it is unchanged."""
+    assert_record_holds(
+        "ref_fem3d_k3_L3.npz", dict(np.load(ref_path(3))),
+        "tests/test_torch_reference_fem3d.py::test_fem3d_l3_reference_rederives",
+        z_shape=(4096, 2), cg=True)
+
+
+@pytest.mark.slow
+def test_fem3d_l3_reference_rederives():
     _reproduces(3)
 
 
@@ -42,3 +53,4 @@ if __name__ == "__main__":
     main_setup()
     for L in (3, 4):
         save(ref_path(L), p_laplace_reference("fem3d", L))
+        write_fingerprint(os.path.basename(ref_path(L)))

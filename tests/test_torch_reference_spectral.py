@@ -1,6 +1,9 @@
 """The stored JAX x64 yardsticks of the port's card solves of the spectral
 discretizations, p=1 (held against by ``chip_smoke.py``), re-derived from
-JAX here so they cannot drift from the reference:
+JAX in the ``slow`` tests so they cannot drift from the reference (the
+tier-1 cases check that each record is whole and that what derived it,
+``tests/test_golden.py`` included, is unchanged: its fingerprint,
+``jax_references``):
 
 - ``mgbtpu_torch/data/ref_spectral.npz``: spectral1d n=128 (7 levels, 128
   nodes), the golden elliptic cases spectral1d n=5 and spectral2d n=5 of
@@ -15,7 +18,7 @@ Every level of a spectral solve is dense, so the records hold no CG count.
 The four golden cases also hold their ``tests/test_golden.py`` vector
 (``gold``), read from that file's own test (``golden``), so that
 ``chip_smoke.py``, which cannot import the JAX package's tests, holds the
-card to it. Regenerate both files with
+card to it. Regenerate both files (and their fingerprints) with
 
     JAX_PLATFORMS=cpu python tests/test_torch_reference_spectral.py
 """
@@ -27,9 +30,10 @@ import numpy as np
 import pytest
 
 import test_golden
-from jax_references import (DATA, assert_same_record, parabolic_record,
-                            record_of, recorded_steps, save, solve_record,
-                            spectral_reference, update)
+from jax_references import (DATA, assert_record_holds, assert_same_record,
+                            parabolic_record, record_of, recorded_steps, save,
+                            solve_record, spectral_reference, update,
+                            write_fingerprint)
 
 REF = os.path.join(DATA, "ref_spectral.npz")
 REF_N32 = os.path.join(DATA, "ref_spectral2d_n32.npz")
@@ -102,15 +106,72 @@ def records():
     return {k: fresh(k) for k in [*ELLIPTIC, *PARABOLIC]}
 
 
+# the golden vectors come from tests/test_golden.py's own tests
+SOURCES = ("tests/test_golden.py",)
+
+
+def _holds(rec, slow_test, **whole):
+    assert_record_holds(
+        "ref_spectral.npz", rec,
+        f"tests/test_torch_reference_spectral.py::{slow_test}", SOURCES,
+        **whole)
+
+
+def _nodes(kind, n):
+    return n if kind == "spectral1d" else n * n
+
+
 @pytest.mark.parametrize("name", list(ELLIPTIC))
 def test_spectral_reference_reproduces(name):
+    """The record is whole and what derived it is unchanged."""
+    kind, n = ELLIPTIC[name]
+    stored = record_of(np.load(REF), name)
+    assert int(stored["n"]) == n
+    _holds(stored, f"test_spectral_reference_rederives[{name}]",
+           z_shape=(_nodes(kind, n), 2))
+
+
+@pytest.mark.parametrize("name", list(PARABOLIC))
+def test_parabolic_spectral_reference_reproduces(name):
+    """Both implicit steps' records are whole, each the state it gives,
+    and what derived them is unchanged."""
+    kind, n, h = PARABOLIC[name]
+    stored = record_of(np.load(REF), name)
+    assert int(stored["n"]) == n and float(stored["h"]) == h
+    u = stored["u"]
+    assert u.shape == (3, _nodes(kind, n), 3) and np.isfinite(u).all()
+    for j in range(1, u.shape[0]):
+        step = record_of(stored, f"step{j}")
+        _holds(step, f"test_parabolic_spectral_reference_rederives[{name}]",
+               z_shape=u.shape[1:])
+        np.testing.assert_array_equal(step["z"], u[j])
+
+
+@pytest.mark.parametrize("name", list(GOLDEN))
+def test_golden_vectors_stored(name):
+    """The stored x64 solve is within ``tests/test_golden.py``'s 1e-6 of
+    the stored ``gold``, and what derived both is unchanged."""
+    stored = record_of(np.load(REF), name)
+    _holds(record_of(stored, "step1") if "u" in stored else stored,
+           f"test_golden_vectors_rederive[{name}]")
+    if name == "parabolic_spectral2d_n4":
+        np.testing.assert_array_equal(stored["gold"],
+                                      test_golden.GOLD_spectral2d)
+    x = stored["u"] if "u" in stored else stored["z"]
+    assert np.linalg.norm(x - stored["gold"]) < 1e-6
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", list(ELLIPTIC))
+def test_spectral_reference_rederives(name):
     stored = record_of(np.load(REF), name)
     assert_same_record(fresh(name), stored)
     assert int(stored["n"]) == ELLIPTIC[name][1]
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("name", list(PARABOLIC))
-def test_parabolic_spectral_reference_reproduces(name):
+def test_parabolic_spectral_reference_rederives(name):
     stored = record_of(np.load(REF), name)
     rec = fresh(name)
     u = stored["u"]
@@ -121,8 +182,9 @@ def test_parabolic_spectral_reference_reproduces(name):
                            record_of(stored, f"step{j}"))
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("name", list(GOLDEN))
-def test_golden_vectors_stored(name):
+def test_golden_vectors_rederive(name):
     """The stored ``gold`` is ``tests/test_golden.py``'s vector, and the
     stored x64 solve is within that file's 1e-6 of it."""
     stored = record_of(np.load(REF), name)
@@ -145,4 +207,5 @@ if __name__ == "__main__":
 
     main_setup()
     update(REF, records())
+    write_fingerprint(os.path.basename(REF), SOURCES)
     save(REF_N32, spectral_reference("spectral2d", 32))

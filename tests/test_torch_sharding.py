@@ -150,6 +150,9 @@ def test_level_operators_sharded_match(n):
         oj, jax.numpy.asarray(Ln.numpy()))) <= 1e-12
     He = on.gram_blocks(Lsh, v)
     assert _rel(torch.cat(He), gram_element_blocks(o0, Ln, v)) == 0.0
+    assert _rel(on.gram_blocks_first(Lsh), gram_element_blocks(o0, Ln)) \
+        == 0.0
+    assert _rel(on.gram_dense(Lsh), o0.gram_dense((Ln,))) == 0.0
     Yb = torch.tensor(B @ np.swapaxes(B, 1, 2))
     assert _rel(on.dense_hessian(on.split(Yb)), o0.assemble_dense(Yb)) \
         == 0.0
