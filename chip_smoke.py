@@ -4,7 +4,9 @@
     python3 chip_smoke.py                 # the check: kernels + solves
     python3 chip_smoke.py --level 7       # also K1/K2/K6 and one solve at L=7
     python3 chip_smoke.py --fem3d-level 3 # the fem3d phases at L=3, not 4
-    python3 chip_smoke.py --profile       # also profile one L=5 solve
+    python3 chip_smoke.py --fem3d-level 5 # ... at L=5, held to its record
+    python3 chip_smoke.py --profile       # also profile one L=5 solve (and
+                                          # the fem3d solve at its level)
     python3 chip_smoke.py --precond-full  # also the V-cycle ramps at L=4
                                           # and, over a mesh, at L=3
     python3 chip_smoke.py --level 6       # also L=6 against its x64 record
@@ -35,8 +37,9 @@ kernel; K5b per ``nd_solve`` and per launch, against the same sweeps'
 against the composition of ``cholesky_ex``, ``solve_triangular`` and
 ``baddbmm``). Then the solves, each through the entry
 points a user calls, with the launch counters set to 0 just before and read
-just after: fem2d_P2, p=1, L=5 twice (K1-K5 must launch; the second solve
-bitwise equal to the first); the mesh phase (``mesh_phases``): the same
+just after: fem2d_P2, p=1, L=5 twice (K1-K5 must launch, neither front
+kernel in its large form; the second solve bitwise equal to the first);
+the mesh phase (``mesh_phases``): the same
 solve over ``make_mesh(devices=[cuda:0] * 4)``, which must give the
 unsharded bits (max abs 5e-12 at most) and the x64 record's, with K1-K5
 on every shard (each launch attributed to its shard), one Gram matvec's
@@ -51,15 +54,25 @@ six zoo problems at L=3 and p_harmonic at L=3 from an infeasible start
 also printed by mode. K6 must launch in every solve of a piece table, in
 the cobarrier form in every phase I. Then the tensor-product and P1
 slice, at the fem3d k=3 (Q3 hexes, p = 64) level ``--fem3d-level`` (4 by
-default): K1 and K4 against their plain versions and timed at its top
-level's shapes (nD = 5) and its phase-I system's (nD = 8), where their
-wide forms run, and K5a on every tree level of its nested dissection
-(per level and per ``nd_factor``, against the plain version and the
-library composition); then fem3d k=3 p=1 solves at L=3 and at that level
-(the slice's path: K1-K5 must launch; launches, Newton and CG counts,
-host syncs and wall printed), fem2d_P1 p=1 at L=5 and the fem1d golden
-vector of ``tests/test_golden.py`` (to 1e-6); K5b's fused level calls
-and a whole ``nd_solve`` on the fem3d plan's factors, timed. Then the
+default, 5 for the L=5 plan of 4,096 hexes, ~30 s of host setup): K1 and
+K4 against their plain versions and timed at its top level's shapes (nD =
+5) and its phase-I system's (nD = 8), where their wide forms run, and K5a
+on every tree level of its nested dissection in the large form its shape
+rule gives it (checked: its large count), per level against the plain
+version, timed in that form and in the one-panel form where that takes
+the level (the crossover, ``[form]`` lines), and per ``nd_factor``
+against the plain version and the library composition; K5b the same way
+on those factors (both sweeps per level in both forms, a whole
+``nd_solve``, its launches counted, beside its bound: the factors read
+by both sweeps where they pass the 50 MB L2); then fem3d k=3 p=1 solves
+at L=3 and at that level (the slice's path: K1-K5 and both large forms
+must launch; launches, Newton and CG counts, host syncs and wall
+printed; held to ``ref_fem3d_k3_L<L>.npz``), fem2d_P1 p=1 at L=5 (no
+large form may launch) and the fem1d golden vector of
+``tests/test_golden.py`` (to 1e-6). Unless the level is 5, K5a and K5b
+then run at the ten tree levels of the fem3d L=5 plan on seeded SPD fronts
+made on the card (``fem3d_l5_phases``; K5b over made-up dof maps), the
+same comparisons and timings, without the L=5 problem's setup. Then the
 spectral slice, at spectral2d n=32 (one element of 1,024 nodes, every
 level dense): K1 and K3 in their spread forms (the C entries' choice is
 printed and must be the spread form) against their plain versions and
@@ -643,14 +656,34 @@ def recorded_fronts(nd, N, C, torch, K, rng):
     return levels, fact
 
 
+def in_form(fn, code, *args):
+    """``fn(*args)`` with its C entry forced to form ``code`` (the wrapper
+    module's private ``_FORM``; 0 by shape)."""
+    mod = sys.modules[fn.__module__]
+    mod._FORM = code
+    try:
+        return fn(*args)
+    finally:
+        mod._FORM = 0
+
+
 def factor_levels_phase(tag, levels, torch, K, reps=50, plain_reps=50):
     """K5a on each tree level's fronts [(F, a, b)] against its plain
-    version, the repeat call bitwise; one ``nd_factor``'s worth of calls
-    timed against the plain version and the library composition. Returns
-    (max abs error, the timing row with the bound)."""
+    version, the repeat call bitwise, the form its shape rule gives it
+    checked (its large count); each level timed in that form and in the
+    other form that takes it (the crossover), beside the plain version and
+    the library composition; one ``nd_factor``'s worth of calls timed
+    against the plain version and the library composition. Returns (max
+    abs error, the timing row with the bound)."""
+    mod = sys.modules[K.front_factor.__module__]
     errs = []
     for li, (F, a, b) in enumerate(levels):
+        code = mod.form_of(F.shape[0], a, b)
+        before = K.front_factor.large_launches
         outs = K.front_factor(F, a, b)
+        if K.front_factor.large_launches - before != (code == mod.LARGE):
+            raise RuntimeError(f"front_factor {tag} level {li}: not in the "
+                               f"form its shape gives ({code})")
         for part, out, ref, again in zip(("Lf", "U", "S"), outs,
                                          K.front_factor_plain(F, a, b),
                                          K.front_factor(F, a, b)):
@@ -658,15 +691,30 @@ def factor_levels_phase(tag, levels, torch, K, reps=50, plain_reps=50):
             errs.append(compare(name, out, ref))
             same_bits(name, out, again)
     for li, (F, a, b) in enumerate(levels):
+        code = mod.form_of(F.shape[0], a, b)
+        other = (mod.LARGE if code != mod.LARGE
+                 else mod.ONE_PANEL if a + b <= mod.ONE_PANEL_F else None)
         ms, _ = device_ms(lambda: K.front_factor(F, a, b), 10)
         pms, phid = device_ms(lambda: K.front_factor_plain(F, a, b), 10)
         lms, lhid = device_ms(lambda: factor_library(torch, F, a, b), 10)
         print(f"[time] front_factor {tag} level {li} {(F.shape[0], a, b)}: "
-              f"device ms per call {ms!r}; plain {pms!r}"
+              f"device ms per call {ms!r} ({mod.FORM_NAMES[code]} form); "
+              f"plain {pms!r}"
               + ("" if phid else " (host not hidden: an upper bound)")
               + f"; library composition {lms!r}"
               + ("" if lhid else " (host not hidden: an upper bound)")
               + f"; bound {factor_bound([(F, a, b)])[0]!r} ms")
+        if other is None:
+            print(f"[form] front_factor {tag} level {li} f={a + b}: "
+                  f"{mod.FORM_NAMES[code]} {ms!r} ms, the only form that "
+                  f"takes it")
+            continue
+        oms, _ = device_ms(lambda: in_form(K.front_factor, other, F, a, b),
+                           10)
+        print(f"[form] front_factor {tag} level {li} f={a + b}: "
+              f"{mod.FORM_NAMES[code]} {ms!r} ms, {mod.FORM_NAMES[other]} "
+              f"{oms!r} ms: the rule's form is "
+              f"{'faster' if ms <= oms else 'slower'}")
     bnd, by = factor_bound(levels)
     print(f"[bound] front_factor {tag}: {bnd!r} ms per nd_factor ({by})")
     row = timings(
@@ -730,7 +778,15 @@ def front_l7_phases(torch, K):
     shapes = [(L.nk, L.amax, L.bmax) for L in nd.levels]
     print(f"[setup] L=7 ND plan on the host {time.time() - t0!r} s; fronts "
           f"(nk, amax, bmax) leaf..root: {shapes}")
-    g = torch.Generator(device="cuda").manual_seed(7)
+    err, _ = factor_levels_phase("L=7", seeded_fronts(torch, shapes, 7),
+                                 torch, K, reps=20, plain_reps=10)
+    return err
+
+
+def seeded_fronts(torch, shapes, seed):
+    """SPD fronts [(F (nk, f+1, f+1), a, b)] at ``shapes`` [(nk, a, b)], made
+    on the card from a generator seeded there."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     levels = []
     for nk, a, b in shapes:
         f = a + b
@@ -739,20 +795,46 @@ def front_l7_phases(torch, K):
         F = torch.zeros((nk, f + 1, f + 1), dtype=torch.float64,
                         device="cuda")
         F[:, :f, :f] = X @ X.mT / f + 0.5 * torch.eye(f, device="cuda")
+        del X
         levels.append((F, a, b))
-    err, _ = factor_levels_phase("L=7", levels, torch, K, reps=20,
-                                 plain_reps=10)
-    return err
+    return levels
+
+
+L2_BYTES = 50e6     # H100 L2 (NVIDIA data sheet)
+
+
+def solve_bound(levels, n_J):
+    """K5b's bound for one ``nd_solve`` over ``levels``: rhs in and x out;
+    the forward sweep reads each level's Lf lower triangle and U, the
+    vector entries it gathers and writes y; the backward sweep, which
+    starts at the root where the forward sweep ended, reads them again
+    less what the L2 can still hold: the factors count 2 fbytes - min(
+    fbytes, 50 MB) (once below the L2, twice less an L2's worth above
+    it); two flops a factor entry a sweep and the separator updates.
+    Returns (ms, by, factor bytes)."""
+    f8, nops = 8, 0
+    fbytes = sum(f8 * L.nk * (L.amax * (L.amax + 1) // 2 + L.amax * L.bmax)
+                 for L in levels)
+    nbytes = f8 * 2 * (n_J + 1) + 2 * fbytes - min(fbytes, L2_BYTES)
+    for L in levels:
+        nk, a, b = L.nk, L.amax, L.bmax
+        nbytes += f8 * nk * (a + b)
+        nops += nk * (2 * a * a + 4 * a * b) + int((L.bdofs < n_J).sum())
+    return (*bound_ms(nbytes, nops), fbytes)
 
 
 def solve_phases(nd, fact, torch, K, rng, tag=""):
-    """K5b on the real factors of one ``nd_factor``: each tree level's
-    fused call in both sweeps, and the whole ``nd_solve``, against the plain
-    versions; the device time per ``nd_solve`` and per launch, beside the
-    same sweeps' triangular solves through ``torch.linalg.solve_triangular``
-    alone."""
+    """K5b on the factors of one ``nd_factor``: each tree level's fused
+    call in both sweeps against the plain versions, in the form its shape
+    rule gives it (its large count checked), timed in that form and in the
+    other (the crossover); the whole ``nd_solve`` against the plain
+    composition, its launches counted (one a level and sweep, the large
+    ones a large level's); the device time per ``nd_solve`` and per launch,
+    beside its bound and the same sweeps' triangular solves through
+    ``torch.linalg.solve_triangular`` alone."""
     from mgbtpu_torch.ops.ndchol import nd_solve
 
+    mod = sys.modules[K.front_forward.__module__]
     dev = torch.device("cuda")
     fact = [(Lf.contiguous(), U.contiguous()) for Lf, U in fact]
     n_J = nd.n_J
@@ -761,18 +843,39 @@ def solve_phases(nd, fact, torch, K, rng, tag=""):
     r0 = torch.cat([rhs, pad])
     x0 = torch.cat([torch.as_tensor(rng.standard_normal(n_J), device=dev),
                     pad])
-    errs = []
+    errs, n_large = [], 0
     for li, (L, (Lf, U)) in enumerate(zip(nd.levels, fact)):
         y = torch.as_tensor(rng.standard_normal((L.nk, L.amax)), device=dev)
+        code = mod.form_of(L.nk, L.amax, L.bmax)
+        n_large += code == mod.LARGE
+        before = K.front_solve.large_launches
         got = []
         for fwd, bwd in ((K.front_forward, K.front_backward),
                          (K.front_forward_plain, K.front_backward_plain)):
             r, x = r0.clone(), x0.clone()
             got.append((*fwd(Lf, U, L.adofs, r, L.b_rows, L.b_inc), r,
                         bwd(Lf, U, L.adofs, L.bdofs, y, x), x))
+        if K.front_solve.large_launches - before != 2 * (code == mod.LARGE):
+            raise RuntimeError(f"front_solve{tag} level {li}: not in the "
+                               f"form its shape gives ({code})")
         for part, out, ref in zip(("y", "upd", "r", "xA", "x"), *got):
             errs.append(compare(f"front_solve{tag} level {li} {part}", out,
                                 ref))
+        other = mod.ONE_BLOCK if code == mod.LARGE else mod.LARGE
+        r, x = r0.clone(), x0.clone()
+
+        def level(c):
+            y_ = in_form(K.front_forward, c, Lf, U, L.adofs, r, L.b_rows,
+                         L.b_inc)[0]
+            in_form(K.front_backward, c, Lf, U, L.adofs, L.bdofs, y_, x)
+
+        ms, _ = device_ms(lambda: level(code), 10)
+        oms, _ = device_ms(lambda: level(other), 10)
+        print(f"[form] front_solve{tag} level {li} "
+              f"{(L.nk, L.amax, L.bmax)} f={L.amax + L.bmax}: both sweeps "
+              f"{mod.FORM_NAMES[code]} {ms!r} ms, {mod.FORM_NAMES[other]} "
+              f"{oms!r} ms: the rule's form is "
+              f"{'faster' if ms <= oms else 'slower'}")
 
     def nd_solve_plain():
         """``nd_solve``'s composition through K5b's plain versions."""
@@ -789,20 +892,18 @@ def solve_phases(nd, fact, torch, K, rng, tag=""):
                         nd_solve_plain()))
     same_bits(f"nd_solve{tag} (front_solve, every level)", x,
               nd_solve(nd, fact, rhs))
-    before = K.front_solve.launches
+    before = (K.front_solve.launches, K.front_solve.large_launches)
     nd_solve(nd, fact, rhs)
-    per_solve = K.front_solve.launches - before
-    if per_solve != 2 * len(nd.levels):
+    per_solve = K.front_solve.launches - before[0]
+    per_large = K.front_solve.large_launches - before[1]
+    if (per_solve, per_large) != (2 * len(nd.levels), 2 * n_large):
         raise RuntimeError(f"nd_solve made {per_solve} front_solve launches, "
-                           f"not one per tree level and sweep")
+                           f"{per_large} large, not one per tree level and "
+                           f"sweep, {2 * n_large} large")
+    print(f"[kernels] nd_solve{tag}: {per_solve} front_solve launches "
+          f"({per_large} in the large form) over {len(nd.levels)} levels")
 
-    f8, nops = 8, 0
-    nbytes = f8 * 2 * (n_J + 1)           # rhs in, x out
-    for L in nd.levels:
-        nk, a, b = L.nk, L.amax, L.bmax
-        nbytes += f8 * (nk * (a * (a + 1) // 2 + a * b) + nk * (a + b))
-        nops += nk * (2 * a * a + 4 * a * b) + int((L.bdofs < n_J).sum())
-    bnd, by = bound_ms(nbytes, nops)
+    bnd, by, fbytes = solve_bound(nd.levels, n_J)
     sweeps = [(Lf, t) for Lf, _ in fact for t in (False, True)]
     rs = [torch.as_tensor(rng.standard_normal((Lf.shape[0], Lf.shape[1], 1)),
                           device=dev) for Lf, _ in sweeps]
@@ -816,7 +917,9 @@ def solve_phases(nd, fact, torch, K, rng, tag=""):
     print(f"[time] front_solve{tag}: device ms per launch "
           f"{row['ms'] / per_solve!r}"
           f" ({per_solve} per nd_solve); bound per nd_solve {bnd!r} ms "
-          f"({by})")
+          f"({by}; factors {fbytes!r} bytes, counted twice less "
+          f"{min(fbytes, L2_BYTES)!r}: the L2's worth the backward sweep "
+          f"may find on chip)")
     return dict(name="front_solve",
                 source="mgbtpu_torch/kernels/csrc/front_solve.cu",
                 replaces="mgbtpu/ops/pallas_dd.py:446", max_abs_err=max(errs),
@@ -1315,14 +1418,30 @@ def timed_setup(tag, build):
     return prob
 
 
+def require_forms(tag, K, large):
+    """The front kernels' large forms launched in the run just counted
+    (``large`` True: both did, the fem3d fronts) or not at all (False: the
+    fem2d fronts keep their one-block forms); prints their counts."""
+    big = (K.front_factor.large_launches, K.front_solve.large_launches)
+    print(f"[form] {tag}: large-form launches front_factor {big[0]} of "
+          f"{K.front_factor.launches}, front_solve {big[1]} of "
+          f"{K.front_solve.launches}")
+    if large and not all(big):
+        raise RuntimeError(f"{tag}: the large front forms did not launch")
+    if not large and any(big):
+        raise RuntimeError(f"{tag}: a front took the large form")
+
+
 def p_laplace_solve(tag, prob, torch, K, smi, need, ref=None,
-                    polish_its=None):
+                    polish_its=None, large=None):
     """One p=1 ``mgb_solve`` of ``prob`` on the card, with
     the launch counters set to 0 just before it and read just after:
     prints its wall, counts, host syncs and launches, requires the kernels
-    ``need`` to have launched, and holds it to the x64 record ``ref`` where
-    given (``check_totals``): a file under ``mgbtpu_torch/data``, or a
-    record (``ref_record``). Returns the solution and the launches."""
+    ``need`` to have launched (and the front kernels' large forms to have
+    launched, ``large`` True, or not, False: ``require_forms``), and holds
+    it to the x64 record ``ref`` where given (``check_totals``): a file
+    under ``mgbtpu_torch/data``, or a record (``ref_record``). Returns the
+    solution and the launches."""
     from mgbtpu_torch import mgb_solve
     from mgbtpu_torch.solver.newton import SYNCS
 
@@ -1334,6 +1453,8 @@ def p_laplace_solve(tag, prob, torch, K, smi, need, ref=None,
           f"{smi}): {la}; power_cone by mode 0/1/2: "
           f"{K.power_cone_eval.mode_launches}")
     require_launches(tag, la, need)
+    if large is not None:
+        require_forms(tag, K, large)
     if isinstance(ref, str):
         ref = np.load(os.path.join(DATA, ref))
     if ref is not None:
@@ -1343,7 +1464,8 @@ def p_laplace_solve(tag, prob, torch, K, smi, need, ref=None,
 
 def fem3d_kernel_phases(prob, L, torch, K):
     """K1, K4, K5a and K5b at the fem3d k=3 (Q3, p = 64) level-L shapes,
-    where the wide forms take them: K1 and K4 against their plain versions
+    where K1's and K4's wide forms and the front kernels' large forms take
+    them: K1 and K4 against their plain versions
     and timed on the top level of the main system (nD = 5) and of the
     phase-I system (nD = 8); K5a on every tree level of the top level's
     nested dissection (seeded SPD element blocks), one ``nd_factor``'s
@@ -1367,6 +1489,11 @@ def fem3d_kernel_phases(prob, L, torch, K):
     nd = nd_plan(prob.M[0], ops, ProblemKernels.ND_LEAF_ELEMS,
                  torch.device("cuda"))
     print(f"[setup] {tag} ND plan {time.time() - t0!r} s")
+    shapes = [(lv.nk, lv.amax, lv.bmax) for lv in nd.levels]
+    stored = {4: FEM3D_L4, 5: FEM3D_L5}.get(L)
+    if stored is not None and shapes != stored:
+        raise RuntimeError(f"{tag}: the ND plan's levels {shapes} are not "
+                           f"the stored FEM3D_L{L} {stored}")
     levels, fact = recorded_fronts(nd, ops.N, ops.C, torch, K, rng)
     err5, row5 = factor_levels_phase(tag, levels, torch, K, reps=10,
                                      plain_reps=5)
@@ -1391,34 +1518,104 @@ def fem3d_problem(L):
     return assemble(amg(subdivide(fem3d(k=3), L)), p=1.0, device="cuda")
 
 
+# (nk, amax, bmax) leaf .. root of the fem3d k=3 L=4 and L=5 plans (the
+# main system's NDPlan, from subdivide(fem3d(k=3), L) -> amg ->
+# assemble(p=1)); ``fem3d_kernel_phases`` checks each against the plan it
+# builds (L=5 with ``--fem3d-level 5``: ~1 minute of host setup). L=5: N =
+# 4,096 hexes, n_J = 365,967. The card and CPU tests take them from here.
+FEM3D_L4 = [(64, 637, 218), (32, 25, 313), (16, 55, 403), (8, 121, 397),
+            (4, 121, 529), (2, 253, 529), (1, 529, 1)]
+FEM3D_L5 = [(512, 637, 218), (256, 25, 362), (128, 55, 578), (64, 121, 866),
+            (32, 121, 1273), (16, 253, 1669), (8, 529, 1657), (4, 529, 2209),
+            (2, 1081, 2209), (1, 2209, 1)]
+
+
+def seeded_nd(torch, shapes, rng):
+    """An ND plan's tree levels at ``shapes`` [(nk, a, b)] over made-up dof
+    maps on the card: level li's fronts own the next nk * a dofs, each
+    front's b boundary dofs drawn from the dofs of the levels above (the
+    root's the dump slot)."""
+    from types import SimpleNamespace
+
+    from mgbtpu_torch.ops.ndchol import NDLevel, boundary_incidence
+
+    n_J = sum(nk * a for nk, a, _ in shapes)
+    start, levels = 0, []
+    t = lambda x: torch.as_tensor(x, device="cuda")  # noqa: E731
+    for li, (nk, a, b) in enumerate(shapes):
+        adofs = np.arange(start, start + nk * a).reshape(nk, a)
+        start += nk * a
+        pool = np.arange(start, n_J)
+        bdofs = np.stack([np.sort(rng.choice(pool, b, replace=False))
+                          if len(pool) >= b else np.full(b, n_J)
+                          for _ in range(nk)])
+        rows, inc = boundary_incidence(bdofs, n_J)
+        levels.append(NDLevel(t(adofs), t(bdofs), t(rows), t(inc), li, nk, a,
+                              b))
+    return SimpleNamespace(levels=tuple(levels), parts=(), n_J=n_J)
+
+
+def fem3d_l5_phases(torch, K):
+    """K5a and K5b at the ten tree levels of the fem3d k=3 L=5 plan
+    (``FEM3D_L5``) on seeded SPD fronts made on the card, without the L=5
+    problem's host setup: K5a per level (its form, the other form, the
+    plain version, the library composition) and per ``nd_factor``
+    (``factor_levels_phase``); K5b on its factors over made-up dof maps
+    (each level's fronts own distinct dofs, 365,967 in all as in the plan;
+    each front's boundary dofs drawn from the levels above, the root's the
+    dump slot), per level and per ``nd_solve`` (``solve_phases``). Returns
+    the largest K5a and K5b errors."""
+    t0 = time.time()
+    levels = seeded_fronts(torch, FEM3D_L5, 5)
+    torch.cuda.synchronize()
+    print(f"[setup] fem3d L=5 seeded fronts on the card {time.time() - t0!r}"
+          f" s: (nk, amax, bmax) leaf..root {FEM3D_L5}")
+    err_a, _ = factor_levels_phase("fem3d L=5 (seeded)", levels, torch, K,
+                                   reps=5, plain_reps=3)
+    fact = [K.front_factor(F, a, b)[:2] for F, a, b in levels]
+    del levels
+    rng = np.random.default_rng(5005)
+    nd = seeded_nd(torch, FEM3D_L5, rng)
+    row = solve_phases(nd, fact, torch, K, rng, tag=" fem3d L=5 (seeded)")
+    del fact
+    torch.cuda.synchronize()
+    print(f"[time] fem3d L=5 seeded phases {time.time() - t0!r} s")
+    return err_a, row["max_abs_err"]
+
+
 def slice7_solves(prob3d, L3d, torch, K, smi):
     """The solves of the tensor-product and P1 slice on the card: fem3d
     k=3 p=1 at L=3 and at L3d (``prob3d``, the slice's path; L3d = 4 by
     default), fem2d_P1 p=1 at L=5, each held to its x64 record (fem3d at
     L3d where one is stored), and the fem1d golden vector of
-    ``tests/test_golden.py``. Returns the L3d solve's launches."""
+    ``tests/test_golden.py``. Returns the L3d solve's launches and wall
+    seconds (its checks included)."""
     from mgbtpu_torch import amg, assemble, fem1d, fem2d_P1, subdivide
 
     cone_mesh = ["power_cone"] + MESH
     p_laplace_solve("fem3d k=3 L=3",
                     timed_setup("fem3d k=3 L=3", lambda: fem3d_problem(3)),
-                    torch, K, smi, cone_mesh, "ref_fem3d_k3_L3.npz")
+                    torch, K, smi, cone_mesh, "ref_fem3d_k3_L3.npz",
+                    large=True)
     ref = f"ref_fem3d_k3_L{L3d}.npz"
     if not os.path.exists(os.path.join(DATA, ref)):
         print(f"[reference] fem3d k=3 L={L3d}: no stored x64 record")
         ref = None
+    t0 = time.time()
     _, la = p_laplace_solve(f"fem3d k=3 L={L3d}", prob3d, torch, K, smi,
-                            cone_mesh, ref)
+                            cone_mesh, ref, large=True)
+    wall = time.time() - t0
     p_laplace_solve("fem2d_P1 L=5", timed_setup("fem2d_P1 L=5", lambda: (
         assemble(amg(subdivide(fem2d_P1(), 5)), p=1.0, device="cuda"))),
-        torch, K, smi, cone_mesh, "ref_fem2d_p1_L5.npz", P1_FLOOR_ITS)
+        torch, K, smi, cone_mesh, "ref_fem2d_p1_L5.npz", P1_FLOOR_ITS,
+        large=False)
     gold = np.asarray([-1, -1, -1, 1, 0, 0, 2, 2.0]).reshape(2, -1).T
     sol, _ = p_laplace_solve(
         "fem1d golden", assemble(amg(fem1d(nodes=np.linspace(-1, 1, 3))),
                                  p=1.0, device="cuda"),
         torch, K, smi, ["panel_fwd", "power_cone", "panel_adj"])
     golden_check("fem1d golden", sol.z, gold)
-    return la
+    return la, wall
 
 
 SPECTRAL_REF = "ref_spectral.npz"
@@ -2622,6 +2819,7 @@ def main(argv=None) -> int:
           f"power_cone by mode 0/1/2: {K.power_cone_eval.mode_launches}")
     require_launches("fem2d_P2 p=1 L=5", launches,
                      [n for n in launches if n != "node_barrier"])
+    require_forms("fem2d_P2 p=1 L=5", K, large=False)
 
     check_totals("fem2d_P2 p=1 L=5", sol, np.load(REF))
     mesh_phases(mg5, prob, sol, s2, torch, K, smi)
@@ -2634,11 +2832,24 @@ def main(argv=None) -> int:
     L3d = args.fem3d_level
     prob3d = timed_setup(f"fem3d k=3 L={L3d}", lambda: fem3d_problem(L3d))
     wide = fem3d_kernel_phases(prob3d, L3d, torch, K)
-    launches3d = slice7_solves(prob3d, L3d, torch, K, smi)
+    launches3d, wall3d = slice7_solves(prob3d, L3d, torch, K, smi)
     for r in wide:
         r["launches"] = launches3d[r["name"].split()[0]]
     records += wide
+    if args.profile:
+        from mgbtpu_torch import mgb_solve
+        from mgbtpu_torch.solver.newton import SYNCS
+
+        profile(lambda: _timed_solve(prob3d, mgb_solve, torch, SYNCS),
+                wall3d, f"fem3d k=3 L={L3d}")
     del prob3d
+    if L3d != 5:
+        errs5 = dict(zip(("front_factor", "front_solve"),
+                         fem3d_l5_phases(torch, K)))
+        for r in wide:
+            kern = r["name"].split()[0]
+            if kern in errs5:
+                r["max_abs_err"] = max(r["max_abs_err"], errs5[kern])
 
     mg32, prob32 = timed_setup("spectral2d n=32",
                                lambda: spectral_problem("spectral2d", 32))
@@ -2707,10 +2918,11 @@ def print_ptxas(secs, info):
               f"{r.get('spill_loads')} bytes spill stores / loads")
 
 
-def profile(run, wall):
-    """One L=5 solve under torch.profiler: the device's busy time against
-    the profiled wall and against ``wall``, the unprofiled solve's; prints
-    the top kernels by device time."""
+def profile(run, wall, tag="L=5"):
+    """One solve (``run``) under torch.profiler: the device's busy time
+    against the profiled wall and against ``wall``, the unprofiled solve's;
+    prints the top kernels by device time and the top host ops by CPU
+    time."""
     from torch.profiler import ProfilerActivity, profile as tprof
 
     with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
@@ -2719,10 +2931,11 @@ def profile(run, wall):
     ka = pr.key_averages()
     busy = device_us(ka) / 1e6
     print(f"[profile] averaging the trace took {time.time() - t0!r} s")
-    print(f"[profile] L=5 solve {secs!r} s wall under the profiler, device "
+    print(f"[profile] {tag} solve {secs!r} s wall under the profiler, device "
           f"busy {busy!r} s: {busy / secs!r} of the profiled wall, "
           f"{busy / wall!r} of the unprofiled solve's {wall!r} s")
     print(ka.table(sort_by="self_device_time_total", row_limit=40))
+    print(ka.table(sort_by="self_cpu_time_total", row_limit=25))
 
 
 if __name__ == "__main__":

@@ -20,7 +20,8 @@ On a mesh, K3's two phases run apart (``panel_adj_contrib`` per shard,
 Each wrapper runs its plain PyTorch version when its inputs lie on the CPU
 and launches its kernel when they lie on a CUDA device; it never falls back.
 Each counts its launches in the integer attribute ``launches`` (K5b's two
-sweeps share ``front_solve.launches``; K2 also counts them by mode in
+sweeps share ``front_solve.launches``; K5a and K5b also count those in
+their large forms in ``large_launches``; K2 also counts them by mode in
 ``mode_launches``; K6 also counts those in the cobarrier form in
 ``co_launches``, by mode in ``mode_launches`` and those of a table with a
 wide piece, a runtime-width cone or a wide linear block, in
@@ -49,6 +50,8 @@ WRAPPERS = {"panel_fwd": panel_fwd, "power_cone": power_cone_eval,
 def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
+    front_factor.large_launches = 0
+    front_solve.large_launches = 0
     node_barrier.co_launches = 0
     node_barrier.wide_launches = 0
     node_barrier.table_launches = 0

@@ -19,12 +19,36 @@ A is not positive definite comes back all NaN (the reference's cholesky
 semantics, which ``nd_finite`` reads). What bounds it on an H100: at the
 front sizes of the fem2d_P2 levels (f = a + b <= 190 at L=7) neither bytes
 nor flops but the chain of its ceil(a/32) panels, a few block barriers
-each. That form holds a whole panel, f x 34 doubles and 17 KB, in shared
-memory, so it takes fronts up to f = 790; a wider front (the fem3d Q3 L=4
-leaves: f = 855) takes the wide form, which passes each panel's rows
-through shared memory 256 at a time and stages S's U rows back from L2,
-with the same operations in the same order (the same bits), and takes
-any f. The C entry picks the form by f.
+each. That form holds a whole panel, f x 34 doubles, in shared memory, so
+it takes fronts up to f = 790.
+
+One block a front leaves the card idle on the fem3d Q3 levels: few fronts
+of large a and b (the L=5 plan's upper levels hold 1-32 fronts of f =
+1,394 .. 3,290, up to 8 GFLOP a front). Those take the large form: all
+fronts of a tree level at once over every block of the card, in 64-column
+panels, each phase a kernel launched by the C entry as a programmatic
+dependent of the one before (one wrapper call a level, as before). A
+panel's rows first take their products with the earlier panels (a GEMM on
+the f64 tensor cores, ``mma.sync`` m16n8k16, 64 x 64 tiles, three blocks
+an SM); a block a front factors the diagonal tile (two 32-column warp
+halves); blocks of 256 rows solve the panel's rows below it; at the end S
+= C - U U' is one GEMM over all columns that reads C from F, each lower
+tile's products also giving its mirror tile from C's own upper entries
+(C need not be symmetric, as in the plain version). This
+left-looking order writes each output once; a level of one front takes
+the right-looking order instead (each panel's product off the trailing
+triangle after it), which spreads each panel's work over the card. A front
+with a pivot that is not > 0 is marked in device memory (the flags cleared
+by the first kernel, so no memset breaks the chain) and comes back all
+NaN. Its sums run in another order than the other forms' (held to them and
+to the plain version by tolerance), in a fixed one (a repeat call gives
+the same bits). What bounds it: on the levels of many fronts the device
+memory of the panels' GEMMs and of F; on the levels of few the chain of
+its ceil(a/64) panels, three kernels each.
+
+The wrapper picks the form by shape (``form_of``) and passes it to the C
+entry: the large form for f = a + b >= 320 (every fem3d Q3 front; no fem2d
+front, whose f <= 190), else the one-panel form.
 """
 from __future__ import annotations
 
@@ -35,8 +59,18 @@ import torch
 from . import _build as B
 
 NAME = "front_factor"
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_FORM = 0   # the C entry's form: 0 by shape; the card tests set 1 or 2
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FORM = 0   # 0: the form by shape (form_of); the card tests set 1 or 2
+ONE_PANEL, LARGE = 1, 2
+FORM_NAMES = {ONE_PANEL: "one-panel", LARGE: "large"}
+LARGE_F = 320          # the narrowest front of the large form
+ONE_PANEL_F = 790      # the widest front the one-panel form takes
+
+
+def form_of(nk, a, b):
+    """The form a level of nk fronts (a, b) takes by shape: ``LARGE`` for
+    f = a + b >= 320, else ``ONE_PANEL``."""
+    return LARGE if a + b >= LARGE_F else ONE_PANEL
 
 
 def cholesky_nan(A):
@@ -73,12 +107,16 @@ def front_factor(F, amax, bmax):
     Lf = torch.empty((nk, amax, amax), **kw)
     U = torch.empty((nk, bmax, amax), **kw)
     S = torch.empty((nk, bmax, bmax), **kw)
+    sync = torch.empty((nk + 1,), dtype=torch.int32, device=F.device)
+    code = _FORM or form_of(nk, amax, bmax)
     fn = B.launcher(NAME, _ARGS)
-    err = fn(B.ptr(F), B.ptr(Lf), B.ptr(U), B.ptr(S), nk, amax, bmax, ld,
-             _FORM, B.stream(F.device))
+    err = fn(B.ptr(F), B.ptr(Lf), B.ptr(U), B.ptr(S), B.ptr(sync), nk, amax,
+             bmax, ld, code, B.stream(F.device))
     B.check(NAME, err)
     front_factor.launches += 1
+    front_factor.large_launches += code == LARGE
     return Lf, U, S
 
 
 front_factor.launches = 0
+front_factor.large_launches = 0     # those in the large form

@@ -23,7 +23,33 @@ the next one is scheduled while it runs. What bounds it on an H100: bytes
 in principle (the factor and U read once, 2 flops per 8 bytes); at these
 front sizes the ceil(a/32)-step chain of tile solves.
 
-The two sweeps share one launch count, ``front_solve.launches``.
+One block a front reads a fem3d Q3 front's factor (up to 40 MB at the L=5
+plan's root) through one SM. Those fronts take the large form: [Lf; U]
+in bands of 32 rows (forward) or Lf's columns in bands of 32 (backward), a
+block a band, so each byte of the factor is read once a sweep by the block
+that owns it. A band takes its products with the solved entries tile by
+tile as the bands before it publish them (a per-front ready counter in
+device memory, release/acquire; a counter, so no bits depend on it), each
+lane summing its column in registers, then one shuffle tree (forward) or
+a fold of the warps' sums in order (backward); a warp solves the band's
+diagonal tile and publishes it. Blocks take their logical ids from a
+ticket counter, in the order they start, and a band waits only on bands of
+smaller ids, which are running or done: no wait can deadlock. The U bands
+of the forward sweep form upd = U y the same way. What bounds it: the
+factor's bytes on the levels of many fronts, the chain of ceil(a/32) band
+publications on the levels of few.
+
+The wrapper picks the form by shape (``form_of``) and passes it to the C
+entries: the large form for f = a + b >= 320 (every fem3d Q3 front; no
+fem2d front), else the one-block form. Either is one wrapper call (one
+count) per tree level and sweep: the forward entry launches the level's
+kernel and the separator update. Each large-form launch takes fresh
+counters, zero, from a ring of 2^20 kept for each stream (zeroed again
+when it is used up, once in hundreds of ``nd_solve``s), so no memset
+breaks the chain of programmatic dependents.
+
+The two sweeps share one launch count, ``front_solve.launches``; those in
+the large form also count in ``front_solve.large_launches``.
 """
 from __future__ import annotations
 
@@ -35,10 +61,50 @@ import torch
 from . import _build as B
 
 NAME = "front_solve"
-_FWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_FWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FORM = 0   # 0: the form by shape (form_of); the card tests set 1 or 2
+ONE_BLOCK, LARGE = 1, 2
+FORM_NAMES = {ONE_BLOCK: "one-block", LARGE: "large"}
+LARGE_F = 320          # the narrowest front of the large form
 
-front_solve = SimpleNamespace(launches=0)   # K5b's launches, both sweeps
+# K5b's launches, both sweeps; large_launches: those in the large form
+front_solve = SimpleNamespace(launches=0, large_launches=0)
+
+
+_RING = 1 << 20        # counters a ring holds
+_RINGS: dict = {}      # (device, stream) -> [ring, next unused counter]
+
+
+def form_of(nk, a, b):
+    """The form a level of nk fronts (a, b) takes by shape: ``LARGE`` for
+    f = a + b >= 320, else ``ONE_BLOCK``."""
+    return LARGE if a + b >= LARGE_F else ONE_BLOCK
+
+
+def _counters(device, nk):
+    """A large-form launch's nk + 1 counters (the ticket, then the fronts'
+    ready counts), zero: the next unused stretch of the ring kept for the
+    current stream of ``device``. A ring that is used up is zeroed again
+    on the stream, behind the launches that used it."""
+    s = torch.cuda.current_stream(device)
+    key = (s.device_index, s.cuda_stream)
+    ring = _RINGS.get(key)
+    if ring is None or ring[0].numel() < nk + 1:
+        ring = _RINGS[key] = [torch.zeros(max(_RING, nk + 1),
+                                          dtype=torch.int32, device=device),
+                              0]
+    buf, at = ring
+    if at + nk + 1 > buf.numel():
+        buf.zero_()
+        at = 0
+    ring[1] = at + nk + 1
+    return buf[at:at + nk + 1]
+
+
+def _count(code):
+    front_solve.launches += 1
+    front_solve.large_launches += code == LARGE
 
 
 def front_forward_plain(Lf, U, adofs, r, rows, inc):
@@ -91,12 +157,15 @@ def front_forward(Lf, U, adofs, r, rows, inc):
     B.cuda_i64(NAME, inc, (nr, Kb), "inc")
     y = torch.empty((nk, a), dtype=torch.float64, device=r.device)
     upd = torch.empty((nk, b), dtype=torch.float64, device=r.device)
+    code = _FORM or form_of(nk, a, b)
+    sync = _counters(r.device, nk) if code == LARGE else None
     fn = B.launcher(NAME, _FWD_ARGS, "front_forward_launch")
     err = fn(B.ptr(Lf), B.ptr(U), B.ptr(adofs), B.ptr(rows), B.ptr(inc),
-             B.ptr(r), B.ptr(y), B.ptr(upd), nk, a, b, nr, Kb,
+             B.ptr(r), B.ptr(y), B.ptr(upd),
+             None if sync is None else B.ptr(sync), nk, a, b, nr, Kb, code,
              B.stream(r.device))
     B.check(NAME, err)
-    front_solve.launches += 1
+    _count(code)
     return y, upd
 
 
@@ -110,9 +179,16 @@ def front_backward(Lf, U, adofs, bdofs, y, x):
     B.cuda_i64(NAME, bdofs, (nk, b), "bdofs")
     B.cuda_f64(NAME, y, (nk, a), "y")
     xA = torch.empty((nk, a), dtype=torch.float64, device=x.device)
+    code = _FORM or form_of(nk, a, b)
+    sync = xs = None
+    if code == LARGE:
+        sync = _counters(x.device, nk)
+        xs = torch.empty((nk, a), dtype=torch.float64, device=x.device)
     fn = B.launcher(NAME, _BWD_ARGS, "front_backward_launch")
     err = fn(B.ptr(Lf), B.ptr(U), B.ptr(adofs), B.ptr(bdofs), B.ptr(y),
-             B.ptr(x), B.ptr(xA), nk, a, b, n_J, B.stream(x.device))
+             B.ptr(x), B.ptr(xA), None if sync is None else B.ptr(sync),
+             None if xs is None else B.ptr(xs), nk, a, b, n_J, code,
+             B.stream(x.device))
     B.check(NAME, err)
-    front_solve.launches += 1
+    _count(code)
     return xA

@@ -1,7 +1,10 @@
 """PyTorch port, the seven CUDA kernels against their plain PyTorch versions
 on the card, at small ragged shapes and in every mode the wrappers take,
-K1, K4 and K5a at the fem3d Q3 shapes that take their wide forms, and K1
-and K3 at the one-element spectral shapes that take their spread forms.
+K1 and K4 at the fem3d Q3 shapes that take their wide forms, K5a and K5b
+at every level of the fem3d L=4 and L=5 plans, which take their large
+forms (1e-12 relative: they sum in other orders and over up to 2,210
+products), and K1 and K3 at the one-element spectral shapes that take
+their spread forms.
 
 Marked ``cuda``: each test skips without a card. The file imports neither
 JAX nor ``mgbtpu``, so it runs on a machine without them:
@@ -27,6 +30,7 @@ import torch
 
 import mgbtpu_torch as mt
 import mgbtpu_torch.kernels as K
+from chip_smoke import FEM3D_L4, FEM3D_L5
 from mgbtpu_torch.kernels.node_barrier import POWER
 from mgbtpu_torch.ops.ndchol import boundary_incidence
 from mgbtpu_torch.solver.levelops import inverse_incidence
@@ -982,19 +986,22 @@ def test_front_factor_bad_pivot_in_second_panel(dev):
 # (nk, amax, bmax): the seven tree levels of the fem3d Q3 L=4 plan, leaf
 # (f = 855, past the one-panel form's 790) to root, nk cut to 4 (the
 # shapes matter, not the batch); a front at the one-panel form's last f
-# and its first wide one; f = 2,400, as wide as the L=5 plan's fronts
+# and one past it; f = 2,400, as wide as the L=5 plan's fronts
 FEM3D_FRONTS = [(4, 637, 218), (4, 55, 403), (4, 25, 313), (4, 121, 397),
                 (4, 121, 529), (2, 253, 529), (1, 529, 0), (2, 700, 90),
                 (2, 700, 91), (2, 1600, 800)]
+ONE_BLOCK = 1                                   # K5a's and K5b's forms
+LARGE = 2
 
 
 @pytest.mark.parametrize("nk,a,b", FEM3D_FRONTS)
 def test_front_factor_wide_fronts(dev, nk, a, b):
-    """K5a on the fem3d fronts against its plain version (1e-12 relative:
-    at f = 2,400 each entry sums up to 2,400 products), front 1 not
-    positive definite where there is one (all NaN), repeat calls bitwise;
-    the wide form gives the one-panel form's bits where both take the
-    front, and the one-panel form refuses the others."""
+    """K5a on the fem3d fronts (the large form, by shape) against its plain
+    version (1e-12 relative: at f = 2,400 each entry sums up to 2,400
+    products), front 1 not positive definite where there is one (all NaN),
+    repeat calls bitwise; the one-panel form agrees with it (1e-12: they
+    sum in other orders) where it takes the front, and refuses the
+    others."""
     rng = np.random.default_rng(a * 7 + b)
     F = _fronts(rng, nk, a, b)
     if nk > 1:
@@ -1007,13 +1014,10 @@ def test_front_factor_wide_fronts(dev, nk, a, b):
             assert torch.isnan(out[1]).all()
     for out, again in zip(outs, K.front_factor(F, a, b)):
         assert _same_bits(out, again)
-    wide = _in_form(K.front_factor, WIDE, F, a, b)
     if a + b <= 790:
-        for x, y in zip(wide, _in_form(K.front_factor, STAGED, F, a, b)):
-            assert _same_bits(x, y)
+        for x, y in zip(outs, _in_form(K.front_factor, STAGED, F, a, b)):
+            assert _rel(x, y) <= 1e-12
     else:
-        for x, y in zip(wide, outs):
-            assert _same_bits(x, y)
         with pytest.raises(RuntimeError, match="front_factor launch failed"):
             _in_form(K.front_factor, STAGED, F, a, b)
 
@@ -1021,15 +1025,117 @@ def test_front_factor_wide_fronts(dev, nk, a, b):
 @pytest.mark.parametrize("nk,a,b", [(64, 73, 16), (3, 33, 20), (5, 40, 0),
                                     (4, 91, 190)])
 def test_front_factor_forms_agree(dev, nk, a, b):
-    """The wide form gives the one-panel form's bits on the fem2d_P2
-    fronts, with a bad front in the batch."""
+    """The large form, forced, agrees with the one-panel form that takes
+    the fem2d_P2 fronts by shape (1e-12: they sum in other orders), a bad
+    front in the batch all NaN in both."""
     rng = np.random.default_rng(a + 2 * b)
     F = _fronts(rng, nk, a, b)
     F[nk // 2, a // 2, a // 2] = -1e3
     F = torch.as_tensor(F, device=dev)
-    for x, y in zip(_in_form(K.front_factor, WIDE, F, a, b),
+    for x, y in zip(_in_form(K.front_factor, LARGE, F, a, b),
+                    _in_form(K.front_factor, STAGED, F, a, b)):
+        assert _rel(x, y) <= 1e-12
+        assert torch.isnan(x[nk // 2]).all()
+
+
+# the fem3d k=3 L=4 and L=5 plans' levels (chip_smoke.py, which checks them
+# against the plans its solves build), the L=5 leaves and the next two
+# levels cut to 64 fronts
+LARGE_FRONTS = FEM3D_L4 + [(min(nk, 64), a, b) for nk, a, b in FEM3D_L5]
+
+
+def _card_fronts(nk, a, b, seed):
+    """SPD fronts (nk, f+1, f+1) made on the card (a generator seeded
+    there), A slightly asymmetric; the host would take minutes at f =
+    2,210."""
+    f = a + b
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((nk, f, 2 * f), generator=g, dtype=torch.float64,
+                    device="cuda")
+    F = torch.zeros((nk, f + 1, f + 1), dtype=torch.float64, device="cuda")
+    F[:, :f, :f] = X @ X.mT / f + 0.5 * torch.eye(f, device="cuda")
+    F[:, :a, :a] += 1e-14 * torch.randn((nk, a, a), generator=g,
+                                        dtype=torch.float64, device="cuda")
+    return F
+
+
+@pytest.mark.parametrize("code", [-1, 3])
+def test_front_entries_refuse_other_forms(dev, code):
+    """The C entries take form 1 or 2 only (the wrappers pick it by shape,
+    ``form_of``): any other code raises, in K5a and in both K5b sweeps,
+    and counts no launch."""
+    rng = np.random.default_rng(11)
+    nk, a, b = 3, 33, 20
+    F = torch.as_tensor(_fronts(rng, nk, a, b), device=dev)
+    Lf, U, adofs, bdofs, rows, inc, v, y = _sweep(rng, dev, nk, a, b)
+    before = (K.front_factor.launches, K.front_solve.launches)
+    with pytest.raises(RuntimeError, match="front_factor launch failed"):
+        _in_form(K.front_factor, code, F, a, b)
+    with pytest.raises(RuntimeError, match="front_solve launch failed"):
+        _in_form(K.front_forward, code, Lf, U, adofs, v, rows, inc)
+    with pytest.raises(RuntimeError, match="front_solve launch failed"):
+        _in_form(K.front_backward, code, Lf, U, adofs, bdofs, y, v)
+    assert (K.front_factor.launches, K.front_solve.launches) == before
+
+
+@pytest.mark.parametrize("nk,a,b", FRONTS + [(8, 31, 159), (4, 63, 127)])
+def test_fem2d_fronts_keep_their_forms_and_bits(dev, nk, a, b):
+    """On the fem2d fronts the wrappers take the forms they took before
+    the large forms existed, with their bits: K5a by shape equals the
+    forced one-panel form, K5b the forced one-block form, bitwise, and
+    neither counts a large launch."""
+    rng = np.random.default_rng(a + 3 * b)
+    F = torch.as_tensor(_fronts(rng, nk, a, b), device=dev)
+    before = (K.front_factor.large_launches, K.front_solve.large_launches)
+    for x, y in zip(K.front_factor(F, a, b),
                     _in_form(K.front_factor, STAGED, F, a, b)):
         assert _same_bits(x, y)
+    Lf, U, adofs, bdofs, rows, inc, v, yv = _sweep(rng, dev, nk, a, b)
+    w1, w2 = v.clone(), v.clone()
+    got = (*K.front_forward(Lf, U, adofs, w1, rows, inc), w1)
+    ref = (*_in_form(K.front_forward, ONE_BLOCK, Lf, U, adofs, w2, rows,
+                     inc), w2)
+    got += (K.front_backward(Lf, U, adofs, bdofs, yv, w1), w1)
+    ref += (_in_form(K.front_backward, ONE_BLOCK, Lf, U, adofs, bdofs, yv,
+                     w2), w2)
+    for x, y in zip(got, ref):
+        assert _same_bits(x, y)
+    assert (K.front_factor.large_launches,
+            K.front_solve.large_launches) == before
+
+
+@pytest.mark.parametrize("nk,a,b", LARGE_FRONTS)
+def test_front_factor_large_form(dev, nk, a, b):
+    """K5a's large form (by shape) at every level of the fem3d L=4 and L=5
+    plans against its plain version, 1e-12 relative; a repeat call gives
+    the same bits; one count and one large count a call."""
+    F = _card_fronts(nk, a, b, seed=a + b)
+    before = (K.front_factor.launches, K.front_factor.large_launches)
+    outs = K.front_factor(F, a, b)
+    for out, ref in zip(outs, K.front_factor_plain(F, a, b)):
+        assert _rel(out, ref) <= 1e-12
+    assert torch.equal(torch.triu(outs[0], 1), torch.zeros_like(outs[0]))
+    for out, again in zip(outs, K.front_factor(F, a, b)):
+        assert _same_bits(out, again)
+    assert (K.front_factor.launches, K.front_factor.large_launches) == \
+        (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("nk,a,b", [(3, 637, 218), (3, 253, 529),
+                                    (3, 1081, 300)])
+def test_front_factor_large_form_bad_pivots(dev, nk, a, b):
+    """A front whose first pivot that is not > 0 lies in the second
+    64-column panel (column 70) and one whose lies in a late panel (column
+    a - 3) come back all NaN in Lf, U and S; the other front is finite and
+    matches the plain version."""
+    F = _card_fronts(nk, a, b, seed=a)
+    F[1, 70, 70] = -1e3
+    F[2, a - 3, a - 3] = -1e3
+    outs = K.front_factor(F, a, b)
+    for out, ref in zip(outs, K.front_factor_plain(F, a, b)):
+        assert torch.isnan(out[1:]).all()
+        assert torch.isfinite(out[0]).all()
+        assert _rel(out, ref) <= 1e-12
 
 
 def _sweep(rng, dev, nk, a, b):
@@ -1082,6 +1188,112 @@ def test_front_solve(dev, nk, a, b, transpose):
         assert _same_bits(out, again)
     if nk > 1:                                   # the NaN front's slots
         assert torch.isnan(outs[0][0][1][adofs[1] < v.shape[0] - 1]).all()
+
+
+@pytest.mark.parametrize("nk,a,b", [(4, 121, 397), (3, 253, 529),
+                                    (1, 529, 100), (1, 300, 200)])
+def test_front_factor_large_form_asymmetric_c(dev, nk, a, b):
+    """C enters S = C - U U' entry by entry, its upper triangle too: with
+    C's upper triangle perturbed by 1e-3 (far past the tolerance) the
+    large form (left-looking for several fronts, right-looking for one)
+    matches the plain version to 1e-12, and S comes back as asymmetric as
+    the plain version's."""
+    F = _card_fronts(nk, a, b, seed=7 * a + b)
+    g = torch.Generator(device="cuda").manual_seed(b)
+    E = torch.randn((nk, b, b), generator=g, dtype=torch.float64,
+                    device="cuda")
+    F[:, a:a + b, a:a + b] += 1e-3 * torch.triu(E, 1)
+    outs = K.front_factor(F, a, b)
+    for out, ref in zip(outs, K.front_factor_plain(F, a, b)):
+        assert _rel(out, ref) <= 1e-12
+    S = outs[2]
+    assert float((S - S.mT).abs().max()) > 1e-5
+
+
+@pytest.mark.parametrize("col", [70, 526])
+def test_front_factor_large_form_one_bad_front(dev, col):
+    """A level of one front (the right-looking order) whose first pivot
+    that is not > 0 lies in the second panel or the last comes back all
+    NaN, as the plain version does."""
+    F = _card_fronts(1, 529, 1, seed=col)
+    F[0, col, col] = -1e3
+    for out, ref in zip(K.front_factor(F, 529, 1),
+                        K.front_factor_plain(F, 529, 1)):
+        assert torch.isnan(out).all() and torch.isnan(ref).all()
+
+
+def _card_sweep(rng, dev, nk, a, b, seed):
+    """``_sweep``'s level at a large front: Lf the factor of SPD fronts
+    made on the card, U seeded there; front 1, where there is one, all
+    NaN."""
+    Lf = torch.linalg.cholesky(_card_fronts(nk, a, b, seed)[:, :a, :a])
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    U = torch.randn((nk, b, a), generator=g, dtype=torch.float64,
+                    device="cuda")
+    n_J = nk * a + b + 4
+    perm = rng.permutation(n_J)
+    adofs = perm[:nk * a].reshape(nk, a)
+    adofs[nk // 2, a - 1] = n_J
+    bdofs = np.stack([np.sort(rng.choice(perm[nk * a:], b, replace=False))
+                      for _ in range(nk)])
+    bdofs[0, b - 1] = n_J
+    U[0, b - 1] = 0.0
+    if nk > 1:
+        Lf[1] = U[1] = float("nan")
+    rows, inc = boundary_incidence(bdofs, n_J)
+    v = np.append(rng.standard_normal(n_J), 0.0)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    return (Lf.contiguous(), U, t(adofs), t(bdofs), t(rows), t(inc), t(v),
+            t(rng.standard_normal((nk, a))))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("nk,a,b", LARGE_FRONTS)
+def test_front_solve_large_form(dev, nk, a, b, transpose):
+    """K5b's large form (by shape) at every level of the fem3d L=4 and L=5
+    plans against its plain version, forward (y, upd and the separator-
+    updated r) and backward (xA and the written x), 1e-12 relative, the NaN
+    front propagating as in the plain version; repeat calls give the same
+    bits; one count and one large count a call."""
+    rng = np.random.default_rng(a * 5 + b)
+    Lf, U, adofs, bdofs, rows, inc, v, y = _card_sweep(rng, dev, nk, a, b,
+                                                       seed=a + 2 * b)
+    before = (K.front_solve.launches, K.front_solve.large_launches)
+    outs = []
+    for fwd, bwd in ((K.front_forward, K.front_backward),) * 2 \
+            + ((K.front_forward_plain, K.front_backward_plain),):
+        w = v.clone()
+        if transpose:
+            outs.append((bwd(Lf, U, adofs, bdofs, y, w), w))
+        else:
+            outs.append((*fwd(Lf, U, adofs, w, rows, inc), w))
+    assert (K.front_solve.launches, K.front_solve.large_launches) == \
+        (before[0] + 2, before[1] + 2)
+    for out, again, ref in zip(*outs):
+        assert _rel(out, ref) <= 1e-12
+        assert _same_bits(out, again)
+
+
+def test_front_solve_large_form_counter_ring(dev, monkeypatch):
+    """K5b's large form takes its counters from a ring kept for the stream
+    and zeroes the ring again when it is used up: with a ring of 64
+    counters (4 a call at nk = 3) the calls wrap it several times, each
+    with the first call's bits."""
+    fs = sys.modules[K.front_forward.__module__]
+    monkeypatch.setattr(fs, "_RING", 64)
+    monkeypatch.setattr(fs, "_RINGS", {})
+    rng = np.random.default_rng(17)
+    Lf, U, adofs, bdofs, rows, inc, v, y = _card_sweep(rng, dev, 3, 253, 529,
+                                                       seed=5)
+    outs = []
+    for _ in range(40):
+        w = v.clone()
+        yv, upd = K.front_forward(Lf, U, adofs, w, rows, inc)
+        outs.append((yv, upd, w, K.front_backward(Lf, U, adofs, bdofs, y, w),
+                     w))
+    for got in outs[1:]:
+        for x, first in zip(got, outs[0]):
+            assert _same_bits(x, first)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
