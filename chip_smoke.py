@@ -75,10 +75,12 @@ made on the card (``fem3d_l5_phases``; K5b over made-up dof maps), the
 same comparisons and timings, without the L=5 problem's setup. Then the
 spectral slice, at spectral2d n=32 (one element of 1,024 nodes, every
 level dense): K1 and K3 in their spread forms (the C entries' choice is
-printed and must be the spread form) against their plain versions and
-timed at its top level (nD = 4, C = 1,924) and at parabolic_solve's
-phase-I rows there (nD = 9), beside one ``torch.addmv``/``torch.mv`` on
-the element's dense panel view; K2 and K6 at those 1,024 nodes, bitwise;
+printed and must be the spread form) against their plain versions, and
+bitwise against their split plain versions (K3's phase A), and timed at
+its top level (nD = 4, C = 1,924) and at parabolic_solve's phase-I rows
+there (nD = 9), beside one ``torch.addmv``/``torch.mv`` on the element's
+dense panel view (K3's phase A alone too); K2 and K6 at those 1,024
+nodes, bitwise;
 then the spectral solves: spectral2d n=32 p=1 (the slice's path: K1, K2
 and K3 must launch, K4 and K5 must not), spectral1d n=128, the golden
 spectral1d n=5 and spectral2d n=5 cases and parabolic_solve on
@@ -350,12 +352,20 @@ def forms(ops, K, tag):
     return out
 
 
+def spread_forms(ops, K):
+    """Whether K1 and K3 take their spread forms (3) at a level's shapes."""
+    shape = ops.panels.shape
+    return tuple(sys.modules[fn.__module__].form(*shape) == 3
+                 for fn in (K.panel_fwd, K.panel_adj))
+
+
 def panel_fwd_phase(ops, torch, K, rng, tag):
     """K1 at a level's shapes (``ops``) against its plain version (the
-    repeat call bitwise), timed against its plain version and one library
-    call: ``torch.addmv`` on G in CSR, or on one element's dense (nD*p, C)
-    panel view (N = 1) with the gathered s[cols[0]] and Dz0 in its (k, q)
-    order. Returns its record."""
+    repeat call bitwise; in the spread form also its split plain version's
+    bits), timed against its plain version and one library call:
+    ``torch.addmv`` on G in CSR, or on one element's dense (nD*p, C) panel
+    view (N = 1) with the gathered s[cols[0]] and Dz0 in its (k, q) order.
+    Returns its record."""
     dev = torch.device("cuda")
     nD, N, p, C = ops.panels.shape
     n_J, m = ops.n_J, ops.N * ops.p
@@ -371,6 +381,10 @@ def panel_fwd_phase(ops, torch, K, rng, tag):
     err = compare(f"panel_fwd {tag}", out, ref)
     same_bits(f"panel_fwd {tag}", out,
               K.panel_fwd(ops.panels, ops.cols, s, dz0))
+    if spread_forms(ops, K)[0]:
+        same_bits(f"panel_fwd {tag}", out,
+                  K.panel_fwd_split_plain(ops.panels, ops.cols, s, dz0),
+                  "its split plain version")
     if N == 1:
         P, c0 = ops.panels.reshape(nD * p, C), ops.cols[0]
         dzf = dz0.t().contiguous().reshape(-1)
@@ -403,11 +417,13 @@ def panel_fwd_phase(ops, torch, K, rng, tag):
 
 def panel_adj_phase(lv, torch, K, rng, tag):
     """K3 at a level's shapes (``lv``) against its plain version (the
-    repeat call bitwise), timed against its plain version and one library
-    call: ``torch.mv`` on G' in CSR, or on one element's dense (nD*p, C)
-    panel view transposed (N = 1) with Y in its (k, q) order (the per-slot
-    sums; their scatter into n_J is left out). Returns (max abs error, its
-    timing row with the bound)."""
+    repeat call bitwise; in the spread form its phase A also against its
+    split plain version's bits), timed against its plain version and one
+    library call: ``torch.mv`` on G' in CSR, or on one element's dense
+    (nD*p, C) panel view transposed (N = 1) with Y in its (k, q) order (the
+    per-slot sums; their scatter into n_J is left out, so for N = 1 phase
+    A alone, ``panel_adj_contrib``, is timed beside it too). Returns (max
+    abs error, its timing row with the bound)."""
     dev = torch.device("cuda")
     nD, N, p, C = lv.panels.shape
     m = N * p
@@ -419,6 +435,11 @@ def panel_adj_phase(lv, torch, K, rng, tag):
     ref = K.panel_adj_plain(*args)
     err = compare(f"panel_adj {tag}", out, ref)
     same_bits(f"panel_adj {tag}", out, K.panel_adj(*args))
+    if spread_forms(lv, K)[1]:
+        same_bits(f"panel_adj {tag} phase A",
+                  K.panel_adj_contrib(lv.panels, Y),
+                  K.panel_adj_contrib_split_plain(lv.panels, Y),
+                  "its split plain version")
     if N == 1:
         PT, c0 = lv.panels.reshape(nD * p, C).t(), lv.cols[0]
         Yf = Y.t().contiguous().reshape(-1)
@@ -428,6 +449,12 @@ def panel_adj_phase(lv, torch, K, rng, tag):
 
         lib_out = torch.zeros(lv.n_J, dtype=torch.float64,
                               device=dev).index_add_(0, c0, library())
+        ba, _ = bound_ms(8 * (nD * p * C + m * nD + C), 2 * nD * m * C)
+        plain_a = sys.modules[K.panel_adj.__module__].panel_adj_contrib_plain
+        timings(f"panel_adj {tag} phase A",
+                lambda: K.panel_adj_contrib(lv.panels, Y),
+                lambda: plain_a(lv.panels, Y), library)
+        print(f"[bound] panel_adj {tag} phase A: {ba!r} ms (bytes)")
     else:
         GT, Yf = csr_of_panels(lv, transpose=True), Y.reshape(-1)
 
@@ -1636,8 +1663,10 @@ def spectral_kernel_phases(mg, prob, torch, K):
     nodes: nD = 4, C = 1,924) and at parabolic_solve's phase-I rows there
     (nD = 9), where their spread forms run: against their plain versions
     (max relative error, non-finite patterns, a repeat call bitwise) and
-    timed beside their bound, their plain versions and one library call
-    on the element's dense panel view; K2 (every mode, bitwise) and K6
+    their split plain versions (bitwise: K1's call, K3's phase A), timed
+    beside their bound, their plain versions and one library call on the
+    element's dense panel view (K3 also its phase A alone beside
+    ``torch.mv``); K2 (every mode, bitwise) and K6
     (the obstacle table and the parabolic pair, every mode and the
     cobarrier form, bitwise) at those 1,024 nodes. Returns K1's and K3's
     records (launches to be filled in)."""

@@ -16,6 +16,9 @@ K6     ``node_barrier``     per-node barrier of any piece table: linear,
 On a mesh, K3's two phases run apart (``panel_adj_contrib`` per shard,
 ``adjoint_sum`` once on the first device), as does K4's per-slot phase
 (``gram_matvec_contrib``), each call counted as a launch of its kernel.
+K1's and K3's spread forms sum in an order of their own, which
+``panel_fwd_split_plain`` and ``panel_adj_contrib_split_plain`` compute in
+plain PyTorch (the card tests hold the kernels to their bits).
 
 Each wrapper runs its plain PyTorch version when its inputs lie on the CPU
 and launches its kernel when they lie on a CUDA device; it never falls back.
@@ -37,8 +40,8 @@ from .gram_matvec import (gram_matvec, gram_matvec_contrib,
                           gram_matvec_plain)
 from .node_barrier import Piece, node_barrier, node_barrier_plain
 from .panel_adj import (adjoint_sum, panel_adj, panel_adj_contrib,
-                        panel_adj_plain)
-from .panel_fwd import panel_fwd, panel_fwd_plain
+                        panel_adj_contrib_split_plain, panel_adj_plain)
+from .panel_fwd import panel_fwd, panel_fwd_plain, panel_fwd_split_plain
 from .power_cone import power_cone_eval, power_cone_plain
 
 WRAPPERS = {"panel_fwd": panel_fwd, "power_cone": power_cone_eval,
@@ -77,6 +80,7 @@ __all__ = ["WRAPPERS", "Piece", "adjoint_sum", "build_all", "cholesky_nan",
            "front_solve",
            "gram_matvec", "gram_matvec_contrib", "gram_matvec_plain",
            "launches", "node_barrier", "node_barrier_plain", "panel_adj",
-           "panel_adj_contrib", "panel_adj_plain", "panel_fwd",
-           "panel_fwd_plain", "power_cone_eval", "power_cone_plain",
+           "panel_adj_contrib", "panel_adj_contrib_split_plain",
+           "panel_adj_plain", "panel_fwd", "panel_fwd_plain",
+           "panel_fwd_split_plain", "power_cone_eval", "power_cone_plain",
            "reset_launches"]

@@ -10,17 +10,29 @@
 // block on a group of whole elements: a level of one element (the spectral
 // levels, N = 1, C up to 1,924 slots over p*nD up to 9,216 rows of 63 MB
 // and more of panels) would run on one block of one SM, and an element
-// past ADJ_STAGE values of Y not at all. Its spread form runs block (x, e)
-// on slots 32x .. 32x + 31 of element e (61 blocks at C = 1,924) and
-// passes the element's (k, q) rows through shared memory, ADJ_SPREAD_ROWS
-// a stage: one warp sums, a lane a slot, while the others stage the rows
-// ahead with cp.async. Each slot's sum runs over the stages in the same
-// (k, q) order, from the same 0.0, so both forms give the same bits and
-// take any p*nD; its p*nD dependent steps on one warp an SM are the
-// critical path at one element. adjoint_launch takes the spread form for
-// p*nD > ADJ_STAGE and for levels of fewer than ADJ_SPREAD_MAX_N elements
-// of at least ADJ_SPREAD_MIN_C slots; every fem level the card runs keeps
-// the staged form. Bound: bytes, the panels read once (2 flops a double).
+// past ADJ_STAGE values of Y not at all. Its spread form splits each
+// slot's sum in two levels instead: the rows i = k*p + q, in that order,
+// go in slabs (adj_split_slab: ADJ_SPLIT_SLAB rows, ADJ_SPLIT_SLAB_SMALL
+// for an element of at most ADJ_SPLIT_SMALL rows, whose few slabs of 128
+// rows would leave the card idle); block (x, slab, e) folds its slab's rows
+// for slots 2t and 2t + 1 of column tile x on its thread t (from 0.0,
+// each product and sum rounded apart) into the slab's partial sums (N x
+// slabs x C doubles of scratch, which the L2 holds), and a second kernel
+// (adjoint_slab_sum_kernel, launched as a programmatic dependent) folds
+// each slot's partials in slab order, from 0.0. The first level reads the
+// panels once: 16-byte loads of neighbouring slots that skip L1 and fetch
+// 256 B into L2 a miss (at the phase-I shape on an H100 at 700 W these
+// took a call from 0.1144 to 0.1046 ms, PERF.md §6),
+// ADJ_SPLIT_BATCH rows in flight and the next batch issued before the
+// last is folded, the slab's values of Y in shared memory. No atomics:
+// panel_adj_contrib_split_plain (panel_adj.py) is that order in plain
+// PyTorch and gives the kernel's bits; the staged form's bits differ in
+// the last places. Grid at spectral2d n = 32: 8 tiles x 32 slabs (its
+// phase-I rows: 16 x 72; spectral1d n = 128: 1 x 12). adjoint_launch
+// takes the spread form for p*nD > ADJ_STAGE and for levels of fewer than
+// ADJ_SPREAD_MAX_N elements of at least ADJ_SPREAD_MIN_C slots; every fem
+// level the card runs keeps the staged form. Bound: bytes, the panels read
+// once (2 flops a double).
 // Phase B sums each column's slots from the inverse incidence inv (n_J, K),
 // padded with N*C at the end, in one of two forms adjoint_launch picks from
 // K:
@@ -53,13 +65,17 @@
 #define ADJ_STAGE 4096         // phase A: most doubles of Y staged per block
 #define ADJ_THREAD_K 32        // phase B: most slots a thread sums alone
 #define ADJ_COL_THREADS 256    // phase B: threads per column in block form
-#define ADJ_SPREAD_WARPS 8     // phase A spread form: one sums, 7 stage
-#define ADJ_SPREAD_ROWS 128    // ... (k, q) rows a stage
-#define ADJ_SPREAD_STAGES 4    // ... stages in shared memory (135 KB)
+// phase A spread form: rows a slab, which set the order (as panel_adj.py's
+// SPLIT_SLAB, SPLIT_SLAB_SMALL and SPLIT_SMALL)
+#define ADJ_SPLIT_SLAB 128     // rows a slab ...
+#define ADJ_SPLIT_SLAB_SMALL 32  // ... and in an element of at most
+#define ADJ_SPLIT_SMALL 2048     // ... this many rows
+// these three leave the order as it is
+#define ADJ_SPLIT_THREADS 128  // ... threads a block, two slots each
+#define ADJ_SPLIT_BATCH 16     // ... rows a thread has in a batch
+#define ADJ_SUM_BATCH 32       // second level: partials a thread loads at once
 #define ADJ_SPREAD_MAX_N 8     // by shape: levels of fewer elements ...
 #define ADJ_SPREAD_MIN_C 64    // ... with at least this many slots each
-static_assert(ADJ_SPREAD_ROWS <= 32 * (ADJ_SPREAD_WARPS - 1),
-              "a staging warp's lanes copy its rows' values of Y");
 
 // P > 0: p == P at compile time (7, the P2 element), so a thread's loads
 // of a row k, and of the next rows, go out together
@@ -94,79 +110,115 @@ __global__ void adjoint_contrib_kernel(const double* __restrict__ panels,
     }
 }
 
-// Phase A, spread form: block (x, e), thread t. Its warp 0 sums: lane l the
-// slot c = x*32 + l of element e, from shared memory and nothing else, so
-// that each of a sum's p*nD steps costs a few instructions (4,096 steps
-// at spectral2d n = 32: the kernel's critical path). Warps 1 ..
-// ADJ_SPREAD_WARPS - 1 stage: a stage holds ADJ_SPREAD_ROWS rows i = k*p
-// + q of the sum's order, each row's 32 panel entries panels[k, e, q, c]
-// (row-major) and then the rows' values of Y, ADJ_SPREAD_STAGES - 1
-// stages in flight ahead of the sums (cp.async).
-__global__ void __launch_bounds__(32 * ADJ_SPREAD_WARPS)
-adjoint_contrib_spread_kernel(const double* __restrict__ panels,
-                              const double* __restrict__ Y,
-                              double* __restrict__ contrib, int nD, int N,
-                              int p, int C) {
-    extern __shared__ __align__(16) double sh[];
+__host__ __device__ __forceinline__ int adj_split_slab(int pn) {
+    return pn > ADJ_SPLIT_SMALL ? ADJ_SPLIT_SLAB : ADJ_SPLIT_SLAB_SMALL;
+}
+
+// Phase A, spread form, first level: block (x, slab, e), thread t folds
+// the slab's rows for slots c = 2*(x*ADJ_SPLIT_THREADS + t) and c + 1 of
+// element e into part[(e*slabs + slab)*C + c] (the note at the top). A
+// row is read 16 bytes a thread where it starts 16-byte aligned, 8 bytes
+// twice otherwise: the same values in the same order.
+__global__ void __launch_bounds__(ADJ_SPLIT_THREADS)
+adjoint_contrib_split_kernel(const double* __restrict__ panels,
+                             const double* __restrict__ Y,
+                             double* __restrict__ part, int nD, int N, int p,
+                             int C) {
+    __shared__ double yv[ADJ_SPLIT_SLAB];
     pdl_wait();
     pdl_trigger();
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    const int e = blockIdx.y, c0 = blockIdx.x * 32;
+    const int t = threadIdx.x, e = blockIdx.z, slab = blockIdx.y;
     const int pn = p * nD;
-    const int stage = ADJ_SPREAD_ROWS * 33;
+    const int rows = adj_split_slab(pn);
+    const int i0 = slab * rows;
+    const int n = min(rows, pn - i0);
+    const int c = 2 * (blockIdx.x * ADJ_SPLIT_THREADS + t);
     const size_t kstride = (size_t)N * p * C;
-    const double* pe = panels + (size_t)e * p * C + c0 + lane;
-    const double* ye = Y + (size_t)e * pn;
-    const bool mine = c0 + lane < C;            // this lane's slot exists
-    const int nst = (pn + ADJ_SPREAD_ROWS - 1) / ADJ_SPREAD_ROWS;
-    const int nw = ADJ_SPREAD_WARPS - 1, sw = warp - 1;   // staging warps
-    // a staging warp's share of stage j, its rows lo .. hi - 1 ((k, q) and
-    // the panel offset stepped along: one division a range), into buffer
-    // j % ADJ_SPREAD_STAGES, committed as one group (an empty one past the
-    // last stage)
-    auto issue = [&](int j) {
-        if (j < nst) {
-            double* buf = sh + (j % ADJ_SPREAD_STAGES) * stage;
-            double* yb = buf + ADJ_SPREAD_ROWS * 32;
-            const int i0 = j * ADJ_SPREAD_ROWS;
-            const int n = min(ADJ_SPREAD_ROWS, pn - i0);
-            const int lo = sw * n / nw, hi = (sw + 1) * n / nw;
-            int k = (i0 + lo) / p, q = i0 + lo - k * p;
-            size_t off = k * kstride + (size_t)q * C;
-            for (int r = lo; r < hi; ++r) {
-                if (mine) cp_async8(buf + r * 32 + lane, pe + off);
-                off += C;
-                if (++q == p) {
-                    q = 0;
-                    off += kstride - (size_t)p * C;
-                }
-            }
-            if (lo + lane < hi) {
-                const int i = i0 + lo + lane, kk = i / p, qq = i - kk * p;
-                cp_async8(yb + lo + lane, ye + qq * nD + kk);
-            }
+    const double* pe = panels + (size_t)e * p * C + c;
+    // row i0 + r of the slab at pe + off: (k, q) and off stepped along
+    int k = i0 / p, q = i0 - k * p;
+    size_t off = k * kstride + (size_t)q * C;
+    auto next = [&]() {
+        off += C;
+        if (++q == p) {
+            q = 0;
+            off += kstride - (size_t)p * C;
         }
-        cp_async_commit();
     };
-    if (warp > 0)
-        for (int j = 0; j < ADJ_SPREAD_STAGES - 1; ++j) issue(j);
-    double acc = 0.0;
-    for (int j = 0; j < nst; ++j) {
-        if (warp > 0) {
-            issue(j + ADJ_SPREAD_STAGES - 1);
-            cp_async_wait_group<ADJ_SPREAD_STAGES - 1>();
+    auto load = [&](int r0, double2* a) {
+#pragma unroll
+        for (int u = 0; u < ADJ_SPLIT_BATCH; ++u) {
+            a[u] = make_double2(0.0, 0.0);
+            if (r0 + u < n) {
+                const double* row = pe + off;
+                if (c + 1 < C)
+                    a[u] = ((uintptr_t)row & 15) == 0
+                               ? ld_stream2(row)
+                               : make_double2(__ldg(row), __ldg(row + 1));
+                else if (c < C)
+                    a[u].x = __ldg(row);
+                next();
+            }
         }
-        __syncthreads();
-        if (warp == 0) {
-            const double* buf = sh + (j % ADJ_SPREAD_STAGES) * stage;
-            const double* yb = buf + ADJ_SPREAD_ROWS * 32;
-            const int n = min(ADJ_SPREAD_ROWS, pn - j * ADJ_SPREAD_ROWS);
-#pragma unroll 8
-            for (int r = 0; r < n; ++r) acc += buf[r * 32 + lane] * yb[r];
-        }
-        __syncthreads();
+    };
+    double a0 = 0.0, a1 = 0.0;
+    auto fold = [&](int r0, const double2* a) {
+#pragma unroll
+        for (int u = 0; u < ADJ_SPLIT_BATCH; ++u)
+            if (r0 + u < n) {
+                const double y = yv[r0 + u];
+                a0 = a0 + a[u].x * y;
+                a1 = a1 + a[u].y * y;
+            }
+    };
+    double2 a[ADJ_SPLIT_BATCH], b[ADJ_SPLIT_BATCH];
+    load(0, a);                                  // in flight during the stage
+    for (int r = t; r < n; r += ADJ_SPLIT_THREADS) {
+        const int i = i0 + r, kk = i / p, qq = i - kk * p;
+        yv[r] = Y[((size_t)e * p + qq) * nD + kk];
     }
-    if (warp == 0 && mine) contrib[(size_t)e * C + c0 + lane] = acc;
+    __syncthreads();
+    constexpr int STEP = ADJ_SPLIT_BATCH;
+    for (int r0 = 0; r0 < n; r0 += 2 * STEP) {
+        if (r0 + STEP < n) load(r0 + STEP, b);
+        fold(r0, a);
+        if (r0 + STEP >= n) break;
+        if (r0 + 2 * STEP < n) load(r0 + 2 * STEP, a);
+        fold(r0 + STEP, b);
+    }
+    double* out = part + ((size_t)e * gridDim.y + slab) * C + c;
+    if (c + 1 < C) {
+        out[0] = a0;
+        out[1] = a1;
+    } else if (c < C) {
+        out[0] = a0;
+    }
+}
+
+// Phase A, spread form, second level: slot e*C + c is the fold of its
+// slabs' partials in slab order, from 0.0.
+__global__ void adjoint_slab_sum_kernel(const double* __restrict__ part,
+                                        double* __restrict__ contrib, int N,
+                                        int C, int slabs) {
+    pdl_wait();
+    pdl_trigger();
+    const size_t f = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (f >= (size_t)N * C) return;
+    const size_t e = f / C;
+    const double* pp = part + e * slabs * C + (f - e * C);
+    double acc = 0.0;
+    int sl = 0;
+    for (; sl + ADJ_SUM_BATCH <= slabs; sl += ADJ_SUM_BATCH) {
+        double v[ADJ_SUM_BATCH];                 // the loads all in flight,
+#pragma unroll
+        for (int u = 0; u < ADJ_SUM_BATCH; ++u)
+            v[u] = pp[(size_t)(sl + u) * C];
+#pragma unroll
+        for (int u = 0; u < ADJ_SUM_BATCH; ++u) acc = acc + v[u];  // in order
+    }
+#pragma unroll 4
+    for (; sl < slabs; ++sl) acc = acc + pp[(size_t)sl * C];
+    contrib[f] = acc;
 }
 
 __global__ void adjoint_sum_thread_kernel(const double* __restrict__ contrib,
@@ -247,15 +299,21 @@ static inline int adjoint_form(int nD, int N, int p, int C, int form) {
         form = (pn > ADJ_STAGE || (N < ADJ_SPREAD_MAX_N &&
                                    C >= ADJ_SPREAD_MIN_C)) ? 3 : 1;
     if (form == 1) return pn <= ADJ_STAGE ? 1 : 0;
-    return form == 3 ? 3 : 0;
+    if (form != 3) return 0;
+    const int rows = adj_split_slab(pn);
+    const int slabs = (pn + rows - 1) / rows;
+    return slabs <= 65535 && N <= 65535 ? 3 : 0;
 }
 
-// Phase A alone: the per-slot contributions contrib (N*C,). Returns the
-// first launch error, or cudaErrorInvalidValue when the form refuses the
-// shape.
+// Phase A alone: the per-slot contributions contrib (N*C,), with `part`
+// the spread form's scratch of slab partials, N x slabs x C doubles
+// (panel_adj.py sizes it by the same rule; null for the staged form).
+// Returns the first launch error, or cudaErrorInvalidValue when the form
+// refuses the shape.
 static inline cudaError_t adjoint_contrib_launch(const double* panels,
                                                  const double* Y,
-                                                 double* contrib, int nD,
+                                                 double* contrib,
+                                                 double* part, int nD,
                                                  int N, int p, int C,
                                                  int form,
                                                  cudaStream_t stream) {
@@ -263,15 +321,20 @@ static inline cudaError_t adjoint_contrib_launch(const double* panels,
     form = adjoint_form(nD, N, p, C, form);
     if (form == 0) return cudaErrorInvalidValue;
     if (N > 0 && C > 0 && form == 3) {
-        const size_t bytes =
-            sizeof(double) * ADJ_SPREAD_STAGES * ADJ_SPREAD_ROWS * 33;
-        cudaError_t e = cudaFuncSetAttribute(
-            adjoint_contrib_spread_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (part == nullptr) return cudaErrorInvalidValue;
+        const int rows = adj_split_slab(pn);
+        const int slabs = (pn + rows - 1) / rows;
+        const int tiles = (C + 2 * ADJ_SPLIT_THREADS - 1)
+                          / (2 * ADJ_SPLIT_THREADS);
+        cudaError_t e = launch_pdl(adjoint_contrib_split_kernel,
+                                   dim3(tiles, slabs, N),
+                                   dim3(ADJ_SPLIT_THREADS), 0, stream,
+                                   panels, Y, part, nD, N, p, C);
         if (e != cudaSuccess) return e;
-        e = launch_pdl(adjoint_contrib_spread_kernel, dim3((C + 31) / 32, N),
-                       dim3(32 * ADJ_SPREAD_WARPS), bytes, stream, panels, Y,
-                       contrib, nD, N, p, C);
+        const size_t slots = (size_t)N * C;
+        e = launch_pdl(adjoint_slab_sum_kernel, dim3((slots + 255) / 256),
+                       dim3(256), 0, stream, (const double*)part, contrib, N,
+                       C, slabs);
         if (e != cudaSuccess) return e;
     } else if (N > 0 && C > 0) {
         int EB = ADJ_THREADS / C;
@@ -287,14 +350,16 @@ static inline cudaError_t adjoint_contrib_launch(const double* panels,
     return cudaSuccess;
 }
 
-// Both phases on one stream; contrib is (N*C,) scratch.
+// Both phases on one stream; contrib is (N*C,) scratch, part the spread
+// form's (as adjoint_contrib_launch).
 static inline cudaError_t adjoint_launch(const double* panels,
                                          const int64_t* inv, const double* Y,
-                                         double* contrib, double* out, int nD,
-                                         int N, int p, int C, int n_J, int K,
-                                         int form, cudaStream_t stream) {
-    const cudaError_t e =
-        adjoint_contrib_launch(panels, Y, contrib, nD, N, p, C, form, stream);
+                                         double* contrib, double* part,
+                                         double* out, int nD, int N, int p,
+                                         int C, int n_J, int K, int form,
+                                         cudaStream_t stream) {
+    const cudaError_t e = adjoint_contrib_launch(panels, Y, contrib, part,
+                                                 nD, N, p, C, form, stream);
     if (e != cudaSuccess) return e;
     return adjoint_sum_launch(inv, contrib, out, N, C, n_J, K, stream);
 }

@@ -9,10 +9,23 @@
 // copy. cp_async_wait_all() makes the calling thread's copies complete; a
 // block barrier after it publishes them to the other threads.
 // cp_async_commit() and cp_async_wait_group<N>() run a pipeline of stages
-// instead (K3's spread form): wait for the oldest stage while N newer ones
-// stay in flight.
+// instead (K5a's chunks): wait for the oldest stage while N newer ones
+// stay in flight. ld_stream2 is a plain load that streams (below).
 #pragma once
 #include <cstdint>
+
+// Two doubles (16-byte aligned) that a kernel reads once, straight into
+// registers: the load skips L1 and a miss fetches 256 B into L2 (K1's and
+// K3's spread forms, which stream their panels). volatile: it stays after
+// a pdl_wait() before it.
+__device__ __forceinline__ double2 ld_stream2(const double* p) {
+    double2 v;
+    asm volatile(
+        "ld.global.nc.L1::no_allocate.L2::256B.v2.f64 {%0, %1}, [%2];"
+        : "=d"(v.x), "=d"(v.y)
+        : "l"(p));
+    return v;
+}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
     return (unsigned)__cvta_generic_to_shared(p);

@@ -7,9 +7,9 @@
 // the scatter into n_J to XLA. Here the same two steps run as two coalesced
 // phases of adjoint.cuh from one entry: per-slot contributions with the
 // slots on neighbouring threads, then each column's fixed-order sum over
-// its slots, by a thread or a block per column as K asks; phase A spreads
-// a level of few elements over many blocks (adjoint.cuh). No atomics, so
-// the result has the same bits on every run.
+// its slots, by a thread or a block per column as K asks; phase A splits
+// the sums of a level of few elements over many blocks, in slabs of rows
+// (adjoint.cuh). No atomics, so the result has the same bits on every run.
 // Bound on an H100: bytes (panels read once, 2 flops per 8 bytes).
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -22,25 +22,28 @@ extern "C" int panel_adj_form(int nD, int N, int p, int C, int form) {
     return adjoint_form(nD, N, p, C, form);
 }
 
-// form: 0 by shape, 1 the staged phase A, 3 the spread phase A.
+// form: 0 by shape, 1 the staged phase A, 3 the spread phase A; part:
+// the spread form's N x slabs x C doubles of slab partials (null for the
+// staged form).
 extern "C" int panel_adj_launch(const void* panels, const void* inv,
-                                const void* Y, void* contrib, void* out,
-                                int nD, int N, int p, int C, int n_J, int K,
-                                int form, void* stream) {
+                                const void* Y, void* contrib, void* part,
+                                void* out, int nD, int N, int p, int C,
+                                int n_J, int K, int form, void* stream) {
     cudaError_t e = adjoint_launch(
         (const double*)panels, (const int64_t*)inv, (const double*)Y,
-        (double*)contrib, (double*)out, nD, N, p, C, n_J, K, form,
-        (cudaStream_t)stream);
+        (double*)contrib, (double*)part, (double*)out, nD, N, p, C, n_J, K,
+        form, (cudaStream_t)stream);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // Phase A alone, for one shard of a mesh: its per-slot contributions.
 extern "C" int panel_adj_contrib_launch(const void* panels, const void* Y,
-                                        void* contrib, int nD, int N, int p,
-                                        int C, int form, void* stream) {
+                                        void* contrib, void* part, int nD,
+                                        int N, int p, int C, int form,
+                                        void* stream) {
     cudaError_t e = adjoint_contrib_launch(
-        (const double*)panels, (const double*)Y, (double*)contrib, nD, N, p,
-        C, form, (cudaStream_t)stream);
+        (const double*)panels, (const double*)Y, (double*)contrib,
+        (double*)part, nD, N, p, C, form, (cudaStream_t)stream);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 

@@ -33,15 +33,27 @@
 // many rows leaves the card idle: the spectral levels are one element of
 // p = n (1D) or n^2 (2D) nodes, p*nD from 384 to 9,216 rows past the
 // 1,024 threads a block may have (spectral2d n = 32: 4 x 1,024 rows of
-// C = 1,924). The spread form (panel_fwd_spread_kernel) splits an
-// element's rows over blocks of SPREAD_ROWS: N * ceil(p*nD / 32) blocks,
-// 128 at spectral2d n = 32. A call of few elements is a dense GEMV over
-// the (nD*p, C) view, bound by bytes (63.0 MB, 18.8 us at 3.35 TB/s,
-// there); but each output is still the left fold over c = 0 .. C-1 of one
-// thread, the same bits as the other forms give, so its critical path is
-// C dependent steps on one warp an SM. A block's warp 0 therefore only
-// sums, one lane a row, from shared memory; its other warps stage the
-// rows (panel_chunk.cuh's layout) SPREAD_STAGES chunks ahead.
+// C = 1,924). There the call is a dense GEMV over the (nD*p, C) view,
+// bound by bytes (63.0 MB, 18.8 us at 3.35 TB/s at n = 32), and a left
+// fold of C steps on one thread is too long a chain to stream it. The
+// spread form (panel_fwd_split_kernel) therefore sums each row in a
+// split order of its own: a warp takes a row, lane l folds the column
+// pairs (2j, 2j + 1) with j = l, l + SPLIT_LANES, ... in increasing j
+// (each product and sum rounded apart, from 0.0), and the lanes' partials
+// are joined by a fixed __shfl_xor_sync tree (offsets 16, 8, 4, 2, 1),
+// then dz0 + sum. panel_fwd_split_plain (panel_fwd.py) is that order in
+// plain PyTorch, with the same constants, and gives the kernel's bits.
+// The panel entries are used once, so each lane reads them straight from
+// device memory, 16 bytes a load (two 8-byte loads on a row that does not
+// start 16-byte aligned: the same values, the same order) that skips L1
+// and fetches 256 B into L2 a miss, SPLIT_BATCH loads in flight and the
+// next batch issued before the last is folded; the gathered s[cols[e, :]]
+// is staged once a block in shared memory, and the first batch is in
+// flight while it is. A block takes SPLIT_WARPS rows of one element: N *
+// ceil(p*nD / SPLIT_WARPS) blocks, 128 at n = 32 (one an SM), 288 at its
+// phase-I rows. On an H100 at 700 W the L2-fetching loads and one row a
+// warp in 32-warp blocks took n = 32 from 0.0319 to 0.0249 ms and its
+// phase-I rows from 0.1347 to 0.1019 (PERF.md §6).
 // The C entry takes the spread form for p*nD > 1,024 and for levels of
 // fewer than SPREAD_MAX_N elements of at least SPREAD_MIN_ROWS rows, the
 // element-group form where one element fits it, the wide form otherwise;
@@ -58,9 +70,12 @@
 #define SMEM_DEFAULT (48 * 1024)
 #define SMEM_MAX (227 * 1024)
 #define WIDE_BUDGET (112 * 1024)
-#define SPREAD_ROWS 32      // spread form: rows a block (its summing warp)
-#define SPREAD_WARPS 8      // ... and its warps: one sums, the others stage
-#define SPREAD_STAGES 3     // ... and its chunks in flight
+#define SPLIT_LANES 32      // spread form: lanes that fold a row (a warp),
+#define SPLIT_VEC 2         // ... each SPLIT_VEC columns a step (16 bytes);
+                            // these two set the order (panel_fwd.py's too)
+// these two leave the order as it is
+#define SPLIT_WARPS 32      // ... warps a block, a row each
+#define SPLIT_BATCH 4       // ... 16-byte loads a lane has in a batch
 #define SPREAD_MAX_N 8      // by shape: levels of fewer elements ...
 #define SPREAD_MIN_ROWS 128 // ... with at least this many rows an element
 
@@ -143,74 +158,88 @@ panel_fwd_wide_kernel(const double* __restrict__ panels,
     out[o] = dz0 ? d + acc : acc;
 }
 
-// The spread form: block (e, y) takes element e's rows r0 = y*SPREAD_ROWS
-// .. r0 + nr - 1. Its warp 0 sums them, lane t row r0 + t, from shared
-// memory and does nothing else, so that each step of a sum costs a few
-// instructions (the sums, 1,924 steps at C = 1,924, are the kernel's
-// critical path: one warp an SM). Warps 1 .. SPREAD_WARPS - 1 stage the
-// rows, SPREAD_STAGES chunks of CC columns in flight (cp.async; a warp
-// copies a row, its lanes over the row's 16-byte pieces), and with warp 0
-// gather s[cols[e, :]] while the first chunks arrive.
-__global__ void __launch_bounds__(32 * SPREAD_WARPS)
-panel_fwd_spread_kernel(const double* __restrict__ panels,
-                        const int64_t* __restrict__ cols,
-                        const double* __restrict__ s,
-                        const double* __restrict__ dz0,
-                        double* __restrict__ out, int nD, int N, int p,
-                        int C, int CC) {
-    extern __shared__ __align__(16) double sh[];
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    const int e = blockIdx.x, ld = CC + 2, pn = p * nD;
-    const int r0 = blockIdx.y * SPREAD_ROWS, nr = min(SPREAD_ROWS, pn - r0);
+// Columns 2j, 2j + 1 of a row (the second 0.0 past C): one 16-byte load
+// on a row that starts 16-byte aligned, two 8-byte loads on another.
+__device__ __forceinline__ double2 row_pair(const double* row, int j, int C,
+                                            bool aligned) {
+    const int c = SPLIT_VEC * j;
+    if (c + 1 < C)
+        return aligned ? ld_stream2(row + c)
+                       : make_double2(__ldg(row + c), __ldg(row + c + 1));
+    return make_double2(__ldg(row + c), 0.0);
+}
+
+// The spread form: block (e, y) takes element e's row y*SPLIT_WARPS + w on
+// its warp w; lane l of the warp folds the row's column pairs l, l + 32,
+// ... (the note at the top).
+// s[cols[e, :]] sits in shared memory, with a 0.0 after it for odd C, so
+// that the last pair's second product is 0.0 * 0.0 (an added +0.0 leaves
+// a sum that starts at +0.0 as it is, as a skipped product would).
+__global__ void __launch_bounds__(32 * SPLIT_WARPS)
+panel_fwd_split_kernel(const double* __restrict__ panels,
+                       const int64_t* __restrict__ cols,
+                       const double* __restrict__ s,
+                       const double* __restrict__ dz0,
+                       double* __restrict__ out, int nD, int N, int p,
+                       int C) {
+    static_assert(SPLIT_LANES == 32 && SPLIT_VEC == 2,
+                  "a lane of a warp reads one double2 a step");
+    extern __shared__ __align__(16) double sv[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int e = blockIdx.x, pn = p * nD;
+    const int np = (C + 1) / 2;                  // column pairs a row
+    constexpr int STEP = SPLIT_LANES * SPLIT_BATCH;   // pairs a batch
     const size_t kstride = (size_t)N * p * C;
     const double* pe = panels + (size_t)e * p * C;
-    const int buf = SPREAD_ROWS * ld;            // doubles a stage takes
-    double* sv = sh + SPREAD_STAGES * buf;       // s[cols[e, :]], C
-    const int64_t* ce = cols + (size_t)e * C;
-    const int nch = (C + CC - 1) / CC;
-    // a staging warp's share of chunk j into stage j % SPREAD_STAGES,
-    // committed as one group (an empty one past the last chunk)
-    auto issue = [&](int j) {
-        if (j < nch) {
-            const int c0 = j * CC, n = min(CC, C - c0);
-            double* dst = sh + (j % SPREAD_STAGES) * buf;
-            for (int r = warp - 1; r < nr; r += SPREAD_WARPS - 1) {
-                const double* src =
-                    panel_row(pe, kstride, C, nD, r0 + r) + c0;
-                const int h = odd8(src);
-                for (int q = lane, np = cp_pieces(n, h); q < np; q += 32)
-                    cp_piece(dst + (size_t)r * ld + h, src, n, h, q);
+    const double2* sv2 = reinterpret_cast<const double2*>(sv);
+    auto load = [&](const double* row, bool al, int j0, double2* a) {
+#pragma unroll
+        for (int u = 0; u < SPLIT_BATCH; ++u) {
+            const int j = j0 + u * SPLIT_LANES + lane;
+            a[u] = j < np ? row_pair(row, j, C, al) : make_double2(0.0, 0.0);
+        }
+    };
+    auto fold = [&](int j0, const double2* a, double acc) {
+#pragma unroll
+        for (int u = 0; u < SPLIT_BATCH; ++u) {
+            const int j = j0 + u * SPLIT_LANES + lane;
+            if (j < np) {
+                const double2 w = sv2[j];
+                acc = acc + a[u].x * w.x;
+                acc = acc + a[u].y * w.y;
             }
         }
-        cp_async_commit();
+        return acc;
     };
-    if (warp > 0)
-        for (int j = 0; j < SPREAD_STAGES - 1; ++j) issue(j);
-#pragma unroll 4
-    for (int i = t; i < C; i += blockDim.x) sv[i] = s[ce[i]];
-    const bool live = warp == 0 && lane < nr;
-    const size_t o = (size_t)e * pn + r0 + lane;
-    const double d = (live && dz0) ? dz0[o] : 0.0;
-    const double* mine =
-        panel_row(pe, kstride, C, nD, r0 + (live ? lane : 0));
+    const int r = blockIdx.y * SPLIT_WARPS + warp;
+    const double* row = panel_row(pe, kstride, C, nD, r < pn ? r : 0);
+    const bool al = ((uintptr_t)row & 15) == 0;
+    double2 a[SPLIT_BATCH], b[SPLIT_BATCH];
+    if (r < pn) load(row, al, 0, a);             // in flight during the gather
+    const int64_t* ce = cols + (size_t)e * C;
+    for (int i = threadIdx.x; i < C; i += blockDim.x) sv[i] = s[ce[i]];
+    if (threadIdx.x == 0 && (C & 1)) sv[C] = 0.0;
+    __syncthreads();
+    if (r >= pn) return;
     double acc = 0.0;
-    for (int j = 0; j < nch; ++j) {
-        if (warp > 0) {
-            issue(j + SPREAD_STAGES - 1);
-            cp_async_wait_group<SPREAD_STAGES - 1>();
-        }
-        __syncthreads();
-        if (live) {
-            const int c0 = j * CC, n = min(CC, C - c0);
-            const double* pk = sh + (j % SPREAD_STAGES) * buf
-                               + (size_t)lane * ld + odd8(mine + c0);
-            const double* sc = sv + c0;
-#pragma unroll 8
-            for (int c = 0; c < n; ++c) acc = acc + pk[c] * sc[c];
-        }
-        __syncthreads();
+    for (int j0 = 0; j0 < np; j0 += 2 * STEP) {
+        if (j0 + STEP < np) load(row, al, j0 + STEP, b);
+        acc = fold(j0, a, acc);
+        if (j0 + STEP >= np) break;
+        if (j0 + 2 * STEP < np) load(row, al, j0 + 2 * STEP, a);
+        acc = fold(j0 + STEP, b, acc);
     }
-    if (live) out[o] = dz0 ? d + acc : acc;
+#pragma unroll
+    for (int o = SPLIT_LANES / 2; o > 0; o >>= 1)
+        acc = acc + __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) {
+        const size_t o = (size_t)e * pn + r;
+        out[o] = dz0 ? dz0[o] + acc : acc;
+    }
+}
+
+static size_t split_smem(int C) {
+    return sizeof(double) * (size_t)(C + 1);
 }
 
 static size_t group_smem(int nD, int p, int C, int E) {
@@ -226,8 +255,8 @@ static int pick_form(int nD, int N, int p, int C, int form) {
     const int per = p * nD;
     const bool group = per <= 1024 && group_smem(nD, p, C, 1) <= SMEM_MAX;
     const bool wide = per <= 1024 && chunk_cols(per, C, WIDE_BUDGET, C) > 0;
-    const bool spread =
-        chunk_cols(SPREAD_STAGES * SPREAD_ROWS, C, WIDE_BUDGET, C) > 0;
+    const bool spread = split_smem(C) <= SMEM_MAX
+                        && (per + SPLIT_WARPS - 1) / SPLIT_WARPS <= 65535;
     if (form == 0) {
         if (per > 1024 || (N < SPREAD_MAX_N && per >= SPREAD_MIN_ROWS))
             form = 3;
@@ -260,19 +289,14 @@ extern "C" int panel_fwd_launch(const void* panels, const void* cols,
     if (form == 0) return (int)cudaErrorInvalidValue;
     const int per = p * nD;                      // rows (outputs) an element
     if (form == 3) {
-        const int CC =
-            chunk_cols(SPREAD_STAGES * SPREAD_ROWS, C, WIDE_BUDGET, C);
-        const size_t bytes =
-            sizeof(double) * ((size_t)SPREAD_STAGES * SPREAD_ROWS * (CC + 2)
-                              + (size_t)C);
-        const int err =
-            fit_smem((const void*)panel_fwd_spread_kernel, bytes);
+        const size_t bytes = split_smem(C);
+        const int err = fit_smem((const void*)panel_fwd_split_kernel, bytes);
         if (err) return err;
-        const dim3 grid(N, (per + SPREAD_ROWS - 1) / SPREAD_ROWS);
-        panel_fwd_spread_kernel<<<grid, 32 * SPREAD_WARPS, bytes,
-                                  (cudaStream_t)stream>>>(
+        const dim3 grid(N, (per + SPLIT_WARPS - 1) / SPLIT_WARPS);
+        panel_fwd_split_kernel<<<grid, 32 * SPLIT_WARPS, bytes,
+                                 (cudaStream_t)stream>>>(
             (const double*)panels, (const int64_t*)cols, (const double*)s,
-            (const double*)dz0, (double*)out, nD, N, p, C, CC);
+            (const double*)dz0, (double*)out, nD, N, p, C);
         return (int)cudaGetLastError();
     }
     if (form == 2) {

@@ -15,16 +15,22 @@ fixed order, by one thread (K <= 32, the fine levels) or one block (the
 coarse levels, where a column has tens to thousands of slots) per column;
 the C entry picks the form from K. A level of few elements (the spectral
 levels: one element of up to 1,924 slots over 9,216 rows) takes phase A's
-spread form: blocks of 16 or 32 slots of an element, the element's rows
-and their node values passed through shared memory in a two-stage
-``cp.async`` pipeline, each slot's sum in the same order, so the same bits
-and any p*nD (the staged form takes p*nD <= 4,096). The C entry picks the
-form by shape (``form`` says which). Phase B launches as a Hopper programmatic
-dependent (``csrc/pdl.cuh``), scheduled while phase A runs. No atomics,
-so every run gives the same bits; the order
-differs from the plain version's, which it matches to ~1e-16 relative. What
-bounds it on an H100: bytes (panels read once, 2 flops per 8 bytes); at L=5
-the working set sits in L2 and the call is launch-bound.
+spread form, which splits each slot's sum in two levels: the element's
+rows, in the (k, q) order, go in slabs (``split_slab``); a block folds
+one slab for a tile of slots (two a thread, 16-byte loads, several rows in
+flight) into a partial sum, and a second kernel folds each slot's partials
+in slab order. That order is its own: ``panel_adj_contrib_split_plain``
+computes it in plain PyTorch and gives the kernel's bits; the einsum plain
+version (what the CPU runs) and the staged form agree with it to roundoff.
+The spread form takes any p*nD (the staged form p*nD <= 4,096) and a
+scratch of N x slabs x C doubles for the partials, which the wrapper
+allocates when the C entry takes the spread form. The C entry picks the
+form by shape (``form`` says which). Phase B and the second level launch
+as Hopper programmatic dependents (``csrc/pdl.cuh``), scheduled while the
+kernel before them runs. No atomics, so every run gives the same bits; the
+order differs from the plain version's, which it matches to ~1e-16
+relative. What bounds it on an H100: bytes (panels read once, 2 flops per
+8 bytes); at L=5 the working set sits in L2 and the call is launch-bound.
 """
 from __future__ import annotations
 
@@ -36,8 +42,15 @@ from . import _build as B
 from ..ops.scatter import scatter_add
 
 NAME = "panel_adj"
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _FORM = 0   # phase A's form: 0 by shape; the card tests set 1 or 3
+# The spread form's order (csrc/adjoint.cuh's ADJ_SPLIT_SLAB,
+# ADJ_SPLIT_SLAB_SMALL, ADJ_SPLIT_SMALL): (k, q) rows a slab, each slot's
+# first-level fold
+SPLIT_SLAB = 128
+SPLIT_SLAB_SMALL = 32   # ... in an element of at most
+SPLIT_SMALL = 2048      # ... this many rows
+_FORMS: dict = {}       # (nD, N, p, C, request) -> the C entry's form
 
 
 def panel_adj_plain(panels, cols, inv, Y, n_J):
@@ -51,6 +64,52 @@ def panel_adj_contrib_plain(panels, Y):
     nD, N, p, C = panels.shape
     return torch.einsum("kNpc,Npk->Nc", panels,
                         Y.reshape(N, p, nD)).reshape(-1)
+
+
+def split_slab(pn):
+    """Rows a slab of the spread form's first level, for p*nD = pn."""
+    return SPLIT_SLAB if pn > SPLIT_SMALL else SPLIT_SLAB_SMALL
+
+
+def panel_adj_contrib_split_plain(panels, Y):
+    """Phase A's spread form in its order, in plain PyTorch: slot (e, c)
+    sums rows i = k*p + q (k outer) of element e in slabs of
+    ``split_slab(p*nD)`` consecutive rows, each slab folded in row order
+    from 0.0 (each product and sum rounded apart), then the slabs' partials
+    folded in slab order from 0.0. Rows past p*nD add +0.0, which leaves a
+    fold that starts at +0.0 as it is (the kernel skips them)."""
+    nD, N, p, C = panels.shape
+    pn = p * nD
+    rows_a_slab = split_slab(pn)
+    slabs = -(-pn // rows_a_slab)
+    rows = panels.transpose(0, 1).reshape(N, pn, C)        # row i = k*p + q
+    y = Y.reshape(N, p, nD).transpose(1, 2).reshape(N, pn)  # y[e, k*p + q]
+    part = torch.zeros((N, slabs, C), dtype=panels.dtype,
+                       device=panels.device)
+    first = torch.arange(slabs, device=panels.device) * rows_a_slab
+    for r in range(rows_a_slab):
+        i = first + r
+        live = i < pn
+        if not bool(live.all()):
+            i = i[live]
+        prod = rows[:, i, :] * y[:, i, None]
+        if prod.shape[1] < slabs:
+            prod = torch.nn.functional.pad(prod,
+                                           (0, 0, 0, slabs - prod.shape[1]))
+        part = part + prod
+    acc = torch.zeros((N, C), dtype=panels.dtype, device=panels.device)
+    for k in range(slabs):
+        acc = acc + part[:, k]
+    return acc.reshape(-1)
+
+
+def _part(nD, N, p, C, device):
+    """The spread form's scratch (the slab partials, N x slabs x C doubles)
+    for a launch of this shape under ``_FORM``; None for the staged form."""
+    if form(nD, N, p, C, _FORM) != 3:
+        return None
+    slabs = -(-(p * nD) // split_slab(p * nD))
+    return torch.empty((N * slabs * C,), dtype=torch.float64, device=device)
 
 
 def adjoint_sum_plain(cols, inv, contrib, n_J):
@@ -69,9 +128,11 @@ def panel_adj(panels, cols, inv, Y, n_J):
     B.cuda_i64(NAME, inv, (n_J, K), "inv")
     B.cuda_f64(NAME, Y, (N * p, nD), "Y")
     contrib = torch.empty((N * C,), dtype=torch.float64, device=Y.device)
+    part = _part(nD, N, p, C, Y.device)
     out = torch.empty((n_J,), dtype=torch.float64, device=Y.device)
     fn = B.launcher(NAME, _ARGS)
-    err = fn(B.ptr(panels), B.ptr(inv), B.ptr(Y), B.ptr(contrib), B.ptr(out),
+    err = fn(B.ptr(panels), B.ptr(inv), B.ptr(Y), B.ptr(contrib),
+             None if part is None else B.ptr(part), B.ptr(out),
              nD, N, p, C, n_J, K, _FORM, B.stream(Y.device))
     B.check(NAME, err)
     panel_adj.launches += 1
@@ -90,9 +151,11 @@ def panel_adj_contrib(panels, Y):
     B.cuda_f64(NAME, panels, (nD, N, p, C), "panels")
     B.cuda_f64(NAME, Y, (N * p, nD), "Y")
     contrib = torch.empty((N * C,), dtype=torch.float64, device=Y.device)
-    fn = B.launcher(NAME, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    part = _part(nD, N, p, C, Y.device)
+    fn = B.launcher(NAME, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                     + [ctypes.c_void_p], "panel_adj_contrib_launch")
-    B.check(NAME, fn(B.ptr(panels), B.ptr(Y), B.ptr(contrib), nD, N, p, C,
+    B.check(NAME, fn(B.ptr(panels), B.ptr(Y), B.ptr(contrib),
+                     None if part is None else B.ptr(part), nD, N, p, C,
                      _FORM, B.stream(Y.device)))
     panel_adj.launches += 1
     return contrib
@@ -121,6 +184,10 @@ def adjoint_sum(cols, inv, contrib, n_J):
 def form(nD, N, p, C, request=0):
     """Phase A's form the C entry takes for this shape (1 staged, 3 spread;
     ``request`` 0 by shape, or the form asked for), 0 when it refuses the
-    shape. Builds the library (a card's machine)."""
-    fn = B.launcher(NAME, [ctypes.c_int] * 5, "panel_adj_form")
-    return int(fn(nD, N, p, C, request))
+    shape. Builds the library (a card's machine); the answer is cached."""
+    key = (nD, N, p, C, request)
+    f = _FORMS.get(key)
+    if f is None:
+        fn = B.launcher(NAME, [ctypes.c_int] * 5, "panel_adj_form")
+        f = _FORMS[key] = int(fn(nD, N, p, C, request))
+    return f

@@ -23,12 +23,16 @@ An element whose nD slabs do not fit in a block's shared memory together
 element a block, its panel rows staged a chunk of columns at a time, each
 sum carried across the chunks in the same order, so the same bits. A level
 of few elements with many rows (the spectral levels: one element, p*nD
-from 384 to 9,216) takes the spread form: the wide form with an element's
-rows split over blocks of 32, so the card fills and any p*nD goes, with
-the same bits again. The C entry picks the form by shape (``form`` says
-which); the element-group and wide forms take p*nD <= 1024 (one thread an
-output of an element), the spread form any p*nD, so any nD runs (the
-16- and 32-field models' 33 and 65 rows, too).
+from 384 to 9,216) takes the spread form: a dense GEMV whose rows go to
+warps, each row's sum split over the warp's 32 lanes (lane l the column
+pairs l, l + 32, ... in order) and joined by a fixed shuffle tree, the
+panels read once, 16 bytes a load, with several loads in flight a lane.
+That order is its own: ``panel_fwd_split_plain`` computes it in plain
+PyTorch and gives the kernel's bits, and the einsum ``panel_fwd_plain``
+(what the CPU runs) agrees with it to roundoff. The C entry picks the form
+by shape (``form`` says which); the element-group and wide forms take
+p*nD <= 1024 (one thread an output of an element), the spread form any
+p*nD, so any nD runs (the 16- and 32-field models' 33 and 65 rows, too).
 """
 from __future__ import annotations
 
@@ -41,12 +45,43 @@ from . import _build as B
 NAME = "panel_fwd"
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _FORM = 0   # the C entry's form: 0 by shape; the card tests set 1, 2 or 3
+# The spread form's order (csrc/panel_fwd.cu's SPLIT_LANES, SPLIT_VEC):
+SPLIT_LANES = 32   # lanes that fold one row, joined by a shuffle tree
+SPLIT_VEC = 2      # columns a lane takes a step (one 16-byte load)
 
 
 def panel_fwd_plain(panels, cols, s, dz0=None):
     """Plain PyTorch version: gather + einsum (+ Dz0)."""
     nD, N, p, C = panels.shape
     out = torch.einsum("kNpc,Nc->Npk", panels, s[cols]).reshape(N * p, nD)
+    return out if dz0 is None else dz0 + out
+
+
+def panel_fwd_split_plain(panels, cols, s, dz0=None):
+    """The spread form's function in its order, in plain PyTorch: lane l
+    of a row folds columns c = SPLIT_VEC*j + h, for j = l, l + SPLIT_LANES,
+    ... and h = 0 .. SPLIT_VEC - 1, from 0.0, each product and sum rounded
+    apart; the lanes' partials are joined pairwise (lane l with l + o, o =
+    SPLIT_LANES/2 .. 1); then Dz0 + sum. Columns past C add +0.0, which
+    leaves a sum that starts at +0.0 as it is (the kernel skips them)."""
+    nD, N, p, C = panels.shape
+    span = SPLIT_LANES * SPLIT_VEC
+    rows = panels.permute(1, 2, 0, 3)            # (N, p, nD, C): row (e, q, k)
+    sv = s[cols][:, None, None, :]               # (N, 1, 1, C)
+    acc = torch.zeros((N, p, nD, SPLIT_LANES), dtype=panels.dtype,
+                      device=panels.device)
+    for c0 in range(0, C, span):
+        prod = rows[..., c0:c0 + span] * sv[..., c0:c0 + span]
+        if prod.shape[-1] < span:
+            prod = torch.nn.functional.pad(prod, (0, span - prod.shape[-1]))
+        prod = prod.unflatten(-1, (SPLIT_LANES, SPLIT_VEC))
+        for h in range(SPLIT_VEC):
+            acc = acc + prod[..., h]
+    o = SPLIT_LANES // 2
+    while o:
+        acc = acc[..., :o] + acc[..., o:2 * o]
+        o //= 2
+    out = acc[..., 0].reshape(N * p, nD)
     return out if dz0 is None else dz0 + out
 
 

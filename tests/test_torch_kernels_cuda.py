@@ -4,7 +4,8 @@ K1 and K4 at the fem3d Q3 shapes that take their wide forms, K5a and K5b
 at every level of the fem3d L=4 and L=5 plans, which take their large
 forms (1e-12 relative: they sum in other orders and over up to 2,210
 products), and K1 and K3 at the one-element spectral shapes that take
-their spread forms.
+their spread forms, whose split sum orders are held to the bits of
+``panel_fwd_split_plain`` and ``panel_adj_contrib_split_plain``.
 
 Marked ``cuda``: each test skips without a card. The file imports neither
 JAX nor ``mgbtpu``, so it runs on a machine without them:
@@ -307,36 +308,42 @@ def _form_of(kernel):
 @pytest.mark.parametrize("nD,C", SPECTRAL)
 def test_spread_forms_at_spectral_shapes(dev, nD, C):
     """K1 and K3 at one element of 1,024 rows take their spread forms by
-    shape and hold to their plain versions (the NaN entry's row or column
-    NaN in both, the rest to TOL); one count a call, repeat calls
-    bitwise; where the other forms take the shape (K1's wide form up to
-    p*nD = 1,024, K3's staged phase A up to 4,096) they give the same bits,
-    and where they do not, they refuse the launch."""
+    shape. Each gives its split plain version's bits (K1 the whole call,
+    K3 its phase A, ``panel_adj_contrib``), the NaN entry's row or column
+    included, and holds to its einsum plain version (the NaN row or column
+    NaN in both, the rest to TOL); one count a call, repeat calls bitwise.
+    Where the other forms take the shape (K1's wide form up to p*nD =
+    1,024, K3's staged phase A up to 4,096) they agree to TOL (they fold
+    in another order), and where they do not, they refuse the launch."""
     rng = np.random.default_rng(nD * 10000 + C)
     panels, cols, inv, n_J, s, dz0, Y = _spectral_inputs(rng, dev, nD, C)
     assert _form_of(K.panel_fwd)(nD, 1, 1024, C) == SPREAD
     assert _form_of(K.panel_adj)(nD, 1, 1024, C) == SPREAD
     f0, a0 = K.panel_fwd.launches, K.panel_adj.launches
     fwd = K.panel_fwd(panels, cols, s, dz0)
+    assert _same_bits(fwd, K.panel_fwd_split_plain(panels, cols, s, dz0))
     assert _rel(fwd, K.panel_fwd_plain(panels, cols, s, dz0)) <= TOL
     assert torch.isnan(fwd[517, nD - 1]) and torch.isnan(fwd).sum() == 1
     assert _same_bits(fwd, K.panel_fwd(panels, cols, s, dz0))
+    contrib = K.panel_adj_contrib(panels, Y)
+    assert _same_bits(contrib, K.panel_adj_contrib_split_plain(panels, Y))
+    assert torch.isnan(contrib[3]) and torch.isnan(contrib).sum() == 1
     adj = K.panel_adj(panels, cols, inv, Y, n_J)
     assert _rel(adj, K.panel_adj_plain(panels, cols, inv, Y, n_J)) <= TOL
     assert torch.isnan(adj).sum() == 1
     assert _same_bits(adj, K.panel_adj(panels, cols, inv, Y, n_J))
-    assert (K.panel_fwd.launches, K.panel_adj.launches) == (f0 + 2, a0 + 2)
+    assert (K.panel_fwd.launches, K.panel_adj.launches) == (f0 + 2, a0 + 3)
     if nD == 1:
-        assert _same_bits(fwd, _in_form(K.panel_fwd, WIDE, panels, cols, s,
-                                        dz0))
+        assert _rel(_in_form(K.panel_fwd, WIDE, panels, cols, s, dz0),
+                    fwd) <= TOL
     else:
         with pytest.raises(RuntimeError, match="panel_fwd launch failed"):
             _in_form(K.panel_fwd, WIDE, panels, cols, s, dz0)
     with pytest.raises(RuntimeError, match="panel_fwd launch failed"):
         _in_form(K.panel_fwd, STAGED, panels, cols, s, dz0)
     if nD <= 4:
-        assert _same_bits(adj, _in_form(K.panel_adj, STAGED, panels, cols,
-                                        inv, Y, n_J))
+        assert _rel(_in_form(K.panel_adj, STAGED, panels, cols, inv, Y, n_J),
+                    adj) <= TOL
     else:
         with pytest.raises(RuntimeError, match="panel_adj launch failed"):
             _in_form(K.panel_adj, STAGED, panels, cols, inv, Y, n_J)
@@ -347,11 +354,12 @@ def test_spread_forms_at_spectral_shapes(dev, nD, C):
                                       (128, 3, 254, 1), (25, 4, 40, 1),
                                       (1024, 1, 77, 2)])
 def test_spread_forms_agree(dev, p, nD, C, N):
-    """K1's spread form gives the element-group and the wide forms' bits,
-    and K3's spread phase A the staged one's, wherever they take the shape:
-    the P2 element, the widest phase-I rows, the Q3 element, spectral1d
-    n = 128's top level, spectral2d n = 5's, and two elements of 1,024
-    rows; Dz0 absent and given."""
+    """K1's spread form and K3's spread phase A give their split plain
+    versions' bits, and agree with the element-group and the wide forms
+    (K1) and the staged phase A (K3) to TOL, wherever those take the
+    shape: the P2 element, the widest phase-I rows, the Q3 element,
+    spectral1d n = 128's top level, spectral2d n = 5's, and two elements
+    of 1,024 rows (N = 2); Dz0 absent and given."""
     rng = np.random.default_rng(p * nD + C + N)
     panels, cols, inv, n_J = _panels(rng, dev, nD=nD, N=N, p=p, C=C,
                                      n_J=C + 40)
@@ -361,12 +369,18 @@ def test_spread_forms_agree(dev, p, nD, C, N):
     fwd_form = _form_of(K.panel_fwd)
     for d in (None, dz0):
         spread = _in_form(K.panel_fwd, SPREAD, panels, cols, s, d)
+        assert _same_bits(spread, K.panel_fwd_split_plain(panels, cols, s, d))
         for other in (STAGED, WIDE):
             if fwd_form(nD, N, p, C, other):
-                assert _same_bits(spread, _in_form(K.panel_fwd, other,
-                                                   panels, cols, s, d))
-    assert _same_bits(_in_form(K.panel_adj, SPREAD, panels, cols, inv, Y, n_J),
-                      _in_form(K.panel_adj, STAGED, panels, cols, inv, Y, n_J))
+                assert _rel(_in_form(K.panel_fwd, other, panels, cols, s, d),
+                            spread) <= TOL
+    contrib = _in_form(K.panel_adj_contrib, SPREAD, panels, Y)
+    assert _same_bits(contrib, K.panel_adj_contrib_split_plain(panels, Y))
+    assert _rel(_in_form(K.panel_adj_contrib, STAGED, panels, Y),
+                contrib) <= TOL
+    assert _rel(_in_form(K.panel_adj, STAGED, panels, cols, inv, Y, n_J),
+                _in_form(K.panel_adj, SPREAD, panels, cols, inv, Y,
+                         n_J)) <= TOL
 
 
 # (nD, N, p, C) -> K1's and K3's forms, by shape: every fem level the card
