@@ -1068,29 +1068,87 @@ def k6_calls(Q, Dz, nu, w, torch, K, rng):
 
 
 def k6_check(tag, calls, K):
-    """Each call against the plain version, bitwise; returns the largest
-    error."""
+    """Each call bitwise against the plain version of the order it runs in
+    on the card (``node_barrier_gram_plain``: a runtime-width cone's
+    Hessian in the Gram order, every other piece in the reference's order,
+    as ``instance`` implies). Where a mode-2 call's table has a
+    runtime-width cone, its largest error against the reference's order
+    (``node_barrier_plain``) is printed beside ``gram_order_bound``'s
+    ((nz^2 + nz + 8) eps times each entry's sum of absolute terms) and must
+    lie within it. Returns the largest error against the plain version."""
+    import torch
+
+    from mgbtpu_torch.kernels.node_barrier import gram_order_bound
+
     errs = []
     for label, call in calls.items():
+        name = f"node_barrier {tag} {label}"
         out = K.node_barrier(*call)
-        ref = K.node_barrier_plain(*call)
-        errs.append(compare(f"node_barrier {tag} {label}", out, ref))
-        same_bits(f"node_barrier {tag} {label}", out, ref,
-                  "the plain version")
+        ref = K.node_barrier_gram_plain(*call)
+        errs.append(compare(name, out, ref))
+        same_bits(name, out, ref, "the plain version")
+        if call[0] != 2:
+            continue
+        bound = gram_order_bound(*call[1:6], call[7], call[8])
+        if not bool(bound.any()):
+            continue
+        old = K.node_barrier_plain(*call)
+        fin = torch.isfinite(old)
+        if not torch.equal(fin, torch.isfinite(out)):
+            raise RuntimeError(f"{name}: non-finite pattern differs from "
+                               f"the reference order")
+        err = (out - old).abs()[fin]
+        worst = float((err / bound[fin].clamp_min(1e-300)).max())
+        print(f"[kernel] {name}: against the reference order max_abs_err="
+              f"{float(err.max())!r}, (a)'s bound up to "
+              f"{float(bound[fin].max())!r}, largest error / bound "
+              f"{worst!r}")
+        if not worst <= 1.0:
+            raise RuntimeError(f"{name}: past (a)'s bound of the reference "
+                               f"order ({worst})")
     return max(errs)
 
 
-def k6_time(tag, call, K, plain=True, reps=50):
-    """Device ms of one K6 call, its plain version's (unless ``plain`` is
-    False), and its bound: the rows, bw, the pieces' grids, sel and the box
-    read once, the output written once (wc read in modes 0 and 1); the
-    operations the function needs per piece: its affine map, a few dozen
-    for the closed forms, A'g in modes 1 and 2, and in mode 2 A'HA (two
-    nz x nz products of a cone's Hessian, 4 nz^3; a linear block's
-    A' diag(h) A, 2 nc ni^2), then the fold of each piece into the output
-    (not the plain version's scalar nz^4 fold, which the kernel follows
-    for its bits)."""
-    from mgbtpu_torch.kernels.node_barrier import POWER, instance
+def cone_library(call):
+    """The library yardstick of a mode-2 call whose table has a
+    runtime-width cone: one ``torch.einsum("nki,nkl,nlj->nij", A, Hz, A)``
+    of its widest such cone, on the same A and a pre-formed Hz (the plain
+    version's); None for any other call."""
+    import torch
+
+    from mgbtpu_torch.kernels import power_cone as K2
+    from mgbtpu_torch.kernels.node_barrier import (CONE_WIDE, LINEAR_WIDE,
+                                                   instance)
+
+    mode, y, pieces, args, sel, bw, wc, co, box = call
+    if mode != 2:
+        return None
+    codes = instance(pieces, mode, y.shape[1], co, box is not None).codes
+    cones = [pc for pc, c in zip(pieces, codes)
+             if CONE_WIDE <= c < LINEAR_WIDE]
+    if not cones:
+        return None
+    pc = max(cones, key=lambda pc: pc.width)
+    A, b, p, mu = pc.grids(args)
+    q, s = K2.core_parts(A, b, pc.idx, y)
+    if co is not None:
+        s = s + y[:, co - 1]
+    Hz = torch.stack([torch.stack(r, dim=1)
+                      for r in K2.core_hess(q, s, p, mu, pc.spec)], dim=1)
+    A3 = A.reshape(-1, pc.width, pc.width)
+    return lambda: torch.einsum("nki,nkl,nlj->nij", A3, Hz, A3)
+
+
+def k6_bound(call):
+    """(bound ms, "bytes" or "operations") of one K6 call: the rows, bw,
+    the pieces' grids, sel and the box read once, the output written once
+    (wc read in modes 0 and 1); the operations the function needs per
+    piece: its affine map, a few dozen for the closed forms, A'g in modes
+    1 and 2, and in mode 2 A'HA (two nz x nz products of a cone's Hessian,
+    4 nz^3; a linear block's A' diag(h) A, 2 nc ni^2), then the fold of
+    each piece into the output (not the reference order's scalar nz^4
+    fold)."""
+    from mgbtpu_torch.kernels.node_barrier import POWER
 
     mode, y, pieces, args, sel, bw, wc, co, box = call
     m, ny = y.shape
@@ -1104,14 +1162,26 @@ def k6_time(tag, call, K, plain=True, reps=50):
                        if pc.kind == POWER
                        else 2 * pc.width * len(pc.idx) ** 2)
                     for pc in pieces) + npc * (1, ny, ny * ny)[mode])
-    bnd, by = bound_ms(nbytes, nops)
+    return bound_ms(nbytes, nops)
+
+
+def k6_time(tag, call, K, plain=True, reps=50):
+    """Device ms of one K6 call, its plain version's (unless ``plain`` is
+    False) and the library call's (``cone_library``, where the table has a
+    runtime-width cone), and its bound (``k6_bound``). The plain version
+    timed is the kernel's order (``node_barrier_gram_plain``)."""
+    from mgbtpu_torch.kernels.node_barrier import instance
+
+    mode, y, pieces, args, sel, bw, wc, co, box = call
+    ny = y.shape[1]
+    bnd, by = k6_bound(call)
     print(f"[instance] node_barrier {tag}: "
           f"{instance(pieces, mode, ny, co, box is not None)}")
     row = dict(bound_ms=bnd, bound_by=by, **timings(
-        f"node_barrier {tag} (ny={ny}, {npc} pieces)",
+        f"node_barrier {tag} (ny={ny}, {len(pieces)} pieces)",
         lambda: K.node_barrier(*call),
-        (lambda: K.node_barrier_plain(*call)) if plain else None,
-        plain_reps=2, reps=reps))
+        (lambda: K.node_barrier_gram_plain(*call)) if plain else None,
+        cone_library(call), plain_reps=2, reps=reps))
     print(f"[bound] node_barrier {tag}: {bnd!r} ms ({by})")
     return row
 
@@ -1888,7 +1958,7 @@ def wide_node_barrier_phases(torch, K):
     torch.cuda.synchronize()
 
 
-def model_table_phases(tag, model, seed, torch, K, reps=50):
+def model_table_phases(tag, model, seed, torch, K):
     """K6 on the piece table a solved Model's lowering gives it, at the
     top level's nodes and rows (the path's own shapes): the solution's rows
     D z with 1 % of the nodes pushed outside (each cone's s row negative),
@@ -1912,7 +1982,7 @@ def model_table_phases(tag, model, seed, torch, K, reps=50):
                      np.asarray(M.w, np.float64), torch, K, rng)
     err = k6_check(tag, calls, K)
     rows = {label: k6_time(f"{tag} {label}", calls[label], K,
-                           plain=label == "mode 2", reps=reps)
+                           plain=label == "mode 2")
             for label in ("mode 2", "co mode 2")}
     torch.cuda.synchronize()
     return err, rows
@@ -2065,7 +2135,6 @@ def slice9_solves(mg5, torch, K, smi):
 
 
 TABLE_M = 4096      # seeded nodes at which the table kernels are timed
-TABLE_REPS = 4      # calls a timing: a wide cone's Hessian takes ~0.25 s
 
 
 def table_kernel_tables(m, rng):
@@ -2124,9 +2193,10 @@ def table_kernel_phases(torch, K, smi):
     (``ref_model_wide.npz``) with the table kernels launched, and K6 on
     the table its lowering gave it (bitwise in the six calls); then the
     made-up tables of ``table_kernel_tables`` at TABLE_M nodes, bitwise in
-    every mode and form, each Hessian timed beside its bound. Returns the
-    kernel record of the nz = 33 cone (its Hessian's rows built in global
-    memory), with the 32-field solve's table launches."""
+    every mode and form, each Hessian timed beside its bound and the
+    library's A' Hz A. Returns the kernel record of the nz = 33 cone (a
+    node on 128 lanes, its Hessian's rows built in shared memory), with the
+    32-field solve's table launches."""
     import mgbtpu_torch
     import port_models
     from mgbtpu_torch.kernels.node_barrier import last_in_global
@@ -2142,13 +2212,13 @@ def table_kernel_phases(torch, K, smi):
         report(f"Model {name}", secs, sol, "n/a")
         print(f"[kernels] launches in the Model {name} solve ({secs!r} s "
               f"wall on {smi}): {la}; node_barrier in its table kernels "
-              f"{launches[name]}, in cobarrier form {co}")
+              f"{launches[name]}, by mode 0/1/2 "
+              f"{K.node_barrier.mode_launches}, in cobarrier form {co}")
         if launches[name] == 0:
             raise RuntimeError(f"Model {name}: no table-kernel launch")
         check_floor_record(f"Model {name}", sol,
                            ref_record("ref_model_wide.npz", name))
-        model_table_phases(f"Model {name} table", m, 94 + k, torch, K,
-                           reps=TABLE_REPS)
+        model_table_phases(f"Model {name} table", m, 94 + k, torch, K)
     rng = np.random.default_rng(4096)
     w = np.full(TABLE_M, 1.0 / TABLE_M)
     dev = torch.device("cuda")
@@ -2158,7 +2228,7 @@ def table_kernel_phases(torch, K, smi):
         calls = k6_calls(Q, Dz, nu, w, torch, K, rng)
         err = k6_check(f"{name} m={TABLE_M}", calls, K)
         rows = {label: k6_time(f"{name} m={TABLE_M} {label}", calls[label],
-                               K, reps=TABLE_REPS)
+                               K)
                 for label in ("mode 2", "co mode 2")}
         print(f"[instance] {name} co mode 2 (the last call): rows built "
               f"in {'global' if last_in_global() else 'shared'} memory")

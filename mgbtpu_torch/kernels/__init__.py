@@ -38,7 +38,8 @@ from .front_solve import (front_backward, front_backward_plain,
                           front_forward, front_forward_plain, front_solve)
 from .gram_matvec import (gram_matvec, gram_matvec_contrib,
                           gram_matvec_plain)
-from .node_barrier import Piece, node_barrier, node_barrier_plain
+from .node_barrier import (Piece, node_barrier, node_barrier_gram_plain,
+                           node_barrier_plain)
 from .panel_adj import (adjoint_sum, panel_adj, panel_adj_contrib,
                         panel_adj_contrib_split_plain, panel_adj_plain)
 from .panel_fwd import panel_fwd, panel_fwd_plain, panel_fwd_split_plain
@@ -79,7 +80,8 @@ __all__ = ["WRAPPERS", "Piece", "adjoint_sum", "build_all", "cholesky_nan",
            "front_factor_plain", "front_forward", "front_forward_plain",
            "front_solve",
            "gram_matvec", "gram_matvec_contrib", "gram_matvec_plain",
-           "launches", "node_barrier", "node_barrier_plain", "panel_adj",
+           "launches", "node_barrier", "node_barrier_gram_plain",
+           "node_barrier_plain", "panel_adj",
            "panel_adj_contrib", "panel_adj_contrib_split_plain",
            "panel_adj_plain", "panel_fwd", "panel_fwd_plain",
            "panel_fwd_split_plain", "power_cone_eval", "power_cone_plain",

@@ -16,13 +16,14 @@
 // loops unroll to the limits LN_MAXC x LN_MAXI with a guard on the runtime
 // nc and ni passed in. Either way every small array is indexed only by
 // unrolled loop counters, so it stays in registers, and the sums run in the
-// same order. The lnw_ helpers at the end are the wide form (K6's wide
-// linear block, nc and ni up to 32): MIRRORS of ln_affine, ln_value,
-// ln_grad and ln_hess, the same sums in the same order over one vector
-// held in memory (the thread's scratch row), overwritten in place (F, then
-// 1 / F or iF2); a change to one of a pair must be made to the other in the
-// same order (tests/test_torch_kernels_cuda.py holds both to the plain
-// version's bits).
+// same order. The lnw_ helpers at the end are the wide form (K6's wide and
+// table kernels, any nc and ni): MIRRORS of ln_affine, ln_value, ln_grad and
+// ln_hess, the same sums in the same order over one vector held in shared
+// memory, overwritten in place (F, then 1 / F or iF2), each entry of F, g
+// or H one call, so that a node's group of threads shares the entries; a
+// change to one of a pair must be made to the other in the same order
+// (tests/test_torch_kernels_cuda.py holds both to the plain version's
+// bits).
 #pragma once
 #include <math.h>
 
@@ -149,15 +150,15 @@ __device__ __forceinline__ void ln_hess(const double Ar[LN_MAXC][LN_MAXI],
 
 // ---- wide blocks -----------------------------------------------------------
 
-// F = A y[idx] + b (A row-major nc x ni)
-__device__ __forceinline__ void lnw_affine(const double* A, const double* b,
-                                           const double* y, const int* idx,
-                                           int nc, int ni, double* F) {
-    for (int i = 0; i < nc; ++i) {
-        double acc = A[i * ni] * y[idx[0]];
-        for (int j = 1; j < ni; ++j) acc = acc + A[i * ni + j] * y[idx[j]];
-        F[i] = acc + b[i];
-    }
+// entry i of F = A y[idx] + b (A row-major nc x ni), from the gathered
+// yg[j] = y[idx[j]]
+__device__ __forceinline__ double lnw_affine_i(const double* A,
+                                               const double* b,
+                                               const double* yg, int ni,
+                                               int i) {
+    double acc = A[i * ni] * yg[0];
+    for (int j = 1; j < ni; ++j) acc = acc + A[i * ni + j] * yg[j];
+    return acc + b[i];
 }
 
 __device__ __forceinline__ double lnw_value(const double* F, int nc,

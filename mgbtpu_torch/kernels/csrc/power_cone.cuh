@@ -12,18 +12,31 @@
 // (NaN included), safe_pow gives 0 for s <= 0.
 //
 // Each helper is a template on the cone's size NZ (and the value ones on
-// the alpha specialisation SPEC). K2 (power_cone.cu) and K6
-// (node_barrier.cu) instantiate them with both fixed, so every loop unrolls
-// and the small arrays stay in registers. K6's runtime-width cone (cone<0>,
-// nz up to 32) holds one vector in memory (the thread's scratch row),
-// overwritten in place as the forms go (z, then gz or u): it takes pc_qsq,
-// pc_value and pc_grad (gz = z) at NZ = 0 as they are, and the pcw_
-// helpers at the end for the rest. Those are MIRRORS of pc_affine, pc_at_g,
-// pc_hess and pc_at_h_a_ij (the same expressions in the same order, read
-// from memory, with Hz never formed: pcw_hz makes each entry where it is
-// used, as pc_hess makes it); a change to one of the pair must be made to
-// the other in the same order (tests/test_torch_kernels_cuda.py holds both
-// to the plain version's bits).
+// the alpha specialisation SPEC). K2 (power_cone.cu) and K6's register
+// kernels (node_barrier.cu) instantiate them with both fixed, so every loop
+// unrolls and the small arrays stay in registers.
+//
+// K6's runtime-width cone (its wide and table kernels, any nz) runs a node
+// on a group of threads, over vectors in shared memory (y[idx] gathered,
+// z, then gz, and w). It takes pc_qsq, pc_value and pc_grad (gz over z) at
+// NZ = 0 as they are, and the pcw_ helpers at the end for the rest, each
+// one entry (or a 2 x 2 tile) of a vector or matrix, so that the group's
+// threads share the entries and every sum stays one thread's fold:
+// - pcw_affine_i and pcw_at_g_i are MIRRORS of pc_affine and pc_at_g (the
+//   same sums in the same order), so modes 0 and 1 give the bits of the
+//   register kernels' order; pcw_hess mirrors pc_hess's scalars, and u_k =
+//   inv_r z_k is formed where it is used. A change to one of a pair must be
+//   made to the other.
+// - The Hessian (pcw_w_i, pcw_gram_tile, pcw_h) is NOT _AtHA's order. With
+//   nq = nz - 1, Hz = [[4 u u' + two_ir I, cv u], [cv u', H_ss]] and
+//   a = row nq of A, A' Hz A = two_ir G + 4 w w' + cv (w a' + a w')
+//   + H_ss a a', where G = Aq' Aq over the rows 0..nq-1 and w = Aq' u: a
+//   Gram product and rank-one terms, ~nz^3 operations a node where _AtHA's
+//   fold takes ~nz^4. The order (written out at those helpers) is that of
+//   node_barrier.py's node_barrier_gram_plain (power_cone.py's
+//   at_h_a_gram), which the card tests hold the kernels to, bit for bit;
+//   it is bitwise symmetric, so a thread makes entry (i, j), i <= j, and
+//   stores both.
 #pragma once
 #include <math.h>
 
@@ -179,74 +192,90 @@ __device__ __forceinline__ void pc_at_h_a(const double Ar[PC_MAXNZ][PC_MAXNZ],
 
 // ---- runtime width ---------------------------------------------------------
 
-// z = A y[idx] + b (A row-major nz x nz)
-__device__ __forceinline__ void pcw_affine(const double* A, const double* b,
-                                           const double* y, const int* idx,
-                                           int nz, double* z) {
-    for (int i = 0; i < nz; ++i) {
-        double acc = A[i * nz] * y[idx[0]];
-        for (int j = 1; j < nz; ++j) acc = acc + A[i * nz + j] * y[idx[j]];
-        z[i] = acc + b[i];
-    }
+// entry i of z = A y[idx] + b (A row-major nz x nz), from the gathered
+// yg[j] = y[idx[j]]: pc_affine's fold
+__device__ __forceinline__ double pcw_affine_i(const double* A,
+                                               const double* b,
+                                               const double* yg, int nz,
+                                               int i) {
+    double acc = A[i * nz] * yg[0];
+    for (int j = 1; j < nz; ++j) acc = acc + A[i * nz + j] * yg[j];
+    return acc + b[i];
 }
 
-// entry i of A' gz
-__device__ __forceinline__ double pcw_at_g(const double* A, const double* gz,
-                                           int nz, int i) {
+// entry i of A' gz: pc_at_g's fold
+__device__ __forceinline__ double pcw_at_g_i(const double* A,
+                                             const double* gz, int nz,
+                                             int i) {
     double acc = A[i] * gz[0];
     for (int k = 1; k < nz; ++k) acc = acc + A[k * nz + i] * gz[k];
     return acc;
 }
 
-// The scalars of Hz (pc_hess); the u = q / r it needs replace q in z.
+// The scalars of Hz (pc_hess); u_k = inv_r z_k is made where it is used.
 struct PcwHess {
-    double two_ir, cv, H_ss;
-    int nq;
+    double two_ir, cv, H_ss, inv_r;
 };
 
-__device__ __forceinline__ PcwHess pcw_hess(double* z, int nz, double alpha,
-                                            double mu, int spec,
-                                            double floor) {
+__device__ __forceinline__ PcwHess pcw_hess(const double* z, int nz,
+                                            double alpha, double mu,
+                                            int spec, double floor) {
     const int nq = nz - 1;
     const double s = z[nq];
     const double s_a = pow_alpha(s, alpha, spec, floor);
     const double r = s_a - pc_qsq<0>(z, nq);
-    const double inv_r = 1.0 / r;
     PcwHess h;
-    h.nq = nq;
-    h.two_ir = 2.0 * inv_r;
+    h.inv_r = 1.0 / r;
+    h.two_ir = 2.0 * h.inv_r;
     const double s_am1 = s_a / s;
     const double s_am2 = s_am1 / s;
-    for (int i = 0; i < nq; ++i) z[i] = inv_r * z[i];
-    const double v = s_am1 * inv_r;
-    h.H_ss = -alpha * (alpha - 1.0) * s_am2 * inv_r
+    const double v = s_am1 * h.inv_r;
+    h.H_ss = -alpha * (alpha - 1.0) * s_am2 * h.inv_r
              + (alpha * alpha) * (v * v) + (mu / s) / s;
     h.cv = -2.0 * alpha * v;
     return h;
 }
 
-// Hz[k][l] from u (pc_hess's expressions)
-__device__ __forceinline__ double pcw_hz(const PcwHess& h, const double* u,
-                                         int k, int l) {
-    if (k < h.nq && l < h.nq) {
-        const double uu = 4.0 * u[k] * u[l];
-        return k == l ? uu + h.two_ir : uu;
-    }
-    if (k < h.nq) return h.cv * u[k];
-    if (l < h.nq) return h.cv * u[l];
-    return h.H_ss;
+// w_i = fold over k = 0..nq-1, ascending, of A[k,i] u_k, u_k = inv_r z_k
+__device__ __forceinline__ double pcw_w_i(const double* A, const double* z,
+                                          double inv_r, int nz, int i) {
+    double acc = A[i] * (inv_r * z[0]);
+    for (int k = 1; k < nz - 1; ++k)
+        acc = acc + A[k * nz + i] * (inv_r * z[k]);
+    return acc;
 }
 
-// Entry (i, j) of A' Hz A (pc_at_h_a_ij: the (k, l) pairs summed k-major)
-__device__ __forceinline__ double pcw_at_h_a_ij(const double* A,
-                                                const PcwHess& h,
-                                                const double* u, int nz,
-                                                int i, int j) {
-    double acc = A[i] * pcw_hz(h, u, 0, 0) * A[j];
-    for (int l = 1; l < nz; ++l)
-        acc = acc + A[i] * pcw_hz(h, u, 0, l) * A[l * nz + j];
-    for (int k = 1; k < nz; ++k)
-        for (int l = 0; l < nz; ++l)
-            acc = acc + A[k * nz + i] * pcw_hz(h, u, k, l) * A[l * nz + j];
-    return acc;
+// The Gram entries g_ij = fold over k = 0..nq-1, ascending, of
+// A[k,i] A[k,j] of a 2 x 2 tile, (i0, i1) x (j0, j1): g[0] (i0, j0), g[1]
+// (i0, j1), g[2] (i1, j0), g[3] (i1, j1); four folds side by side, each
+// column loaded once a row.
+__device__ __forceinline__ void pcw_gram_tile(const double* A, int nz,
+                                              int i0, int i1, int j0, int j1,
+                                              double g[4]) {
+    g[0] = A[i0] * A[j0];
+    g[1] = A[i0] * A[j1];
+    g[2] = A[i1] * A[j0];
+    g[3] = A[i1] * A[j1];
+    for (int k = 1; k < nz - 1; ++k) {
+        const double* r = A + k * nz;
+        const double a0 = r[i0], a1 = r[i1], b0 = r[j0], b1 = r[j1];
+        g[0] = g[0] + a0 * b0;
+        g[1] = g[1] + a0 * b1;
+        g[2] = g[2] + a1 * b0;
+        g[3] = g[3] + a1 * b1;
+    }
+}
+
+// Entry (i, j) of A' Hz A in the Gram order, from g_ij, w and a = row nq
+// of A:
+//   H_ij = ((two_ir g_ij + 4 (w_i w_j)) + cv (w_i a_j + a_i w_j))
+//          + H_ss (a_i a_j)
+// Every product and sum of two operands commutes exactly, so H_ij and
+// H_ji hold the same bits. (The cobarrier's cross entry is
+// cv w_i + H_ss a_i, its corner H_ss.)
+__device__ __forceinline__ double pcw_h(double g, double wi, double wj,
+                                        double ai, double aj,
+                                        const PcwHess& h) {
+    return ((h.two_ir * g + 4.0 * (wi * wj)) + h.cv * (wi * aj + ai * wj))
+           + h.H_ss * (ai * aj);
 }

@@ -34,38 +34,51 @@ entry, cross row/column and corner are the reference's C1/C2. With
 over the rows NC.. of y.
 
 CUDA design (``csrc/node_barrier.cu``; the closed forms in
-``csrc/power_cone.cuh``, shared with K2, and ``csrc/linear.cuh``): two
+``csrc/power_cone.cuh``, shared with K2, and ``csrc/linear.cuh``): three
 kernels per (mode, form), the form the barrier, the cobarrier or the
-cobarrier with the box, one with register instances and one, for tables
-with a wider piece, with runtime-width ones; one thread per node in blocks
-of 32 nodes (64 above 8,448 nodes, 16 where ny x ny rows would pass 48 KB
-of shared memory, and fewer, with the kernel's opt-in past 48 KB, where 16
-would not fit). A block stages its nodes' rows and every piece's grids in
-shared memory with coalesced ``cp.async`` copies, then loops over the
-pieces, switching per piece to the instance of its shape that ``instance``
-picks: a power cone on (nz, spec) for nz <= 5, a linear block on (nc, ni)
-for the shapes the constructors build, a runtime-width linear block for the
-rest up to 4 x 5, each keeping its small arrays in registers; in the wide
-kernels every piece takes a runtime-width cone or a wide linear block,
-which keep their one vector in a per-thread scratch row in shared memory
-and make each entry of the cone's Hessian where it is used (no kernel has a
-stack frame). Modes 1 and 2 build each node's row or ny x ny block in
-shared memory as the left fold over the pieces (an exact +0.0 added where a
-piece leaves an earlier piece's entry alone) and store the block's rows
-contiguous. These kernels take the table as their ``__grid_constant__``
-parameter, which holds at most ``MAX_PIECES`` = 16 pieces over
-``MAX_ROWS`` = 32 rows (its 32-bit row masks) with widths up to
-``MAX_WIDTH`` = 32. A table past any of these runs in the table kernels,
-one per (mode, form): the table goes to the card as a buffer (the pieces'
-records and their input rows, ``_device_table``), every piece takes its
-runtime-width instance reading grids and rows from global memory, a block
-derives the row masks as arrays of 32-bit words in shared memory, and each
-node's row or block is built in shared memory where 8 nodes' fit the
-opt-in 227 KB and in the output itself where not.
-Built with ``--fmad=false`` and following the plain version below operation
-by operation, so it gives the plain version's bits. What bounds it on an
-H100: bytes (a few hundred flops per node against the pieces' grids and the
-ny + ny^2 doubles in and out); at L=5 the call is launch-bound.
+cobarrier with the box.
+
+- The register kernels take a table of up to ``MAX_PIECES`` = 16 pieces
+  over ``MAX_ROWS`` = 32 rows (their 32-bit row masks) whose pieces all
+  have register instances, which ``instance`` picks: a power cone on
+  (nz, spec) for nz <= 5, a linear block on (nc, ni) for the shapes the
+  constructors build, a runtime-width linear block for the rest up to
+  4 x 5. One thread a node in blocks of 32 nodes (64 above 8,448 nodes, 16
+  where ny x ny rows would pass 48 KB of shared memory, fewer, with the
+  opt-in past 48 KB, where 16 would not fit); a block stages its nodes'
+  rows and every piece's grids in shared memory with coalesced
+  ``cp.async`` copies, builds each node's row or ny x ny block in shared
+  memory as the left fold over the pieces (an exact +0.0 added where a
+  piece leaves an earlier piece's entry alone) and stores the block's
+  rows contiguous. Bound on an H100: bytes (a few hundred flops per node
+  against the pieces' grids and the ny + ny^2 doubles in and out); at L=5
+  the call is launch-bound.
+- The group kernels take every other table, each piece in its
+  runtime-width instance: the wide kernels a table within those limits
+  with a wider piece (a cone of nz > 5, a linear block past 4 x 5; the
+  table in their parameter), the table kernels a table past them (the
+  table in their parameter, past 32 pieces or 512 input rows on the card
+  as a buffer, ``_device_table``). A node runs on a group of lanes
+  (``last_group``), about two entries a lane: in mode 2 the largest power
+  of two up to nz (nz + 1) / 4 of the table's widest cone, at most 128; in
+  modes 0 and 1 up to nz / 2, at most 32; one lane without a cone; 128
+  lanes a block, 80 registers a lane. A block stages its
+  nodes' rows, every piece's records, grids and input rows in shared
+  memory (all pieces at once, else piece by piece), keeps each node's
+  vectors there, and builds each node's row or block there where one
+  node's fits beside its grids (ny up to about 160; else in the output,
+  ``last_in_global``). Within a piece every entry is one lane's fold, the
+  closed forms' scalars one lane's: modes 0 and 1 and the linear blocks
+  keep the reference's order and bits; a cone's Hessian is a Gram product
+  and rank-one terms (``power_cone.at_h_a_gram``) in 2 x 2 tiles, ~nz^3
+  operations a node where the reference's fold takes ~nz^4, in an order of
+  its own. Bound on an H100: bytes (at nz = 33 over 65 rows ~43 KB a node
+  against ~45 k f64 operations), so no tensor cores.
+
+Built with ``--fmad=false``. On the card every launch gives the bits of
+``node_barrier_gram_plain``: the reference's order (``node_barrier_plain``,
+which the CPU path returns) but for a runtime-width cone's Hessian, which
+is within ``gram_order_bound`` of it.
 """
 from __future__ import annotations
 
@@ -122,10 +135,11 @@ def linear_parts(A, b, idx, y, slack=None):
     return Ac, F
 
 
-def _piece_plain(mode, pc, grids, y, nin, slack):
+def _piece_plain(mode, pc, grids, y, nin, slack, gram):
     """One piece's F0, F1 scattered to ``nin`` rows, or F2 scattered to
     nin x nin; in the cobarrier form (``slack`` given) with the slack's
-    entry, row and column appended."""
+    entry, row and column appended. ``gram``: a cone's F2 in the Gram order
+    (``power_cone.at_h_a_gram``), else in the reference's."""
     co = slack is not None
     if pc.kind == POWER:
         A, b, p, mu = grids
@@ -138,6 +152,11 @@ def _piece_plain(mode, pc, grids, y, nin, slack):
         if mode == 1:
             gz = K2.core_grad(q, s, p, mu, pc.spec)
             g, gl = K2.at_g(A, gz, nz), gz[-1]
+        elif gram:
+            u, two_ir, cv, cn = K2.core_hess_parts(q, s, p, mu, pc.spec)
+            Ht, crt = K2.at_h_a_gram(A, u, two_ir, cv, cn, nz)
+            H = [[Ht[:, i, j] for j in range(nz)] for i in range(nz)]
+            cr = [crt[:, i] for i in range(nz)]
         else:
             Hz = K2.core_hess(q, s, p, mu, pc.spec)
             H = K2.at_h_a(A, Hz, nz)
@@ -205,13 +224,91 @@ def _box_plain(mode, T, y, NC, b, R):
 
 def node_barrier_plain(mode, Dz, pieces, args, sel, bw, wc, co=None,
                        box=None):
-    """Plain PyTorch version of the kernel (same arithmetic, same order)."""
+    """Plain PyTorch version of the kernel in the reference's order (every
+    sum as the JAX package folds it): the CPU path, and on the card the
+    register kernels' bits."""
+    return _plain(mode, Dz, pieces, args, sel, bw, wc, co, box,
+                  (False,) * len(pieces))
+
+
+def node_barrier_gram_plain(mode, Dz, pieces, args, sel, bw, wc, co=None,
+                            box=None):
+    """Plain PyTorch version of the kernel as the card runs it:
+    ``node_barrier_plain``, but a piece that ``instance`` gives a
+    runtime-width cone (a wide or a table kernel's) takes its Hessian in
+    the Gram order of ``power_cone.at_h_a_gram``. The card tests hold every
+    launch to its bits."""
+    codes = instance(pieces, mode, Dz.shape[1], co, box is not None).codes
+    return _plain(mode, Dz, pieces, args, sel, bw, wc, co, box,
+                  tuple(CONE_WIDE <= c < LINEAR_WIDE for c in codes))
+
+
+def gram_order_bound(Dz, pieces, args, sel, bw, co=None, box=None):
+    """(m, ny, ny): the bound within which the mode-2 outputs of
+    ``node_barrier_gram_plain`` and ``node_barrier_plain`` agree, entry by
+    entry: (nz^2 + nz + 8) eps times the entry's sum of absolute terms,
+    with nz the table's widest runtime-width cone and eps = 2^-52. That is
+    the recursive-summation bound for two orders of the same products (to
+    first order (nz^2 + 3) u for the reference's fold over the nz^2 (k, l)
+    terms, (2 nz + 4) u for the Gram order's, u = eps / 2; the sums over
+    the pieces and the scaling by bw fall in the slack). A cone's terms are
+    taken part by part, |A|' M |A| with M = [[|two_ir| I + 4 |u| |u|',
+    |cv| |u|], [|cv| |u|', |H_ss|]], so the bound holds outside the cone
+    too; every other piece and the box add their entries' magnitudes.
+    Zero where no piece is a runtime-width cone (the orders agree)."""
+    codes = instance(pieces, 2, Dz.shape[1], co, box is not None).codes
+    m, ny = Dz.shape
+    nin = ny if co is None else co - 1
+    slack = None if co is None else Dz[:, nin]
+    T, nzw = None, 0
+    for k, (pc, code) in enumerate(zip(pieces, codes)):
+        grids = pc.grids(args)
+        if CONE_WIDE <= code < LINEAR_WIDE:
+            A, b, p, mu = grids
+            nz = pc.width
+            nzw = max(nzw, nz)
+            q, s = K2.core_parts(A, b, pc.idx, Dz)
+            if slack is not None:
+                s = s + slack
+            u, two_ir, cv, H_ss = K2.core_hess_parts(q, s, p, mu, pc.spec)
+            ua = torch.stack(u, dim=1).abs()
+            M = torch.zeros((m, nz, nz), dtype=Dz.dtype, device=Dz.device)
+            M[:, :-1, :-1] = 4.0 * ua[:, :, None] * ua[:, None, :] \
+                + torch.diag_embed(two_ir.abs()[:, None].expand(-1, nz - 1))
+            M[:, :-1, -1] = M[:, -1, :-1] = cv.abs()[:, None] * ua
+            M[:, -1, -1] = H_ss.abs()
+            Aa = A.reshape(m, nz, nz).abs()
+            S = Aa.transpose(1, 2) @ M @ Aa
+            H = [[S[:, i, j] for j in range(nz)] for i in range(nz)]
+            val = scatter_mat(pc.idx, H, nin, Dz[:, 0])
+            if slack is not None:
+                cr = (Aa.transpose(1, 2) @ M[:, :, -1:])[:, :, 0]
+                cross = scatter_vec(pc.idx, [cr[:, i] for i in range(nz)],
+                                    nin, Dz[:, 0])
+                top = torch.cat([val, cross[:, :, None]], dim=2)
+                val = torch.cat([top, torch.cat([cross, H_ss.abs()[:, None]],
+                                                dim=1)[:, None]], dim=1)
+        else:
+            val = _piece_plain(2, pc, grids, Dz, nin, slack, False).abs()
+        if sel is not None:
+            act = (sel[:, k] != 0).reshape(m, 1, 1)
+            val = torch.where(act, val, torch.zeros_like(val))
+        T = val if T is None else T + val
+    if box is not None:
+        T = _box_plain(2, T, Dz, co, *box).abs()
+    eps = torch.finfo(torch.float64).eps
+    return (nzw * nzw + nzw + 8) * eps * bw.abs()[:, None, None] * T \
+        if nzw else torch.zeros_like(T)
+
+
+def _plain(mode, Dz, pieces, args, sel, bw, wc, co, box, gram):
     m, ny = Dz.shape
     nin = ny if co is None else co - 1
     slack = None if co is None else Dz[:, nin]
     T = None
     for k, pc in enumerate(pieces):
-        val = _piece_plain(mode, pc, pc.grids(args), Dz, nin, slack)
+        val = _piece_plain(mode, pc, pc.grids(args), Dz, nin, slack,
+                           gram[k])
         if sel is not None:
             act = (sel[:, k] != 0).reshape((m,) + (1,) * (val.dim() - 1))
             val = torch.where(act, val, torch.zeros_like(val))
@@ -368,7 +465,7 @@ LAYOUT = (("pc", _Table.pc.offset), ("y", _Table.y.offset),
           ("NBTPiece inst", _TPIECE.fields["inst"][1]),
           ("NBTPiece idx", _TPIECE.fields["idx"][1]))
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_TABLE_ARGS = [_P, _P, _I, _I] + [_P] * 8 + [_D] + [_I] * 5 + [_P]
+_TABLE_ARGS = [_P, _P, _I, _I] + [_P] * 7 + [_D] + [_I] * 4 + [_P]
 
 
 def check_layout(table_size, table_offset):
@@ -413,16 +510,27 @@ _LAUNCH: dict = {}
 
 
 def last_block() -> int:
-    """Nodes a block of the last launch on the card: 32 (64 above 8,448
-    nodes), 16 where the block's rows pass 48 KB of shared memory, fewer
-    where 16 nodes pass the opt-in 227 KB; a table kernel's 32, or fewer
-    down to 8 where its rows are built in shared memory."""
+    """Nodes a block of the last launch on the card. The register kernels:
+    32 (64 above 8,448 nodes), 16 where the block's rows pass 48 KB of
+    shared memory, fewer where 16 nodes pass the opt-in 227 KB. The wide
+    and table kernels: 128 / ``last_group()`` (32, or 64 above 8,448 nodes,
+    at one lane a node), halved while the block passes 227 KB."""
     return B.launcher(NAME, [], "node_barrier_last_block")()
 
 
+def last_group() -> int:
+    """Lanes a node of the last launch on the card: 1 in the register
+    kernels; in the wide and table kernels a power of two from the table's
+    widest cone, about two entries a lane: up to nz (nz + 1) / 4 and 128 in
+    mode 2 (8 at nz = 7, 64 at nz = 17, 128 at nz = 33), up to nz / 2 and
+    32 in modes 0 and 1, 1 without a cone."""
+    return B.launcher(NAME, [], "node_barrier_last_group")()
+
+
 def last_in_global() -> bool:
-    """Whether the last table launch built its nodes' rows in global
-    memory (where 8 nodes' ny x ny blocks pass 227 KB)."""
+    """Whether the last launch of a wide or table kernel built its nodes'
+    rows in the output, in global memory (where one node's row or
+    ny x ny block does not fit the opt-in 227 KB beside its grids)."""
     return bool(B.launcher(NAME, [], "node_barrier_last_in_global")())
 
 
@@ -505,17 +613,15 @@ def node_barrier(mode, Dz, pieces, args, sel, bw, wc, co=None, box=None):
 def _launch_table(mode, Dz, pieces, codes, args, sel, bw, wc, co, box, out):
     m, ny = Dz.shape
     host, dev = _device_table(pieces, codes, args, Dz.device)
-    scrs = max(pc.width for pc in pieces) | 1
-    scr = torch.empty((m, scrs), dtype=torch.float64, device=Dz.device)
     boxb, boxR = (None, None) if box is None else \
         (box[0].data_ptr(), box[1].data_ptr())
     return _table_launcher()(
         host.data_ptr(), dev.data_ptr(), len(pieces),
         sum(len(pc.idx) for pc in pieces), Dz.data_ptr(),
         None if sel is None else sel.data_ptr(), bw.data_ptr(),
-        wc.data_ptr(), boxb, boxR, out.data_ptr(), scr.data_ptr(),
+        wc.data_ptr(), boxb, boxR, out.data_ptr(),
         barrier_floor(torch.float64), mode, m, ny, 0 if co is None else co,
-        scrs, B.stream(Dz.device))
+        B.stream(Dz.device))
 
 
 def _launch_params(mode, Dz, pieces, codes, args, sel, bw, wc, co, box, out):

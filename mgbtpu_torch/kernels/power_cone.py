@@ -91,9 +91,10 @@ def core_grad(q, s, p, mu, spec):
     return grad_q + [grad_s]
 
 
-def core_hess(q, s, p, mu, spec):
-    """Hessian wrt (q, s) as a nested nz x nz list (euclidian_power.py
-    ``_core_hess``, the factored u = q/r, v = s^(a-1)/r form)."""
+def core_hess_parts(q, s, p, mu, spec):
+    """The pieces of the Hessian wrt (q, s) (euclidian_power.py
+    ``_core_hess``, the factored form): u = q / r (a list), two_ir, the
+    cross factor cv (Hz[i][nq] = cv u_i) and H_ss."""
     alpha = 2.0 / p
     q_sq = ssum([qi * qi for qi in q])
     s_a = pow_alpha(s, alpha, spec)
@@ -105,9 +106,16 @@ def core_hess(q, s, p, mu, spec):
     v = s_am1 * inv_r
     H_ss = (-alpha * (alpha - 1.0) * s_am2 * inv_r
             + (alpha * alpha) * (v * v) + (mu / s) / s)
-    two_ir = 2.0 * inv_r
+    return u, 2.0 * inv_r, -2.0 * alpha * v, H_ss
+
+
+def core_hess(q, s, p, mu, spec):
+    """Hessian wrt (q, s) as a nested nz x nz list (euclidian_power.py
+    ``_core_hess``: Hz[i][j] = 4 u_i u_j (+ two_ir on the diagonal),
+    Hz[i][nq] = cv u_i, Hz[nq][nq] = H_ss)."""
+    u, two_ir, cv, H_ss = core_hess_parts(q, s, p, mu, spec)
     n = len(q)
-    cross = [(-2.0 * alpha * v) * ui for ui in u]
+    cross = [cv * ui for ui in u]
     rows = []
     for i in range(n):
         row = [4.0 * u[i] * u[j] + two_ir if i == j else 4.0 * u[i] * u[j]
@@ -137,6 +145,33 @@ def at_h_a(A, Hz, nz):
                 * Am[:, l, None, :]
             acc = t if acc is None else acc + t
     return [[acc[:, i, j] for j in range(nz)] for i in range(nz)]
+
+
+def at_h_a_gram(A, u, two_ir, cv, H_ss, nz):
+    """A' Hz A in the Gram order of K6's runtime-width cone
+    (``csrc/power_cone.cuh`` ``pcw_w_i``, ``pcw_h_ij``), from
+    ``core_hess_parts``: with nq = nz - 1, Aq the rows 0..nq-1 of A and
+    a = its row nq, Hz = [[4 u u' + two_ir I, cv u], [cv u', H_ss]] gives
+    A' Hz A = two_ir Aq'Aq + 4 w w' + cv (w a' + a w') + H_ss a a' with
+    w = Aq' u. Per entry, each sum a left fold::
+
+        g_ij = fold over k = 0..nq-1, ascending, of A[k,i] A[k,j]
+        w_i  = fold over k = 0..nq-1, ascending, of A[k,i] u_k
+        H_ij = ((two_ir g_ij + 4 (w_i w_j)) + cv (w_i a_j + a_i w_j))
+               + H_ss (a_i a_j)
+
+    and the cobarrier's cross entries cr_i = cv w_i + H_ss a_i. Returns
+    (H (m, nz, nz), cr (m, nz)); H is bitwise symmetric."""
+    Am = A.reshape(-1, nz, nz)
+    nq = nz - 1
+    g = ssum([Am[:, k, :, None] * Am[:, k, None, :] for k in range(nq)])
+    w = ssum([Am[:, k, :] * u[k][:, None] for k in range(nq)])
+    a = Am[:, nq, :]
+    wi, wj, ai, aj = w[:, :, None], w[:, None, :], a[:, :, None], a[:, None, :]
+    H = ((two_ir[:, None, None] * g + 4.0 * (wi * wj))
+         + cv[:, None, None] * (wi * aj + ai * wj)) \
+        + H_ss[:, None, None] * (ai * aj)
+    return H, cv[:, None] * w + H_ss[:, None] * a
 
 
 def power_cone_plain(mode, Dz, A, b, p, mu, bw, wc, idx, spec):

@@ -21,7 +21,12 @@ the largest entry. They use no atomics, so a repeat call must give the
 same bits.
 The per-node barrier kernels (K2, K6) follow the plain versions operation
 by operation (built with --fmad=false) and are held to the plain versions'
-bits (int64 views, so the sign of a zero counts).
+bits (int64 views, so the sign of a zero counts): K6 to
+``node_barrier_gram_plain``, the order it runs in on the card (a
+runtime-width cone's Hessian in the Gram order of the wide and table
+kernels, every other piece in the reference's order), and, where a table
+has a runtime-width cone, to the reference's order (``node_barrier_plain``)
+within ``gram_order_bound``.
 """
 import sys
 
@@ -526,7 +531,7 @@ def test_node_barrier(dev, table, mode, form):
     call = (mode, t(y), Q.pieces, args, sel, t(bw),
             t(rng.standard_normal(y.shape)), co, box)
     before = (K.node_barrier.launches, K.node_barrier.co_launches)
-    out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
+    out, ref = K.node_barrier(*call), K.node_barrier_gram_plain(*call)
     assert _rel(out, ref) <= TOL
     assert _same_bits(out, ref)
     assert K.node_barrier.launches == before[0] + 1
@@ -598,7 +603,7 @@ def test_node_barrier_instance_at_its_widest(dev, code):
         call = _phase_one_call(mode, Q, Dz, rng, t)
         inst = instance(Q.pieces, mode, 12, 9, True)
         assert inst.form == 2 and inst.codes == (code,) * 4
-        out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
+        out, ref = K.node_barrier(*call), K.node_barrier_gram_plain(*call)
         assert _rel(out, ref) <= TOL
         assert _same_bits(out, ref)
 
@@ -636,7 +641,7 @@ def test_node_barrier_signed_zero_fold(dev, order, mode, form):
     else:
         call = _phase_one_call(mode, Q, Dz, rng, t,
                                wc=np.full((m, nD + 4), -0.0))
-    out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
+    out, ref = K.node_barrier(*call), K.node_barrier_gram_plain(*call)
     assert _same_bits(out, ref)
     # the block alone leaves -0.0 there (where bw != 0): the case is live
     alone = K.node_barrier_plain(mode, call[1], lin.pieces,
@@ -668,9 +673,29 @@ def test_node_barrier_repeated_rows(dev, mode):
     for call in ((mode, t(Dz), Q.pieces, args, args[0], t(np.full(m, 0.5)),
                   t(rng.standard_normal((m, 4))), None, None),
                  _phase_one_call(mode, Q, Dz, rng, t)):
-        out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
+        out, ref = K.node_barrier(*call), K.node_barrier_gram_plain(*call)
         assert _rel(out, ref) <= TOL
         assert _same_bits(out, ref)
+
+
+def _hold_k6(out, call):
+    """K6's output bitwise equal to the plain version of its order
+    (``node_barrier_gram_plain``), and to the reference's order
+    (``node_barrier_plain``): the same bits in modes 0 and 1, within
+    ``gram_order_bound`` in mode 2, non-finite where it is."""
+    from mgbtpu_torch.kernels.node_barrier import gram_order_bound
+
+    ref = K.node_barrier_gram_plain(*call)
+    assert _rel(out, ref) <= TOL
+    assert _same_bits(out, ref)
+    old = K.node_barrier_plain(*call)
+    if call[0] < 2:
+        assert _same_bits(out, old)
+        return
+    fin = torch.isfinite(old)
+    np.testing.assert_array_equal(torch.isfinite(out).cpu(), fin.cpu())
+    bound = gram_order_bound(*call[1:6], call[7], call[8])
+    assert bool(((out - old).abs()[fin] <= bound[fin]).all())
 
 
 def _wide_tables(m, rng, table, room):
@@ -753,11 +778,13 @@ def test_node_barrier_wide_tables(dev, table, mode, form):
     """K6's wide tables (more than 4 pieces, up to 32 rows, the
     runtime-width cone, the wide linear block, narrow pieces in their wide
     instances) in every mode and form, with infeasible and masked nodes,
-    bitwise equal to the plain version; 3,001 nodes (blocks of 32, or
-    fewer where a block's rows pass 48 KB: the widest cone and block run
-    their Hessians at 8 nodes a block, where 16 would pass the opt-in
-    227 KB, and their other modes at 16)."""
-    from mgbtpu_torch.kernels.node_barrier import instance, last_block
+    held by ``_hold_k6``; 3,001 nodes. The widest cone runs a node on 128
+    lanes in mode 2, one node a block, and on 16 lanes (nz = 32) or 8
+    (nz = 31, 28) in modes 0 and 1, 8 or 16 nodes a block; the widest
+    linear block (no cone) one lane a node, 8 nodes a block in mode 2 and
+    16 in the others, where more would pass the opt-in 227 KB."""
+    from mgbtpu_torch.kernels.node_barrier import (instance, last_block,
+                                                   last_group)
 
     rng = np.random.default_rng(900 + WIDE_TABLES.index(table))
     m = 3001
@@ -780,9 +807,9 @@ def test_node_barrier_wide_tables(dev, table, mode, form):
         call = (mode, t(y), Q.pieces, args, args[0] if Q.select else None,
                 t(bw), t(rng.standard_normal(y.shape)), co, None)
     before = K.node_barrier.launches
-    out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
-    assert _rel(out, ref) <= TOL
-    assert _same_bits(out, ref)
+    out = K.node_barrier(*call)
+    shape = (last_block(), last_group())
+    _hold_k6(out, call)
     assert _same_bits(out, K.node_barrier(*call))
     assert K.node_barrier.launches == before + 2
     inst = instance(Q.pieces, mode, call[1].shape[1], call[7],
@@ -791,17 +818,22 @@ def test_node_barrier_wide_tables(dev, table, mode, form):
         assert inst.wide and len(set(inst.codes)) == 4
     if table in ("cone_widest", "linear_widest"):
         assert call[1].shape[1] == 32
-        assert last_block() == (8 if mode == 2 else 16)
+    if table == "cone_widest":      # nz = 32, 31, 28: about 2 entries a lane
+        lanes = 128 if mode == 2 else {32: 16, 31: 8, 28: 8}[ROOM[form]]
+        assert shape == (max(128 // lanes, 1), lanes)
+    if table == "linear_widest":
+        assert shape == (8 if mode == 2 else 16, 1)
 
 
 def _table_tables(m, rng, table):
     """Tables past the parameter kernels (16 pieces, 32 rows, widths 32):
     (Convex, D rows). 17 pieces (cones of nz 2 and 3 and linear blocks,
     with a select grid) over 20 rows; the 16-field model's cone (nz = 17
-    over 33 rows, a full A); the 32-field model's (nz = 33 over 65 rows,
-    its Hessian's rows too wide for shared memory: built in global
-    memory); a linear block of 40 x 34 with repeated rows beside a narrow
-    cone, over 36 rows."""
+    over 33 rows, a full A); the 32-field model's (nz = 33 over 65 rows);
+    a linear block of 40 x 34 with repeated rows beside a narrow cone, over
+    36 rows; a cone of nz = 113 over 225 rows, whose Hessian's 113 written
+    rows of 225 pass the opt-in 227 KB beside its A (built in the
+    output)."""
     x = np.zeros((m, 2))
     cone, lin = mt.convex_euclidian_power, mt.convex_linear
 
@@ -824,6 +856,9 @@ def _table_tables(m, rng, table):
                     A_grid=rand_A(17), p=2.0), 33
     if table == "cone_nz33":
         return cone(x=x, idx=tuple(range(1, 64, 2)) + (64,), p=2.0), 65
+    if table == "cone_nz113":
+        return cone(x=x, idx=tuple(range(1, 224, 2)) + (224,),
+                    A_grid=rand_A(113), p=1.0), 225
     wide = lin(x=x, idx=tuple(range(33)) + (5,),
                A_grid=rng.standard_normal((m, 40 * 34)),
                b_grid=rng.uniform(30.0, 40.0, (m, 40)))
@@ -840,9 +875,11 @@ TABLE_KERNEL = ["seventeen_pieces", "cone_nz17", "cone_nz33",
 def test_node_barrier_table_kernels(dev, table, mode, form):
     """The table kernels (a table past 16 pieces, 32 rows or a width of
     32, read from a device buffer) in every mode and form, with infeasible
-    and masked nodes, bitwise equal to the plain version and to a repeat
-    call; the nz = 33 cone's Hessian builds its rows in global memory."""
-    from mgbtpu_torch.kernels.node_barrier import instance, last_in_global
+    and masked nodes, held by ``_hold_k6`` and bitwise equal to a repeat
+    call; the nz = 33 cone's Hessian builds its rows in shared memory, a
+    node on 128 lanes."""
+    from mgbtpu_torch.kernels.node_barrier import (instance, last_group,
+                                                   last_in_global)
 
     rng = np.random.default_rng(950 + TABLE_KERNEL.index(table))
     m = 1001
@@ -868,13 +905,82 @@ def test_node_barrier_table_kernels(dev, table, mode, form):
                     call[8] is not None)
     assert inst.table
     before = K.node_barrier.table_launches
-    out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
-    assert _rel(out, ref) <= TOL
-    assert _same_bits(out, ref)
+    out = K.node_barrier(*call)
+    shape = (last_group(), last_in_global())
+    _hold_k6(out, call)
     assert _same_bits(out, K.node_barrier(*call))
     assert K.node_barrier.table_launches == before + 2
     if table == "cone_nz33" and mode == 2:
-        assert last_in_global()
+        assert shape == (128, False)
+
+
+@pytest.mark.parametrize("mode", [1, 2])
+@pytest.mark.parametrize("form", ["barrier", "phase_one"])
+def test_node_barrier_table_rows_in_global_memory(dev, form, mode):
+    """A cone of nz = 113 over 225 rows at 40 nodes: the 113 rows of its
+    Hessian that the cone writes (203 KB) and its 113 x 113 A (102 KB) pass
+    the opt-in 227 KB together, so the table kernel builds the block in the
+    output (A staged in shared memory); held by ``_hold_k6``."""
+    from mgbtpu_torch.kernels.node_barrier import last_in_global
+
+    rng = np.random.default_rng(990 + mode)
+    m = 40
+    Q, nD = _table_tables(m, rng, "cone_nz113")
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    Dz = rng.uniform(-0.3, 0.3, (m, nD))
+    Dz[:, nD - 1] = rng.uniform(2.0, 4.0, m)
+    Dz[:4] *= rng.choice([-6.0, 6.0], (4, nD))          # infeasible nodes
+    if form == "phase_one":
+        call = _phase_one_call(mode, Q, Dz, rng, t)
+    else:
+        bw = np.full(m, 1.0 / m)
+        bw[10:12] = 0.0
+        call = (mode, t(Dz), Q.pieces, tuple(t(a) for a in Q.args), None,
+                t(bw), t(rng.standard_normal(Dz.shape)), None, None)
+    out = K.node_barrier(*call)
+    assert last_in_global() == (mode == 2)
+    _hold_k6(out, call)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("table", ["piece_by_piece", "in_place"])
+def test_node_barrier_table_staging_fallbacks(dev, table, mode):
+    """The table kernels' two fallbacks: 40 cones of nz = 32 over 33 rows
+    (with a select grid and a linear block), whose grids pass the opt-in
+    227 KB together, staged piece by piece; a cone of nz = 170 whose 170 x
+    170 A alone passes it, read where it lies. Held by ``_hold_k6``."""
+    rng = np.random.default_rng(980 + mode)
+    x = lambda m: np.zeros((m, 2))  # noqa: E731
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+
+    def rand_A(m, n):
+        return np.tile(np.eye(n).reshape(1, -1), (m, 1)) \
+            + 0.05 * rng.standard_normal((m, n * n))
+
+    if table == "piece_by_piece":
+        m, nD = 6, 33
+        pieces = [mt.convex_euclidian_power(
+            x=x(m), idx=tuple((k + j) % 32 for j in range(31)) + (32,),
+            A_grid=rand_A(m, 32), p=(1.0, 2.0)[k % 2]) for k in range(40)]
+        pieces.append(mt.convex_linear(
+            x=x(m), idx=(0, 5), A_grid=rng.standard_normal((m, 2)),
+            b_grid=rng.uniform(2.0, 4.0, (m, 1))))
+        sel = (rng.uniform(size=(m, 41)) < 0.7).astype(float)
+        Q = mt.convex_piecewise(tuple(pieces), select_grid=sel, x=x(m))
+    else:
+        m, nD = 4, 170
+        Q = mt.convex_euclidian_power(x=x(m), idx=tuple(range(170)),
+                                      A_grid=rand_A(m, 170), p=1.0)
+    Dz = rng.uniform(-0.3, 0.3, (m, nD))
+    s_rows = sorted({pc.idx[-1] for pc in Q.pieces if pc.kind == POWER})
+    Dz[:, s_rows] = rng.uniform(2.0, 4.0, (m, len(s_rows)))
+    Dz[:1] *= 6.0                                       # an infeasible node
+    bw = np.full(m, 1.0 / m)
+    bw[2] = 0.0
+    args = tuple(t(a) for a in Q.args)
+    call = (mode, t(Dz), Q.pieces, args, args[0] if Q.select else None,
+            t(bw), t(rng.standard_normal(Dz.shape)), None, None)
+    _hold_k6(K.node_barrier(*call), call)
 
 
 @pytest.mark.parametrize("mode", [1, 2])
@@ -884,7 +990,7 @@ def test_node_barrier_signed_zero_fold_wide(dev, order, mode):
     linear block (nc = 5) whose A rows hold -1 and 0 gives -0.0 at its
     gradient entry 1 and Hessian entries (0, 1), (1, 0); a runtime-width
     cone (nz = 6) on rows 2..7 leaves them alone. Phase-I form, wc = -0.0,
-    bitwise equal to the plain version."""
+    held by ``_hold_k6``."""
     rng = np.random.default_rng(77 + mode)
     m, nD = 200, 8
     x = np.zeros((m, 2))
@@ -902,17 +1008,44 @@ def test_node_barrier_signed_zero_fold_wide(dev, order, mode):
     Dz = rng.uniform(-0.3, 0.3, (m, nD))
     Dz[:, 7] = rng.uniform(2.0, 3.0, m)
     call = _phase_one_call(mode, Q, Dz, rng, t, wc=np.full((m, nD + 4), -0.0))
-    out, ref = K.node_barrier(*call), K.node_barrier_plain(*call)
-    assert _same_bits(out, ref)
+    _hold_k6(K.node_barrier(*call), call)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_node_barrier_repeated_rows_wide(dev, mode):
+    """test_node_barrier_repeated_rows on the wide instances: a
+    runtime-width cone (nz = 6) and a wide linear block (5 x 3) that read
+    one row twice; the last occurrence's entry wins. Barrier and phase-I
+    form, held by ``_hold_k6``."""
+    rng = np.random.default_rng(65 + mode)
+    m = 300
+    x = np.zeros((m, 2))
+    Q = mt.intersect(
+        x, mt.convex_linear(x=x, idx=(1, 0, 1),
+                            A_grid=rng.standard_normal((m, 15)),
+                            b_grid=rng.uniform(4.0, 6.0, (m, 5))),
+        mt.convex_euclidian_power(
+            x=x, idx=(0, 2, 3, 2, 4, 5),
+            A_grid=np.tile(np.eye(6).reshape(1, -1), (m, 1))
+            + 0.1 * rng.standard_normal((m, 36)), p=1.0))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    Dz = rng.uniform(-0.3, 0.3, (m, 6))
+    Dz[:, 5] = rng.uniform(2.0, 3.0, m)
+    args = tuple(t(a) for a in Q.args)
+    for call in ((mode, t(Dz), Q.pieces, args, args[0], t(np.full(m, 0.5)),
+                  t(rng.standard_normal((m, 6))), None, None),
+                 _phase_one_call(mode, Q, Dz, rng, t)):
+        _hold_k6(K.node_barrier(*call), call)
 
 
 def test_node_barrier_has_no_local_memory(dev):
     """ptxas (-v, the committed flags) reports 0 bytes of stack and no
     spills for every function of node_barrier.cu: K6's 27 kernels, one per
-    (mode, form) with register instances, one with runtime-width ones
-    (which keep their vectors in shared memory, not in local memory) and
-    one reading its table from a device buffer, and any callee that was
-    not inlined."""
+    (mode, form) with register instances and two group kernels (a group of
+    lanes a node, every piece in its runtime-width instance over vectors in
+    shared memory, not in local memory), the wide one with the table in its
+    parameter and the table one reading it from a device buffer, and any
+    callee that was not inlined."""
     from mgbtpu_torch.kernels import _build
 
     _build.build_all(("node_barrier",), force=True)

@@ -13,9 +13,9 @@ level (a cone nz = 7 over 10 rows, m = 224, on the solution's rows with
 its wide kernel (``node_barrier``) and, forced, in the table kernel of the
 same mode and form (``node_barrier._launch_table`` with the same
 runtime-width instances); both are held bitwise against the plain version
-and timed in turns (wide, table, table, wide; ``chip_smoke.device_ms``).
-Prints one ``[wide-vs-table]`` line a call and the card's name and power
-limit."""
+of their order (``node_barrier_gram_plain``) and timed in turns (wide,
+table, table, wide; ``chip_smoke.device_ms``). Prints one
+``[wide-vs-table]`` line a call and the card's name and power limit."""
 import os
 import subprocess
 import sys
@@ -54,7 +54,7 @@ def compare(tag, calls, reps):
         inst = NB.instance(pieces, mode, Dz.shape[1], co, box is not None)
         if not inst.wide or inst.table:
             raise SystemExit(f"{tag} {label}: not a wide-kernel call ({inst})")
-        ref = K.node_barrier_plain(*call)
+        ref = K.node_barrier_gram_plain(*call)
         C.same_bits(f"{tag} {label} wide kernel", K.node_barrier(*call), ref,
                     "the plain version")
         C.same_bits(f"{tag} {label} table kernel", table_launch(call), ref,
