@@ -56,7 +56,10 @@ the cobarrier form in every phase I. Then the tensor-product and P1
 slice, at the fem3d k=3 (Q3 hexes, p = 64) level ``--fem3d-level`` (4 by
 default, 5 for the L=5 plan of 4,096 hexes, ~30 s of host setup): K1 and
 K4 against their plain versions and timed at its top level's shapes (nD =
-5) and its phase-I system's (nD = 8), where their wide forms run, and K5a
+5) and its phase-I system's (nD = 8), where K1's wide form and K4's
+cluster form run (K4 also bitwise against ``gram_matvec_cluster_plain``
+and beside ``torch.mv`` on the assembled Hessian in CSR), K3 at the main
+system's, and K5a
 on every tree level of its nested dissection in the large form its shape
 rule gives it (checked: its large count), per level against the plain
 version, timed in that form and in the one-panel form where that takes
@@ -91,7 +94,7 @@ record and the golden ones to their ``tests/test_golden.py`` vectors
 memory). Then the front-end slice: K6's made-up wide tables at 57,344
 seeded nodes (six pieces, 14 rows in phase I; a lone nz = 7 cone on the
 three-field model's 10 rows, which
-``Convex.barrier`` must route to K6; five pieces over 20 rows with the
+``Convex.barrier_terms`` must route to K6; five pieces over 20 rows with the
 phase-I box), every mode and form bitwise, each Hessian call timed beside
 its bound; then through the entry points a user calls: (A) the Model DSL's
 elastoplastic torsion (``examples/model_dsl.py``) at L=5 (K1, K3-K6 must
@@ -613,10 +616,32 @@ def kernel_phases(prob, torch, K):
     return records
 
 
+def hessian_csr(lv, Ln):
+    """H = sum_e P_e' L_e L_e' P_e (n_J x n_J) as a CUDA CSR tensor, from
+    the element blocks (L_e' P_e)'(L_e' P_e) by a COO sum: the one PyTorch
+    call that computes K4's H v is ``torch.mv`` on it (built once, outside
+    the timing, as K6's library call takes a pre-formed Hz)."""
+    import torch
+
+    nD, N, p, C = lv.panels.shape
+    X = torch.einsum("Nqji,jNqc->Nqic", Ln.reshape(N, p, nD, nD), lv.panels)
+    Hb = torch.einsum("Nqic,Nqid->Ncd", X, X)
+    del X
+    rows = lv.cols[:, :, None].expand(N, C, C).reshape(-1)
+    cols = lv.cols[:, None, :].expand(N, C, C).reshape(-1)
+    return torch.sparse_coo_tensor(
+        torch.stack([rows, cols]), Hb.reshape(-1),
+        (lv.n_J, lv.n_J)).coalesce().to_sparse_csr()
+
+
 def gram_matvec_phase(lv, torch, K, rng, tag):
     """K4 at a level's shapes (``lv``) against its plain version (one count
-    a call, the repeat call bitwise), timed against its plain version.
-    Returns (max abs error, its timing row with the bound)."""
+    a call, the repeat call bitwise; where the cluster form takes the shape
+    also bitwise equal to ``gram_matvec_cluster_plain`` at the R it picks),
+    timed against its plain version and ``torch.mv`` on the assembled
+    Hessian in CSR (``hessian_csr``). Returns (max abs error, its timing
+    row with the bound)."""
+    gm = sys.modules[K.gram_matvec.__module__]
     dev = torch.device("cuda")
     nD, N, p, C = lv.panels.shape
     m = N * p
@@ -629,17 +654,36 @@ def gram_matvec_phase(lv, torch, K, rng, tag):
     args = (lv.panels, lv.cols, lv.inv, Ln, v)
     before = K.gram_matvec.launches
     out = K.gram_matvec(*args)
-    err = compare(f"gram_matvec {tag}", out, K.gram_matvec_plain(*args))
+    ref = K.gram_matvec_plain(*args)
+    err = compare(f"gram_matvec {tag}", out, ref)
     same_bits(f"gram_matvec {tag}", out, K.gram_matvec(*args))
     if K.gram_matvec.launches != before + 2:
         raise RuntimeError("gram_matvec: not one count per call")
+    form = gm.form(nD, N, p, C)
+    print(f"[form] gram_matvec {tag} (nD, N, p, C) = {(nD, N, p, C)}: form "
+          f"{form}")
+    if form == 2:
+        R = gm.cluster_size(nD, N, p, C)
+        occ = {r: gm.cluster_occupancy(nD, p, C, r) for r in (1, 2, 4, 8)}
+        print(f"[form] gram_matvec {tag}: cluster form, R = {R}; clusters "
+              f"the card holds at once by R {occ}")
+        same_bits(f"gram_matvec {tag}", out,
+                  K.gram_matvec_cluster_plain(*args, R),
+                  f"its cluster plain version (R = {R})")
+    H = hessian_csr(lv, Ln)
+
+    def library():
+        return torch.mv(H, v)
+
+    compare(f"gram_matvec {tag} library", library(), ref)
     b, o = bound_ms(8 * (nD * N * p * C + N * C + m * nD * (nD + 1) // 2
                          + 2 * lv.n_J),
                     4 * nD * m * C + 4 * m * nD * nD)
     row = dict(bound_ms=b, bound_by=o, **timings(
         f"gram_matvec {tag}", lambda: K.gram_matvec(*args),
-        lambda: K.gram_matvec_plain(*args)))
+        lambda: K.gram_matvec_plain(*args), library))
     print(f"[bound] gram_matvec {tag}: {b!r} ms ({o})")
+    del H
     return err, row
 
 
@@ -1560,11 +1604,12 @@ def p_laplace_solve(tag, prob, torch, K, smi, need, ref=None,
 
 
 def fem3d_kernel_phases(prob, L, torch, K):
-    """K1, K4, K5a and K5b at the fem3d k=3 (Q3, p = 64) level-L shapes,
-    where K1's and K4's wide forms and the front kernels' large forms take
-    them: K1 and K4 against their plain versions
-    and timed on the top level of the main system (nD = 5) and of the
-    phase-I system (nD = 8); K5a on every tree level of the top level's
+    """K1, K3, K4, K5a and K5b at the fem3d k=3 (Q3, p = 64) level-L
+    shapes, where K1's wide form, K4's cluster form and the front kernels'
+    large forms take them: K1 and K4 against their plain versions (K4 also
+    against its cluster plain version's bits) and timed on the top level of
+    the main system (nD = 5) and of the phase-I system (nD = 8), K3 on the
+    main system's; K5a on every tree level of the top level's
     nested dissection (seeded SPD element blocks), one ``nd_factor``'s
     worth timed; K5b (``solve_phases``) on those factors, one
     ``nd_solve``'s worth timed. Returns their records (launches to be
@@ -1576,6 +1621,7 @@ def fem3d_kernel_phases(prob, L, torch, K):
     ops = top_level_ops(prob.M[0], tag, torch)
     k1 = panel_fwd_phase(ops, torch, K, rng, tag)
     err4, row4 = gram_matvec_phase(ops, torch, K, rng, tag)
+    err3, row3 = panel_adj_phase(ops, torch, K, rng, tag)
     ops1 = top_level_ops(prob.M[1], f"{tag} phase I", torch)
     k1["max_abs_err"] = max(k1["max_abs_err"], panel_fwd_phase(
         ops1, torch, K, rng, f"{tag} phase I")["max_abs_err"])
@@ -1603,6 +1649,10 @@ def fem3d_kernel_phases(prob, L, torch, K):
         name="gram_matvec" + name,
         source="mgbtpu_torch/kernels/csrc/gram_matvec.cu",
         replaces="mgbtpu/ops/pallas_dd.py:142", max_abs_err=err4, **row4),
+        dict(name="panel_adj" + name,
+             source="mgbtpu_torch/kernels/csrc/panel_adj.cu",
+             replaces="mgbtpu/ops/pallas_dd.py:228", max_abs_err=err3,
+             **row3),
         dict(name="front_factor" + name,
              source="mgbtpu_torch/kernels/csrc/front_factor.cu",
              replaces="mgbtpu/ops/pallas_dd.py:446", max_abs_err=err5,
@@ -1932,7 +1982,7 @@ def wide_node_barrier_phases(torch, K):
     nodes: each in modes 0/1/2 as the barrier and in the phase-I form
     (slack and component rows with the box), bitwise equal to the plain
     version, each mode 2 call timed beside its bound; the lone nz = 7 cone
-    through ``Convex.barrier`` launches K6, not K2."""
+    through ``Convex.barrier_terms`` launches K6, not K2."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(5734)
     m = MODEL_M
@@ -1947,9 +1997,9 @@ def wide_node_barrier_phases(torch, K):
         if name == "cone nz=7":
             args = tuple(torch.as_tensor(a, device=dev) for a in Q.args)
             K.reset_launches()
-            Q.barrier(2, args, Dz, *calls["mode 2"][5:7])
+            Q.barrier_terms(2, args, Dz, *calls["mode 2"][5:7])
             la = K.launches()
-            print(f"[kernels] Convex.barrier of the lone nz=7 cone: {la}; "
+            print(f"[kernels] Convex.barrier_terms of the lone nz=7 cone: {la}; "
                   f"node_barrier with a wide piece "
                   f"{K.node_barrier.wide_launches}")
             if la["node_barrier"] != 1 or la["power_cone"] != 0 \

@@ -4,21 +4,30 @@ Port of ``mgbtpu/convex/convex.py``. A ``Convex`` describes its barrier by
 its pieces (``kernels.node_barrier.Piece``: kind, input rows, widths, the
 power cone's alpha specialisation, and where its grids sit in ``args``) and
 an optional select grid ``args[0]`` (``convex_piecewise``/``intersect``).
-``barrier(mode, args, Dz, bw, wc)`` returns the level's per-node terms
-directly (mode 0 objective terms, mode 1 gradient rows, mode 2 Hessian
-blocks): the JAX package's ``vmap(F)`` plus the masking of
+``barrier_terms(mode, args, Dz, bw, wc)`` returns the level's per-node
+terms directly (mode 0 objective terms, mode 1 gradient rows, mode 2
+Hessian blocks): the JAX package's ``vmap(F)`` plus the masking of
 ``solver/barrier.py`` in one kernel call, K2 for a lone power cone of the
 shapes it takes (nz <= 5, <= 12 rows) and K6 for any other table, on
-every device; ``cobarrier`` is the slack-augmented (phase-I) form,
+every device; ``cobarrier_terms`` is the slack-augmented (phase-I) form,
 always K6. ``args`` hold the per-node grids as host numpy arrays; the solver
 moves them to its device once.
+
+``barrier`` and ``cobarrier`` are the JAX package's per-node callables
+``(F0, F1, F2)``: ``F(*args_rows, y)`` gives the value, the gradient (ny,)
+and the Hessian (ny, ny) at one node, and with a leading node axis on the
+rows and on y (n, ny) what ``jax.vmap(F)`` gives, +inf in mode 0 outside
+the set. They run ``barrier_terms``/``cobarrier_terms`` with unit barrier
+weight and no cost term, so they take every table, on y's device.
 
 Index semantics are 0-based. ``idx=None`` means "all rows".
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Tuple
+
+import torch
 
 from ..kernels import power_cone as K2
 from ..kernels.node_barrier import POWER, Piece, node_barrier
@@ -31,11 +40,20 @@ class Convex:
     slack: Callable           # slack(args, Dz) -> (n,) initial-slack estimate
     input_spec: Tuple         # D-row count validation
     select: bool = False      # args[0] is the (n, pieces) select grid
+    # JAX's per-node (F0, F1, F2) of the barrier and of the cobarrier
+    barrier: Tuple[Callable, ...] = field(init=False, repr=False)
+    cobarrier: Tuple[Callable, ...] = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.barrier = tuple(_PerNode(self.barrier_terms, m)
+                             for m in range(3))
+        self.cobarrier = tuple(_PerNode(self.cobarrier_terms, m)
+                               for m in range(3))
 
     def _sel(self, args):
         return args[0] if self.select else None
 
-    def barrier(self, mode, args, Dz, bw, wc):
+    def barrier_terms(self, mode, args, Dz, bw, wc):
         """Per-node barrier terms of ``mode`` at the rows Dz (see
         ``kernels/node_barrier.py``)."""
         pc = self.pieces[0]
@@ -46,13 +64,37 @@ class Convex:
         return node_barrier(mode, Dz, self.pieces, args, self._sel(args), bw,
                             wc)
 
-    def cobarrier(self, mode, args, yhat, bw, wc, NC=None, box=None):
+    def cobarrier_terms(self, mode, args, yhat, bw, wc, NC=None, box=None):
         """The slack-augmented barrier: yhat[:, NC-1] is the slack (NC
         defaults to all of yhat's rows); with ``box=(b, R)`` the phase-I
         box terms over the rows NC.. are added."""
         return node_barrier(mode, yhat, self.pieces, args, self._sel(args),
                             bw, wc, co=yhat.shape[1] if NC is None else NC,
                             box=box)
+
+
+class _PerNode:
+    """``F(*args_rows, y)``: mode ``mode`` of ``terms`` (a Convex's
+    ``barrier_terms`` or ``cobarrier_terms``) at one node (y (ny,), each
+    row its grid's row at that node) or at a batch (y (n, ny), each grid
+    (n, ...)), with bw = 1 and wc = 0; on y's device."""
+
+    def __init__(self, terms, mode):
+        self.terms, self.mode = terms, mode
+
+    def __call__(self, *rows):
+        *args, y = rows
+        y = torch.as_tensor(y, dtype=torch.float64)
+        dev = y.device
+        args = [torch.as_tensor(a, dtype=torch.float64, device=dev)
+                for a in args]
+        one = y.dim() == 1
+        if one:
+            y, args = y[None], [a[None] for a in args]
+        out = self.terms(self.mode, tuple(a.contiguous() for a in args),
+                         y.contiguous(), torch.ones_like(y[:, 0]),
+                         torch.zeros_like(y))
+        return out[0] if one else out
 
 
 def input_spec_from_idx(idx, n: int):

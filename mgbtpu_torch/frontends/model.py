@@ -5,9 +5,9 @@ duals, on the port's ``amg``/``assemble``/``mgb_solve``; the lowering is
 host numpy on both sides. ``Model(mg, device=None)`` keeps the device and
 hands it to ``assemble`` and ``mgb_solve`` (the card unless
 ``device="cpu"``; raises without a card). The one device call of the front
-end is the equality duals' per-node barrier gradient (``_reactions``): one
-``Q.barrier`` in mode 1 with unit weights, a K6 launch on the card (K2 for
-a lone cone).
+end is the equality duals' per-node barrier gradient (``_reactions``): F1
+of ``Q.barrier`` over every node, one mode-1 call with unit weights, a K6
+launch on the card (K2 for a lone cone).
 
 The Python-native analog of the reference's JuMP extension
 (``ext/MultiGridBarrierJuMPExt``): declare field variables on a MultiGrid,
@@ -630,8 +630,9 @@ class Model:
         """Per-broken-node reactions: the full objective gradient over t in
         component space, ~0 at free coordinates and equal to the equality
         multiplier at pinned ones (reference _reactions, :1258-1299). The
-        raw per-node barrier gradient F1 is one mode-1 ``Q.barrier`` with
-        bw = 1 (every row kept) and wc = 0, on the model's device."""
+        raw per-node barrier gradient is ``Q.barrier[1]`` over every node,
+        as in the reference: one mode-1 call with bw = 1 (every row kept)
+        and wc = 0, on the model's device."""
         L = self._lowered
         prob = L["prob"]
         M1 = prob.M[0]
@@ -643,9 +644,7 @@ class Model:
         def tensor(a):
             return torch.as_tensor(np.asarray(a, np.float64), device=dev)
 
-        m = Dz.shape[0]
-        gv = Q.barrier(1, tuple(tensor(a) for a in Q.args), tensor(Dz),
-                       tensor(np.ones(m)), tensor(np.zeros(Dz.shape)))
+        gv = Q.barrier[1](*(tensor(a) for a in Q.args), tensor(Dz))
         gv = gv.cpu().numpy()
         t, w, mcount, dens, ind = self._dual_env()
         n = Dz.shape[0]

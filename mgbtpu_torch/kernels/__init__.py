@@ -16,9 +16,10 @@ K6     ``node_barrier``     per-node barrier of any piece table: linear,
 On a mesh, K3's two phases run apart (``panel_adj_contrib`` per shard,
 ``adjoint_sum`` once on the first device), as does K4's per-slot phase
 (``gram_matvec_contrib``), each call counted as a launch of its kernel.
-K1's and K3's spread forms sum in an order of their own, which
-``panel_fwd_split_plain`` and ``panel_adj_contrib_split_plain`` compute in
-plain PyTorch (the card tests hold the kernels to their bits).
+K1's and K3's spread forms and K4's cluster form sum in an order of their
+own, which ``panel_fwd_split_plain``, ``panel_adj_contrib_split_plain``
+and ``gram_matvec_cluster_plain`` compute in plain PyTorch (the card tests
+hold the kernels to their bits).
 
 Each wrapper runs its plain PyTorch version when its inputs lie on the CPU
 and launches its kernel when they lie on a CUDA device; it never falls back.
@@ -36,8 +37,8 @@ from ._build import build_all
 from .front_factor import cholesky_nan, front_factor, front_factor_plain
 from .front_solve import (front_backward, front_backward_plain,
                           front_forward, front_forward_plain, front_solve)
-from .gram_matvec import (gram_matvec, gram_matvec_contrib,
-                          gram_matvec_plain)
+from .gram_matvec import (gram_matvec, gram_matvec_cluster_plain,
+                          gram_matvec_contrib, gram_matvec_plain)
 from .node_barrier import (Piece, node_barrier, node_barrier_gram_plain,
                            node_barrier_plain)
 from .panel_adj import (adjoint_sum, panel_adj, panel_adj_contrib,

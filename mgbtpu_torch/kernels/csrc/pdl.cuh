@@ -2,9 +2,11 @@
 // launch_pdl may be scheduled while the kernel before it on the stream is
 // still running, so the two launches' latencies overlap. Such a kernel calls
 // pdl_wait() before it touches device memory (it returns once the kernel
-// before it has finished and its writes are visible), and pdl_trigger() to
-// let the next kernel on the stream be scheduled early. A kernel before
-// which nothing is launched this way runs exactly as with <<<>>>.
+// before it has finished and its writes are visible; only what no kernel
+// of a solve writes, as K4's column map, may be read before it), and
+// pdl_trigger() to let the next kernel on the stream be scheduled early.
+// A kernel before which nothing is launched this way runs exactly as with
+// <<<>>>.
 #pragma once
 #include <cuda_runtime.h>
 

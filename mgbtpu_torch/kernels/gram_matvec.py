@@ -20,11 +20,18 @@ once, a few flops per 8 bytes); at L=5 the working set sits in L2 and the
 call is bound by its two launches and the latency of its loads.
 
 An element whose panels and factors do not fit in a block's shared memory
-(the fem3d Q3 levels: p = 64, C = 128 and more) takes the wide form: one
-element a block, its panel rows staged a chunk of columns at a time for
-P v, the slots' sums read from device memory; the same sums in the same
-order, so the same bits. The C entry picks the form by shape. The wide
-form takes p*nD <= 1024.
+(the fem3d Q3 levels: p = 64, C = 128 and more) takes the cluster form:
+one element to a thread-block cluster of R CTAs (1, 2, 4 or 8), CTA r
+holding its share of the element's nodes' panel rows in shared memory,
+read once by TMA bulk copies, one mbarrier a slab so that P v starts on
+the first slab while the others land; each CTA's partial slot sums are
+joined through distributed shared memory in rank order. Its sums run in
+an order of their own (P v in K1's split order; see
+``gram_matvec_cluster_plain``, which gives its bits on the card); the
+einsum ``gram_matvec_plain``, what the CPU runs, agrees to roundoff. The C
+entry picks the form, and R, by shape (``cluster_size``), and refuses the
+cluster form where a CTA's run of panels is not 16-byte aligned; a
+refused launch raises.
 """
 from __future__ import annotations
 
@@ -33,11 +40,14 @@ import ctypes
 import torch
 
 from . import _build as B
+from .panel_adj import adjoint_sum_ordered_plain
+from .panel_fwd import panel_fwd_split_plain
 from ..ops.scatter import scatter_add
 
 NAME = "gram_matvec"
-_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _FORM = 0   # the C entry's form: 0 by shape; the card tests set 1 or 2
+_R = 0      # the cluster form's R: 0 by shape; the card tests set 1 .. 8
 
 
 def gram_matvec_plain(panels, cols, inv, Lnode, v):
@@ -56,6 +66,71 @@ def gram_matvec_contrib_plain(panels, cols, Lnode, v):
     Bv = torch.einsum("Npji,Npj->Npi", Lr, Pv)              # (N, p, i)
     Y = torch.einsum("Npji,Npi->Npj", Lr, Bv)               # back through L
     return torch.einsum("kNpc,Npk->Nc", panels, Y).reshape(-1)
+
+
+def gram_matvec_cluster_contrib_plain(panels, cols, Lnode, v, R):
+    """The cluster form's per-slot contributions (N*C,) in its order, in
+    plain PyTorch (each product and sum rounded apart): P v in K1's split
+    order (``panel_fwd_split_plain``); B = L' P v and W = L B node by node,
+    each from 0.0 in increasing index; rank r's partial of slot c folded
+    from 0.0 over k, then its nodes q in [r p / R, (r + 1) p / R); the
+    partials added in rank order."""
+    nD, N, p, C = panels.shape
+    Pv = panel_fwd_split_plain(panels, cols, v).reshape(N, p, nD)
+    Lr = Lnode.reshape(N, p, nD, nD)
+    zero = Pv.new_zeros((N, p))
+    Bv = []
+    for i in range(nD):
+        a = zero
+        for j in range(i, nD):
+            a = a + Lr[:, :, j, i] * Pv[:, :, j]
+        Bv.append(a)
+    W = []
+    for j in range(nD):
+        a = zero
+        for i in range(j + 1):
+            a = a + Lr[:, :, j, i] * Bv[i]
+        W.append(a)
+    W = torch.stack(W, dim=2)                               # (N, p, nD)
+    out = None
+    for r in range(R):
+        a = panels.new_zeros((N, C))
+        for k in range(nD):
+            for q in range(r * p // R, (r + 1) * p // R):
+                a = a + panels[k, :, q] * W[:, q, k, None]
+        out = a if out is None else out + a
+    return out.reshape(-1)
+
+
+def gram_matvec_cluster_plain(panels, cols, inv, Lnode, v, R):
+    """The cluster form's H v in its order (R CTAs a cluster), phase B
+    included (``adjoint_sum_ordered_plain``): the card's bits."""
+    return adjoint_sum_ordered_plain(
+        inv, gram_matvec_cluster_contrib_plain(panels, cols, Lnode, v, R))
+
+
+def form(nD, N, p, C, request=0):
+    """The form the C entry takes for this shape (1 the fused kernel, 2 the
+    cluster form; ``request`` 0 by shape, or the form asked for), 0 where
+    it refuses the shape. Builds the library (a card's machine)."""
+    fn = B.launcher(NAME, [ctypes.c_int] * 5, "gram_matvec_form")
+    return int(fn(nD, N, p, C, request))
+
+
+def cluster_size(nD, N, p, C, request=0):
+    """The R the C entry's cluster form takes for this shape (``request``
+    0 by shape, or 1, 2, 4, 8), 0 where it refuses the shape. Builds the
+    library (a card's machine)."""
+    fn = B.launcher(NAME, [ctypes.c_int] * 5, "gram_matvec_cluster_size")
+    return int(fn(nD, N, p, C, request))
+
+
+def cluster_occupancy(nD, p, C, R):
+    """The clusters of R CTAs the card holds at once at this shape's layout
+    (``cudaOccupancyMaxActiveClusters``), 0 where it holds none."""
+    fn = B.launcher(NAME, [ctypes.c_int] * 4,
+                    "gram_matvec_cluster_occupancy")
+    return int(fn(nD, p, C, R))
 
 
 def gram_matvec(panels, cols, inv, Lnode, v):
@@ -77,7 +152,7 @@ def gram_matvec(panels, cols, inv, Lnode, v):
     out = torch.empty(v.shape, dtype=torch.float64, device=v.device)
     fn = B.launcher(NAME, _ARGS)
     err = fn(B.ptr(panels), B.ptr(cols), B.ptr(inv), B.ptr(Lnode), B.ptr(v),
-             B.ptr(contrib), B.ptr(out), nD, N, p, C, n_J, K, _FORM,
+             B.ptr(contrib), B.ptr(out), nD, N, p, C, n_J, K, _FORM, _R,
              B.stream(v.device))
     B.check(NAME, err)
     gram_matvec.launches += 1
@@ -102,7 +177,7 @@ def gram_matvec_contrib(panels, cols, Lnode, v):
     contrib = torch.empty((N * C,), dtype=torch.float64, device=v.device)
     fn = B.launcher(NAME, _ARGS)
     err = fn(B.ptr(panels), B.ptr(cols), None, B.ptr(Lnode), B.ptr(v),
-             B.ptr(contrib), None, nD, N, p, C, v.shape[0], 0, _FORM,
+             B.ptr(contrib), None, nD, N, p, C, v.shape[0], 0, _FORM, _R,
              B.stream(v.device))
     B.check(NAME, err)
     gram_matvec.launches += 1

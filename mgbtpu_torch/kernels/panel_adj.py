@@ -50,6 +50,9 @@ _FORM = 0   # phase A's form: 0 by shape; the card tests set 1 or 3
 SPLIT_SLAB = 128
 SPLIT_SLAB_SMALL = 32   # ... in an element of at most
 SPLIT_SMALL = 2048      # ... this many rows
+# phase B's forms (adjoint.cuh's ADJ_THREAD_K, ADJ_COL_THREADS)
+ADJ_THREAD_K = 32       # the most slots a thread sums alone
+ADJ_COL_THREADS = 256   # past it, threads a column
 _FORMS: dict = {}       # (nD, N, p, C, request) -> the C entry's form
 
 
@@ -115,6 +118,40 @@ def _part(nD, N, p, C, device):
 def adjoint_sum_plain(cols, inv, contrib, n_J):
     out = torch.zeros((n_J,), dtype=contrib.dtype, device=contrib.device)
     return scatter_add(out, cols.reshape(-1), contrib)
+
+
+def _tree(x):
+    """The last axis (a power of two) summed pairwise as a shuffle tree
+    leaves it in lane 0: entry l with l + o, o = half .. 1."""
+    o = x.shape[-1] // 2
+    while o:
+        x = x[..., :o] + x[..., o:2 * o]
+        o //= 2
+    return x[..., 0]
+
+
+def adjoint_sum_ordered_plain(inv, contrib):
+    """Phase B (``adjoint.cuh``) in its order, in plain PyTorch: column j's
+    slots inv[j, :] (padded with N*C at the end) folded from 0.0 in
+    increasing order for K <= ADJ_THREAD_K; past it thread t of
+    ADJ_COL_THREADS folds slots t, t + ADJ_COL_THREADS, ..., then a shuffle
+    tree a warp and one over the warps' partials. A padded slot adds +0.0,
+    which leaves a fold that starts at +0.0 as it is (the kernel skips it).
+    The card's bits."""
+    n_J, K = inv.shape
+    vals = torch.cat([contrib, contrib.new_zeros(1)])[inv]
+    if K <= ADJ_THREAD_K:
+        acc = contrib.new_zeros(n_J)
+        for t in range(K):
+            acc = acc + vals[:, t]
+        return acc
+    T = ADJ_COL_THREADS
+    vals = torch.nn.functional.pad(vals, (0, -K % T)).reshape(n_J, -1, T)
+    acc = contrib.new_zeros((n_J, T))
+    for t in range(vals.shape[1]):
+        acc = acc + vals[:, t]
+    acc = _tree(acc.reshape(n_J, T // 32, 32))
+    return _tree(torch.nn.functional.pad(acc, (0, 32 - T // 32)))
 
 
 def panel_adj(panels, cols, inv, Y, n_J):

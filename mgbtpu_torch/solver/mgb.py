@@ -305,7 +305,7 @@ def _kernels_for(M: AMGSystem, Q: Convex, NC, line_search,
         M._torch_kernel_cache = cache
     key = (id(Q), NC, line_search, str(device), id(mesh))
     if key not in cache:
-        barrier = Q.barrier if NC is None else make_feasibility_fs(Q, NC)
+        barrier = Q.barrier_terms if NC is None else make_feasibility_fs(Q, NC)
         cache[key] = ProblemKernels(M, barrier, line_search, device, mesh)
     return cache[key]
 
@@ -519,7 +519,8 @@ def make_feasibility_fs(Q: Convex, NC: int):
     (reference ``src/mgb.jl:190-287``; ``mgbtpu/solver/mgb.py:928``)."""
 
     def barrier(mode, args, y, bw, wc):
-        return Q.cobarrier(mode, args[:-2], y, bw, wc, NC=NC, box=args[-2:])
+        return Q.cobarrier_terms(mode, args[:-2], y, bw, wc, NC=NC,
+                                 box=args[-2:])
 
     return barrier
 

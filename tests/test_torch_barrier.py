@@ -51,7 +51,7 @@ def _per_node(Qt, Dz, mode):
     Dzt = torch.tensor(Dz)
     n = Dz.shape[0]
     args = tuple(torch.tensor(a) for a in Qt.args)
-    return Qt.barrier(mode, args, Dzt, torch.ones(n, dtype=torch.float64),
+    return Qt.barrier_terms(mode, args, Dzt, torch.ones(n, dtype=torch.float64),
                       torch.zeros_like(Dzt)).numpy()
 
 
@@ -89,13 +89,13 @@ def test_power_cone_derivatives_vs_autograd(p):
     args = tuple(torch.tensor(a) for a in Qt.args)
     ones = torch.ones(n, dtype=torch.float64)
     zeros = torch.zeros((n, 4), dtype=torch.float64)
-    F0 = Qt.barrier(0, args, Dz, ones, zeros)
+    F0 = Qt.barrier_terms(0, args, Dz, ones, zeros)
     (g_ad,) = torch.autograd.grad(F0.sum(), Dz)
-    g = Qt.barrier(1, args, Dz.detach(), ones, zeros)
+    g = Qt.barrier_terms(1, args, Dz.detach(), ones, zeros)
     np.testing.assert_allclose(g.numpy(), g_ad.numpy(), rtol=1e-8, atol=1e-10)
-    H = Qt.barrier(2, args, Dz.detach(), ones, zeros)
+    H = Qt.barrier_terms(2, args, Dz.detach(), ones, zeros)
     for i in range(4):
-        G = Qt.barrier(1, args, Dz, ones, zeros)
+        G = Qt.barrier_terms(1, args, Dz, ones, zeros)
         (h_ad,) = torch.autograd.grad(G[:, i].sum(), Dz)
         np.testing.assert_allclose(H[:, i, :].numpy(), h_ad.numpy(),
                                    rtol=1e-7, atol=1e-9)
@@ -126,7 +126,7 @@ def test_level_functions_match_jax(scale):
     cone for most nodes (non-finite f0/f1/f2 entries)."""
     pj, oj, ot, Qt, Dz0, wc, bw = _level_case()
     fj = level_ref(pj.Q.barrier)
-    ft = make_level_fns(Qt.barrier)
+    ft = make_level_fns(Qt.barrier_terms)
     rng = np.random.default_rng(3)
     s = scale * rng.standard_normal(oj.n_J)
     fa_j = (oj, jnp.asarray(Dz0), jnp.asarray(wc), jnp.asarray(bw)) + \

@@ -117,7 +117,7 @@ def test_barrier_matches_jax(name, mode):
     Qj, Qt, nD = _pair(name)
     Y = _points(np.random.default_rng(10 + mode), nD)
     ref = np.asarray(jax.vmap(Qj.barrier[mode])(*Qj.args, jnp.asarray(Y)))
-    got = Qt.barrier(mode, _t(Qt.args), torch.tensor(Y),
+    got = Qt.barrier_terms(mode, _t(Qt.args), torch.tensor(Y),
                      *_ones_zeros(Y)).numpy()
     fin = _same(got, ref)
     assert fin.any()
@@ -133,7 +133,7 @@ def test_cobarrier_matches_jax(name, mode):
     Y = _points(rng, nD, extra=1)
     Y[:, nD] = rng.uniform(-0.5, 0.5, N)               # the phase-I slack
     ref = np.asarray(jax.vmap(Qj.cobarrier[mode])(*Qj.args, jnp.asarray(Y)))
-    got = Qt.cobarrier(mode, _t(Qt.args), torch.tensor(Y),
+    got = Qt.cobarrier_terms(mode, _t(Qt.args), torch.tensor(Y),
                        *_ones_zeros(Y)).numpy()
     fin = _same(got, ref)
     assert fin.any()
@@ -177,10 +177,10 @@ def test_piecewise_inactive_infinite_piece_is_dropped():
                      dtype=torch.float64)       # u = -5 violates piece 2
     ones, zeros = _ones_zeros(Y)
     for mode in (0, 1, 2):
-        assert torch.isfinite(Qt.barrier(mode, args, Y, ones, zeros)[0]).all()
+        assert torch.isfinite(Qt.barrier_terms(mode, args, Y, ones, zeros)[0]).all()
     np.testing.assert_allclose(Qt.slack(args, Y)[1].item(), 3.0)
     args_on = (torch.ones_like(args[0]),) + args[1:]
-    assert not torch.isfinite(Qt.barrier(0, args_on, Y, ones, zeros)).any()
+    assert not torch.isfinite(Qt.barrier_terms(0, args_on, Y, ones, zeros)).any()
 
 
 def test_intersect_is_the_sum_of_its_pieces():
@@ -194,9 +194,9 @@ def test_intersect_is_the_sum_of_its_pieces():
     assert Qi.input_spec == ("all", (("atleast", 3), ("atleast", 1)))
     Y = torch.tensor([[0.3, 0.5, 2.0]] * 4)
     ones, zeros = _ones_zeros(Y)
-    v = Qi.barrier(0, _t(Qi.args), Y, ones, zeros)
-    v1 = Q1.barrier(0, _t(Q1.args), Y, ones, zeros)
-    v2 = Q2.barrier(0, _t(Q2.args), Y, ones, zeros)
+    v = Qi.barrier_terms(0, _t(Qi.args), Y, ones, zeros)
+    v1 = Q1.barrier_terms(0, _t(Q1.args), Y, ones, zeros)
+    v2 = Q2.barrier_terms(0, _t(Q2.args), Y, ones, zeros)
     torch.testing.assert_close(v, v1 + v2, rtol=1e-15, atol=0)
 
 

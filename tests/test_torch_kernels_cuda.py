@@ -251,12 +251,40 @@ def _gram_inputs(rng, dev, nD, C, N=9, p=64, n_J=700):
     return panels, cols, inv, Ln, v
 
 
+def _cluster_r(args, request=0):
+    """The R of the cluster form's launch at these inputs' shape."""
+    from mgbtpu_torch.kernels.gram_matvec import cluster_size
+    return cluster_size(*args[0].shape, request)
+
+
+def _hold_cluster(args, R=0):
+    """The cluster form (WIDE) at R (0: by shape) against its plain
+    version's bits and the einsum plain version within TOL, a repeat call
+    bitwise, one count a call; returns its output."""
+    mod = sys.modules[K.gram_matvec.__module__]
+    R = R or _cluster_r(args)
+    assert R in (1, 2, 4, 8)
+    mod._R = R
+    try:
+        before = K.gram_matvec.launches
+        out = _in_form(K.gram_matvec, WIDE, *args)
+        assert K.gram_matvec.launches == before + 1
+        assert _same_bits(out, K.gram_matvec_cluster_plain(*args, R))
+        assert _rel(out, K.gram_matvec_plain(*args)) <= TOL
+        assert _same_bits(out, _in_form(K.gram_matvec, WIDE, *args))
+    finally:
+        mod._R = 0
+    return out
+
+
 @pytest.mark.parametrize("nD,C", FEM3D + K4_EDGE)
 def test_gram_matvec_fem3d_shapes(dev, nD, C):
     """K4 at the Q3 element's p = 64 against its plain version, by shape
-    (one count a call, repeat calls bitwise); where the fused form takes
-    the shape, the wide form gives its bits, and where it does not, it
-    refuses the launch."""
+    (one count a call, repeat calls bitwise); the cluster form ("wide")
+    holds its own order's bits (``gram_matvec_cluster_plain``) and the
+    plain version within TOL; where the fused form takes the shape the two
+    agree within TOL, and where it does not, the call by shape is the
+    cluster form's and the fused form refuses the launch."""
     rng = np.random.default_rng(nD * 1000 + C + 1)
     args = _gram_inputs(rng, dev, nD, C)
     before = K.gram_matvec.launches
@@ -264,9 +292,9 @@ def test_gram_matvec_fem3d_shapes(dev, nD, C):
     assert _rel(out, K.gram_matvec_plain(*args)) <= TOL
     assert _same_bits(out, K.gram_matvec(*args))
     assert K.gram_matvec.launches == before + 2
-    wide = _in_form(K.gram_matvec, WIDE, *args)
+    wide = _hold_cluster(args)
     if C <= 82:
-        assert _same_bits(wide, _in_form(K.gram_matvec, STAGED, *args))
+        assert _rel(wide, _in_form(K.gram_matvec, STAGED, *args)) <= TOL
     else:
         assert _same_bits(wide, out)
         with pytest.raises(RuntimeError, match="gram_matvec launch failed"):
@@ -276,15 +304,99 @@ def test_gram_matvec_fem3d_shapes(dev, nD, C):
 @pytest.mark.parametrize("p,nD,C", [(7, 4, 13), (3, 11, 14), (64, 12, 20),
                                     (64, 13, 10)])
 def test_gram_matvec_forms_agree(dev, p, nD, C):
-    """The wide form gives the fused form's bits wherever both take the
-    shape: the P2 element (the fused form's p = 7 instance), the widest
-    phase-I rows, and at p = 64 with nD = 12 and 13 (three and four Pv
-    sums a thread, the node factors too large for the wide form's usual
-    budget)."""
+    """The cluster form ("wide") agrees with the fused form within TOL
+    wherever both take the shape, and holds its own order's bits: the P2
+    element (the fused form's p = 7 instance, whose runs of 7 x 13 doubles
+    the cluster form refuses: not 16-byte aligned), the widest phase-I
+    rows, and at p = 64 with nD = 12 and 13."""
     rng = np.random.default_rng(p * nD + C + 2)
     args = _gram_inputs(rng, dev, nD, C, N=11, p=p, n_J=101)
-    assert _same_bits(_in_form(K.gram_matvec, WIDE, *args),
-                      _in_form(K.gram_matvec, STAGED, *args))
+    staged = _in_form(K.gram_matvec, STAGED, *args)
+    if p * C % 2:
+        assert _cluster_r(args) == 0
+        with pytest.raises(RuntimeError, match="gram_matvec launch failed"):
+            _in_form(K.gram_matvec, WIDE, *args)
+        return
+    assert _rel(_hold_cluster(args), staged) <= TOL
+
+
+def _cluster_inputs(rng, dev, N, nD, C, p=64):
+    """A level of N elements of p = 64 nodes made up at once: element e's
+    slots the columns 90 e + 3 c (mod n_J = 90 N), so that neighbouring
+    elements share columns as a mesh's do (a column in up to 3 C / 90 + 1
+    slots)."""
+    n_J = 90 * N
+    cols = np.sort((90 * np.arange(N)[:, None] + 3 * np.arange(C)) % n_J,
+                   axis=1)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    panels = t(rng.standard_normal((nD, N, p, C)))
+    Ln = t(np.tril(rng.standard_normal((N * p, nD, nD))))
+    return (panels, t(cols), t(inverse_incidence(cols, n_J)), Ln,
+            t(rng.standard_normal(n_J)))
+
+
+# The fem3d k=3 top levels' shapes (N, nD, C at p = 64): L=4's main and
+# phase-I systems, and an L=5-sized main system (N = 4,096, 1.34 GB)
+CLUSTER_SHAPES = [(512, 5, 128), (512, 8, 192), (4096, 5, 128)]
+
+
+@pytest.mark.parametrize("N,nD,C", CLUSTER_SHAPES)
+def test_gram_matvec_cluster_every_r(dev, N, nD, C):
+    """The cluster form at each R the card takes for the shape (and the
+    one the entry picks), bitwise equal to ``gram_matvec_cluster_plain`` at
+    that R, within TOL of the plain version, the same bits on a second
+    run; ``gram_matvec_contrib`` the same per-slot bits, twice."""
+    from mgbtpu_torch.kernels.gram_matvec import (
+        cluster_occupancy, gram_matvec_cluster_contrib_plain)
+    rng = np.random.default_rng(N + nD + C)
+    args = _cluster_inputs(rng, dev, N, nD, C)
+    picked = _cluster_r(args)
+    taken = [R for R in (1, 2, 4, 8) if _cluster_r(args, R)]
+    assert picked in taken
+    for R in taken:
+        assert cluster_occupancy(nD, 64, C, R) > 0
+        _hold_cluster(args, R)
+    panels, cols, _, Ln, v = args
+    ref = gram_matvec_cluster_contrib_plain(panels, cols, Ln, v, picked)
+    before = K.gram_matvec.launches
+    got = [K.gram_matvec_contrib(panels, cols, Ln, v) for _ in range(2)]
+    assert K.gram_matvec.launches == before + 2
+    assert _same_bits(got[0], ref) and _same_bits(got[1], ref)
+
+
+def test_gram_matvec_cluster_refusals(dev):
+    """The cluster form refuses (raises, no other form runs) a launch whose
+    runs are not 16-byte aligned (panels one double past an aligned
+    address; an element of 7 x 13 doubles a slab) and an R whose cluster
+    the card cannot hold (R = 1 at the fem3d top level: 327,680 bytes of
+    panels in one CTA, more than a block's shared memory, where
+    cudaOccupancyMaxActiveClusters reports 0)."""
+    from mgbtpu_torch.kernels.gram_matvec import cluster_occupancy
+    mod = sys.modules[K.gram_matvec.__module__]
+    rng = np.random.default_rng(16)
+    panels, cols, inv, Ln, v = _gram_inputs(rng, dev, 5, 128)
+    buf = torch.empty(panels.numel() + 1, dtype=torch.float64, device=dev)
+    shifted = buf[1:].view(panels.shape)
+    shifted.copy_(panels)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    launches = K.gram_matvec.launches
+    for call in (lambda: K.gram_matvec(shifted, cols, inv, Ln, v),
+                 lambda: K.gram_matvec_contrib(shifted, cols, Ln, v)):
+        with pytest.raises(RuntimeError, match="gram_matvec launch failed"):
+            call()
+    assert cluster_occupancy(5, 64, 128, 1) == 0
+    assert _cluster_r((panels,), 1) == 0
+    mod._R = 1
+    try:
+        with pytest.raises(RuntimeError, match="gram_matvec launch failed"):
+            _in_form(K.gram_matvec, WIDE, panels, cols, inv, Ln, v)
+    finally:
+        mod._R = 0
+    odd = _gram_inputs(rng, dev, 4, 13, N=5, p=7, n_J=60)
+    with pytest.raises(RuntimeError, match="gram_matvec launch failed"):
+        _in_form(K.gram_matvec, WIDE, *odd)
+    assert K.gram_matvec.launches == launches
+    torch.cuda.synchronize()
 
 
 # (nD, C) at one element of p = 1,024 nodes (spectral2d n = 32): p*nD =

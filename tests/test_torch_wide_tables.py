@@ -184,13 +184,13 @@ def test_wide_table_matches_jax(name, mode, form):
     if form == "barrier":
         Y = _points(rng, Qt, nD)
         ref = jax.vmap(Qj.barrier[mode])(*Qj.args, jnp.asarray(Y))
-        got = Qt.barrier(mode, _t(Qt.args), torch.tensor(Y), *_ones_zeros(Y))
+        got = Qt.barrier_terms(mode, _t(Qt.args), torch.tensor(Y), *_ones_zeros(Y))
         ny = nD
     elif form == "cobarrier":
         Y = _points(rng, Qt, nD, extra=1)
         Y[:, nD] = rng.uniform(-0.5, 0.5, N)
         ref = jax.vmap(Qj.cobarrier[mode])(*Qj.args, jnp.asarray(Y))
-        got = Qt.cobarrier(mode, _t(Qt.args), torch.tensor(Y),
+        got = Qt.cobarrier_terms(mode, _t(Qt.args), torch.tensor(Y),
                            *_ones_zeros(Y))
         ny = nD + 1
     else:
@@ -325,6 +325,6 @@ def test_lone_cones_route_by_shape(monkeypatch):
         Y = torch.ones((N, nD), dtype=torch.float64)
         Y[:, nz - 1] = 3.0
         before = len(calls)
-        out = Q.barrier(1, _t(Q.args), Y, *_ones_zeros(Y))
+        out = Q.barrier_terms(1, _t(Q.args), Y, *_ones_zeros(Y))
         assert out.shape == (N, nD)
         assert (len(calls) > before) == k2

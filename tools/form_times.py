@@ -11,12 +11,13 @@ run it over each tree in turn (A, B, B, A). The plans' shapes come from
 this checkout's ``chip_smoke.py`` whatever ROOT is, and so do the made-up
 dof maps of ``--chains`` (``seeded_nd``). Where a wrapper's module has
 the private ``_FORM`` (0: the C entry's choice by shape; 1: the staged
-form, 2: the wide form of K1 and K4, the large form of K5a), each form
-that takes the shape is timed and held to the other: K1's and K4's forms
-to each other's bits, K5a's to 1e-12 relative (its large form sums in
-another order); a wrapper without it (an older tree) is timed in the C
-entry's choice only. Each time is printed as a ``[form]`` line, the forms
-in turns (staged, other, other, staged).
+form, 2: the wide form of K1, the cluster form of K4, the large form of
+K5a), each form that takes the shape is timed and held to the other: K1's
+forms to each other's bits, K4's and K5a's to 1e-12 relative (K4's
+cluster form and K5a's large form sum in other orders); a wrapper without
+it (an older tree) is timed in the C entry's choice only. Each time is
+printed as a ``[form]`` line, the forms in turns (staged, other, other,
+staged).
 
 Shapes: K1 and K4 at the fem2d_P2 L=5 top level (its real panels) and on
 seeded panels at the fem3d Q3 element's p = 64, nD = 5, N = 512 with C at
@@ -73,7 +74,8 @@ def forms_of(fn, fits):
     """The forms to time: [(label, code)]."""
     if not hasattr(sys.modules[fn.__module__], "_FORM"):
         return [("shape", 0)]
-    other = "large" if fn is K.front_factor else "wide"
+    other = {K.front_factor: "large", K.gram_matvec: "cluster"}.get(fn,
+                                                                   "wide")
     return [("staged", 1), (other, 2)] if fits else [(other, 2)]
 
 
@@ -86,7 +88,7 @@ def time_forms(tag, fn, fits, args, reps=50):
         a = o if isinstance(o, tuple) else (o,)
         b = outs[0] if isinstance(outs[0], tuple) else (outs[0],)
         a, b = (torch.cat([x.flatten() for x in t]) for t in (a, b))
-        if fn is K.front_factor:
+        if fn is K.front_factor or fn is K.gram_matvec:
             C.compare(f"{tag} forms", a, b)
         else:
             C.same_bits(f"{tag} forms", a, b, "the other form")
