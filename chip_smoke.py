@@ -58,8 +58,9 @@ default, 5 for the L=5 plan of 4,096 hexes, ~30 s of host setup): K1 and
 K4 against their plain versions and timed at its top level's shapes (nD =
 5) and its phase-I system's (nD = 8), where K1's wide form and K4's
 cluster form run (K4 also bitwise against ``gram_matvec_cluster_plain``
-and beside ``torch.mv`` on the assembled Hessian in CSR), K3 at the main
-system's, and K5a
+and beside ``torch.mv`` on the assembled Hessian in CSR), K3 at both
+(its bulk form bitwise against ``panel_adj_contrib_rows_plain`` and the
+staged form, its phase A and its phase B also timed apart), and K5a
 on every tree level of its nested dissection in the large form its shape
 rule gives it (checked: its large count), per level against the plain
 version, timed in that form and in the one-panel form where that takes
@@ -69,8 +70,10 @@ on those factors (both sweeps per level in both forms, a whole
 ``nd_solve``, its launches counted, beside its bound: the factors read
 by both sweeps where they pass the 50 MB L2); then fem3d k=3 p=1 solves
 at L=3 and at that level (the slice's path: K1-K5 and both large forms
-must launch; launches, Newton and CG counts, host syncs and wall
-printed; held to ``ref_fem3d_k3_L<L>.npz``), fem2d_P1 p=1 at L=5 (no
+must launch, and K3's bulk form wherever a level takes it by shape: each
+level's K3 form printed, ``[form] ... K3``; launches, Newton and CG
+counts, host syncs and wall printed; held to ``ref_fem3d_k3_L<L>.npz``),
+fem2d_P1 p=1 at L=5 (no
 large form may launch) and the fem1d golden vector of
 ``tests/test_golden.py`` (to 1e-6). Unless the level is 5, K5a and K5b
 then run at the ten tree levels of the fem3d L=5 plan on seeded SPD fronts
@@ -418,31 +421,65 @@ def panel_fwd_phase(ops, torch, K, rng, tag):
     return rec
 
 
-def panel_adj_phase(lv, torch, K, rng, tag):
+def panel_adj_phase(lv, torch, K, rng, tag, apart=False):
     """K3 at a level's shapes (``lv``) against its plain version (the
     repeat call bitwise; in the spread form its phase A also against its
-    split plain version's bits), timed against its plain version and one
-    library call: ``torch.mv`` on G' in CSR, or on one element's dense
-    (nD*p, C) panel view transposed (N = 1) with Y in its (k, q) order (the
-    per-slot sums; their scatter into n_J is left out, so for N = 1 phase
-    A alone, ``panel_adj_contrib``, is timed beside it too). Returns (max
-    abs error, its timing row with the bound)."""
+    split plain version's bits, in the bulk form against
+    ``panel_adj_contrib_rows_plain``'s and the staged form's, and the call
+    against that order's with phase B's, ``adjoint_sum_ordered_plain``),
+    timed against its plain version and one library call: ``torch.mv`` on
+    G' in CSR, or on one element's dense (nD*p, C) panel view transposed
+    (N = 1) with Y in its (k, q) order (the per-slot sums; their scatter
+    into n_J is left out, so for N = 1 phase A alone,
+    ``panel_adj_contrib``, is timed beside it too). ``apart``: phase A
+    (``panel_adj_contrib``) and phase B (``adjoint_sum``) also timed
+    apart, each beside its bound. Returns (max abs error, its timing row
+    with the bound)."""
     dev = torch.device("cuda")
     nD, N, p, C = lv.panels.shape
     m = N * p
     Y = torch.as_tensor(rng.standard_normal((m, nD)), dtype=torch.float64,
                         device=dev)
-    print(f"[shapes] panel_adj {tag}: n_J={lv.n_J} C={C} K={lv.inv.shape[1]}")
+    mod = sys.modules[K.panel_adj.__module__]
+    form = mod.form(nD, N, p, C)
+    print(f"[shapes] panel_adj {tag}: n_J={lv.n_J} C={C} K={lv.inv.shape[1]}"
+          f"; phase A form {form}")
     args = (lv.panels, lv.cols, lv.inv, Y, lv.n_J)
     out = K.panel_adj(*args)
     ref = K.panel_adj_plain(*args)
     err = compare(f"panel_adj {tag}", out, ref)
     same_bits(f"panel_adj {tag}", out, K.panel_adj(*args))
-    if spread_forms(lv, K)[1]:
+    if form == 3:
         same_bits(f"panel_adj {tag} phase A",
                   K.panel_adj_contrib(lv.panels, Y),
                   K.panel_adj_contrib_split_plain(lv.panels, Y),
                   "its split plain version")
+    if form == 4:
+        rows = K.panel_adj_contrib_rows_plain(lv.panels, Y)
+        same_bits(f"panel_adj {tag} phase A (bulk form)",
+                  K.panel_adj_contrib(lv.panels, Y), rows,
+                  "its rows plain version")
+        same_bits(f"panel_adj {tag} phase A (bulk form)", rows,
+                  in_form(K.panel_adj_contrib, 1, lv.panels, Y),
+                  "the staged form")
+        same_bits(f"panel_adj {tag} (bulk form)", out,
+                  mod.adjoint_sum_ordered_plain(lv.inv, rows),
+                  "its rows plain version, then phase B's order")
+    if apart:
+        contrib = K.panel_adj_contrib(lv.panels, Y)
+        f8 = 8
+        ba, _ = bound_ms(f8 * (nD * N * p * C + m * nD + N * C),
+                         2 * nD * m * C)
+        timings(f"panel_adj {tag} phase A (form {form})",
+                lambda: K.panel_adj_contrib(lv.panels, Y),
+                lambda: mod.panel_adj_contrib_plain(lv.panels, Y))
+        print(f"[bound] panel_adj {tag} phase A: {ba!r} ms (bytes)")
+        bb, _ = bound_ms(f8 * (lv.inv.numel() + N * C + lv.n_J), 0)
+        timings(f"panel_adj {tag} phase B",
+                lambda: K.adjoint_sum(lv.cols, lv.inv, contrib, lv.n_J),
+                lambda: mod.adjoint_sum_plain(lv.cols, lv.inv, contrib,
+                                              lv.n_J))
+        print(f"[bound] panel_adj {tag} phase B: {bb!r} ms (bytes)")
     if N == 1:
         PT, c0 = lv.panels.reshape(nD * p, C).t(), lv.cols[0]
         Yf = Y.t().contiguous().reshape(-1)
@@ -468,7 +505,7 @@ def panel_adj_phase(lv, torch, K, rng, tag):
     compare(f"panel_adj {tag} library", lib_out, ref)
     b, o = bound_ms(8 * (nD * N * p * C + N * C + m * nD + lv.n_J),
                     2 * nD * m * C)
-    row = dict(bound_ms=b, bound_by=o, **timings(
+    row = dict(bound_ms=b, bound_by=o, form=form, **timings(
         f"panel_adj {tag}", lambda: K.panel_adj(*args),
         lambda: K.panel_adj_plain(*args), library))
     print(f"[bound] panel_adj {tag}: {b!r} ms ({o})")
@@ -1574,13 +1611,15 @@ def require_forms(tag, K, large):
 
 
 def p_laplace_solve(tag, prob, torch, K, smi, need, ref=None,
-                    polish_its=None, large=None):
+                    polish_its=None, large=None, k3=None):
     """One p=1 ``mgb_solve`` of ``prob`` on the card, with
     the launch counters set to 0 just before it and read just after:
     prints its wall, counts, host syncs and launches, requires the kernels
     ``need`` to have launched (and the front kernels' large forms to have
-    launched, ``large`` True, or not, False: ``require_forms``), and holds
-    it to the x64 record ``ref`` where given (``check_totals``): a file
+    launched, ``large`` True, or not, False: ``require_forms``), checks
+    K3's phase-A forms (``k3``: the stored level shapes, or True for none;
+    ``k3_forms``), and holds it to the x64 record ``ref`` where given
+    (``check_totals``): a file
     under ``mgbtpu_torch/data``, or a record (``ref_record``). Returns the
     solution and the launches."""
     from mgbtpu_torch import mgb_solve
@@ -1596,6 +1635,9 @@ def p_laplace_solve(tag, prob, torch, K, smi, need, ref=None,
     require_launches(tag, la, need)
     if large is not None:
         require_forms(tag, K, large)
+    if k3 is not None:
+        k3_forms(tag, prob, K, K.panel_adj.bulk_launches,
+                 None if k3 is True else k3)
     if isinstance(ref, str):
         ref = np.load(os.path.join(DATA, ref))
     if ref is not None:
@@ -1605,11 +1647,12 @@ def p_laplace_solve(tag, prob, torch, K, smi, need, ref=None,
 
 def fem3d_kernel_phases(prob, L, torch, K):
     """K1, K3, K4, K5a and K5b at the fem3d k=3 (Q3, p = 64) level-L
-    shapes, where K1's wide form, K4's cluster form and the front kernels'
-    large forms take them: K1 and K4 against their plain versions (K4 also
-    against its cluster plain version's bits) and timed on the top level of
-    the main system (nD = 5) and of the phase-I system (nD = 8), K3 on the
-    main system's; K5a on every tree level of the top level's
+    shapes, where K1's wide form, K4's cluster form, K3's bulk form and
+    the front kernels' large forms take them: K1, K3 and K4 against their
+    plain versions (K4 also against its cluster plain version's bits, K3
+    against its rows plain version's) and timed on the top level of the
+    main system (nD = 5) and of the phase-I system (nD = 8), K3's phase A
+    and phase B also apart; K5a on every tree level of the top level's
     nested dissection (seeded SPD element blocks), one ``nd_factor``'s
     worth timed; K5b (``solve_phases``) on those factors, one
     ``nd_solve``'s worth timed. Returns their records (launches to be
@@ -1621,12 +1664,14 @@ def fem3d_kernel_phases(prob, L, torch, K):
     ops = top_level_ops(prob.M[0], tag, torch)
     k1 = panel_fwd_phase(ops, torch, K, rng, tag)
     err4, row4 = gram_matvec_phase(ops, torch, K, rng, tag)
-    err3, row3 = panel_adj_phase(ops, torch, K, rng, tag)
+    err3, row3 = panel_adj_phase(ops, torch, K, rng, tag, apart=True)
     ops1 = top_level_ops(prob.M[1], f"{tag} phase I", torch)
     k1["max_abs_err"] = max(k1["max_abs_err"], panel_fwd_phase(
         ops1, torch, K, rng, f"{tag} phase I")["max_abs_err"])
     err4 = max(err4, gram_matvec_phase(ops1, torch, K, rng,
                                        f"{tag} phase I")[0])
+    err3 = max(err3, panel_adj_phase(ops1, torch, K, rng, f"{tag} phase I",
+                                     apart=True)[0])
     del ops1
     t0 = time.time()
     nd = nd_plan(prob.M[0], ops, ProblemKernels.ND_LEAF_ELEMS,
@@ -1643,13 +1688,14 @@ def fem3d_kernel_phases(prob, L, torch, K):
     k5b = solve_phases(nd, fact, torch, K, rng)
     torch.cuda.synchronize()
     name = f" (fem3d k=3 L={L})"
+    form3 = K3_FORMS[row3.pop("form")]
     k1["name"] += name
     k5b["name"] += name
     return [k1, k5b, dict(
         name="gram_matvec" + name,
         source="mgbtpu_torch/kernels/csrc/gram_matvec.cu",
         replaces="mgbtpu/ops/pallas_dd.py:142", max_abs_err=err4, **row4),
-        dict(name="panel_adj" + name,
+        dict(name=f"panel_adj{name[:-1]}, {form3} form)",
              source="mgbtpu_torch/kernels/csrc/panel_adj.cu",
              replaces="mgbtpu/ops/pallas_dd.py:228", max_abs_err=err3,
              **row3),
@@ -1675,6 +1721,60 @@ FEM3D_L4 = [(64, 637, 218), (32, 25, 313), (16, 55, 403), (8, 121, 397),
 FEM3D_L5 = [(512, 637, 218), (256, 25, 362), (128, 55, 578), (64, 121, 866),
             (32, 121, 1273), (16, 253, 1669), (8, 529, 1657), (4, 529, 2209),
             (2, 1081, 2209), (1, 2209, 1)]
+
+
+K3_FORMS = {1: "staged", 3: "spread", 4: "bulk"}   # K3's phase-A forms
+# C of each level (coarsest .. top) of the fem3d k=3 main system (nD = 5)
+# and phase-I system (nD = 8) at L = 2..5: N = 8^(L-1) hexes of p = 64
+# nodes at every level (from subdivide(fem3d(k=3), L) -> amg ->
+# assemble(p=1), the levels' panel columns); the shapes K3 meets in the
+# fem3d solves. ``k3_forms`` checks the levels a solve built against them;
+# the tests take them from here.
+FEM3D_K3_C = {2: ((2, 4, 35, 91), (3, 7, 43, 155)),
+              3: ((2, 11, 24, 72, 128), (3, 19, 40, 80, 192)),
+              4: ((3, 9, 46, 32, 16, 128), (4, 15, 83, 48, 24, 192)),
+              5: ((3, 12, 68, 65, 32, 16, 128),
+                  (4, 20, 111, 103, 48, 24, 192))}
+
+
+def fem3d_k3_shapes(L):
+    """[(nD, N, p, C)] of every level of the fem3d k=3 level-L main and
+    phase-I systems (``FEM3D_K3_C``)."""
+    return [(nD, 8 ** (L - 1), 64, c)
+            for nD, cs in zip((5, 8), FEM3D_K3_C[L]) for c in cs]
+
+
+def k3_forms(tag, prob, K, bulk_launches, stored=None):
+    """The phase-A form K3 takes at each level of ``prob``'s systems that
+    the solve just run built (printed; the C entry's choice must agree
+    with ``panel_adj.bulk_form_takes``), each among the stored shapes
+    ``stored`` where given; K3's bulk form must have launched in the solve
+    (``bulk_launches``) if a level takes it, and not otherwise."""
+    mod = sys.modules[K.panel_adj.__module__]
+    shapes = []
+    for i, M in enumerate(prob.M):
+        for pk in getattr(M, "_torch_kernel_cache", {}).values():
+            for l in sorted(pk._plain):
+                if not hasattr(pk._plain[l], "panels"):
+                    continue        # a mesh's level: its shards' shapes
+                shape = tuple(pk._plain[l].panels.shape)
+                form = mod.form(*shape)
+                print(f"[form] {tag} K3 system {i} level {l} (nD, N, p, C) "
+                      f"= {shape}: phase A form {form}")
+                if (form == 4) != mod.bulk_form_takes(*shape):
+                    raise RuntimeError(f"{tag}: K3's C entry takes form "
+                                       f"{form} at {shape}, against "
+                                       f"bulk_form_takes")
+                shapes.append(shape)
+    if stored is not None and not set(shapes) <= set(stored):
+        raise RuntimeError(f"{tag}: K3's level shapes {sorted(set(shapes))} "
+                           f"are not among the stored {sorted(stored)}")
+    bulk = any(mod.bulk_form_takes(*sh) for sh in shapes)
+    print(f"[form] {tag}: K3 bulk-form launches {bulk_launches}")
+    if bulk != (bulk_launches > 0):
+        raise RuntimeError(f"{tag}: K3's bulk form launched "
+                           f"{bulk_launches} times; a level takes it: "
+                           f"{bulk}")
 
 
 def seeded_nd(torch, shapes, rng):
@@ -1743,19 +1843,22 @@ def slice7_solves(prob3d, L3d, torch, K, smi):
     p_laplace_solve("fem3d k=3 L=3",
                     timed_setup("fem3d k=3 L=3", lambda: fem3d_problem(3)),
                     torch, K, smi, cone_mesh, "ref_fem3d_k3_L3.npz",
-                    large=True)
+                    large=True, k3=fem3d_k3_shapes(3))
     ref = f"ref_fem3d_k3_L{L3d}.npz"
     if not os.path.exists(os.path.join(DATA, ref)):
         print(f"[reference] fem3d k=3 L={L3d}: no stored x64 record")
         ref = None
     t0 = time.time()
     _, la = p_laplace_solve(f"fem3d k=3 L={L3d}", prob3d, torch, K, smi,
-                            cone_mesh, ref, large=True)
+                            cone_mesh, ref, large=True,
+                            k3=(fem3d_k3_shapes(L3d) if L3d in FEM3D_K3_C
+                                else True))
+    la = dict(la, panel_adj_bulk=K.panel_adj.bulk_launches)
     wall = time.time() - t0
     p_laplace_solve("fem2d_P1 L=5", timed_setup("fem2d_P1 L=5", lambda: (
         assemble(amg(subdivide(fem2d_P1(), 5)), p=1.0, device="cuda"))),
         torch, K, smi, cone_mesh, "ref_fem2d_p1_L5.npz", P1_FLOOR_ITS,
-        large=False)
+        large=False, k3=True)
     gold = np.asarray([-1, -1, -1, 1, 0, 0, 2, 2.0]).reshape(2, -1).T
     sol, _ = p_laplace_solve(
         "fem1d golden", assemble(amg(fem1d(nodes=np.linspace(-1, 1, 3))),
@@ -2969,6 +3072,7 @@ def main(argv=None) -> int:
     require_launches("fem2d_P2 p=1 L=5", launches,
                      [n for n in launches if n != "node_barrier"])
     require_forms("fem2d_P2 p=1 L=5", K, large=False)
+    k3_forms("fem2d_P2 p=1 L=5", prob, K, K.panel_adj.bulk_launches)
 
     check_totals("fem2d_P2 p=1 L=5", sol, np.load(REF))
     mesh_phases(mg5, prob, sol, s2, torch, K, smi)
@@ -2983,7 +3087,9 @@ def main(argv=None) -> int:
     wide = fem3d_kernel_phases(prob3d, L3d, torch, K)
     launches3d, wall3d = slice7_solves(prob3d, L3d, torch, K, smi)
     for r in wide:
-        r["launches"] = launches3d[r["name"].split()[0]]
+        kern = r["name"].split()[0]
+        r["launches"] = launches3d["panel_adj_bulk" if "bulk form" in
+                                   r["name"] else kern]
     records += wide
     if args.profile:
         from mgbtpu_torch import mgb_solve

@@ -19,13 +19,15 @@ On a mesh, K3's two phases run apart (``panel_adj_contrib`` per shard,
 K1's and K3's spread forms and K4's cluster form sum in an order of their
 own, which ``panel_fwd_split_plain``, ``panel_adj_contrib_split_plain``
 and ``gram_matvec_cluster_plain`` compute in plain PyTorch (the card tests
-hold the kernels to their bits).
+hold the kernels to their bits); K3's staged and bulk forms share the
+order of ``panel_adj_contrib_rows_plain``.
 
 Each wrapper runs its plain PyTorch version when its inputs lie on the CPU
 and launches its kernel when they lie on a CUDA device; it never falls back.
 Each counts its launches in the integer attribute ``launches`` (K5b's two
 sweeps share ``front_solve.launches``; K5a and K5b also count those in
-their large forms in ``large_launches``; K2 also counts them by mode in
+their large forms in ``large_launches``; K3 those whose phase A took its
+bulk form in ``bulk_launches``; K2 also counts them by mode in
 ``mode_launches``; K6 also counts those in the cobarrier form in
 ``co_launches``, by mode in ``mode_launches`` and those of a table with a
 wide piece, a runtime-width cone or a wide linear block, in
@@ -42,6 +44,7 @@ from .gram_matvec import (gram_matvec, gram_matvec_cluster_plain,
 from .node_barrier import (Piece, node_barrier, node_barrier_gram_plain,
                            node_barrier_plain)
 from .panel_adj import (adjoint_sum, panel_adj, panel_adj_contrib,
+                        panel_adj_contrib_rows_plain,
                         panel_adj_contrib_split_plain, panel_adj_plain)
 from .panel_fwd import panel_fwd, panel_fwd_plain, panel_fwd_split_plain
 from .power_cone import power_cone_eval, power_cone_plain
@@ -57,6 +60,7 @@ def reset_launches():
         fn.launches = 0
     front_factor.large_launches = 0
     front_solve.large_launches = 0
+    panel_adj.bulk_launches = 0
     node_barrier.co_launches = 0
     node_barrier.wide_launches = 0
     node_barrier.table_launches = 0
@@ -83,7 +87,8 @@ __all__ = ["WRAPPERS", "Piece", "adjoint_sum", "build_all", "cholesky_nan",
            "gram_matvec", "gram_matvec_contrib", "gram_matvec_plain",
            "launches", "node_barrier", "node_barrier_gram_plain",
            "node_barrier_plain", "panel_adj",
-           "panel_adj_contrib", "panel_adj_contrib_split_plain",
+           "panel_adj_contrib", "panel_adj_contrib_rows_plain",
+           "panel_adj_contrib_split_plain",
            "panel_adj_plain", "panel_fwd", "panel_fwd_plain",
            "panel_fwd_split_plain", "power_cone_eval", "power_cone_plain",
            "reset_launches"]

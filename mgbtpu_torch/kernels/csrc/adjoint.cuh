@@ -30,9 +30,30 @@
 // the last places. Grid at spectral2d n = 32: 8 tiles x 32 slabs (its
 // phase-I rows: 16 x 72; spectral1d n = 128: 1 x 12). adjoint_launch
 // takes the spread form for p*nD > ADJ_STAGE and for levels of fewer than
-// ADJ_SPREAD_MAX_N elements of at least ADJ_SPREAD_MIN_C slots; every fem
-// level the card runs keeps the staged form. Bound: bytes, the panels read
-// once (2 flops a double).
+// ADJ_SPREAD_MAX_N elements of at least ADJ_SPREAD_MIN_C slots. Bound:
+// bytes, the panels read once (2 flops a double).
+// The staged form reads a wide element's panels (the fem3d Q3 hex: p = 64,
+// C = 128, 320 rows of 1 KB; phase I 512 rows of 1.5 KB) 8 bytes a thread
+// with stride C, few loads in flight behind each thread's chain of adds.
+// Its bulk form (4) keeps its order and streams the rows instead: one
+// element a CTA; lane 0 of warp 0 copies the element's rows i = k*p + q,
+// in stages of R consecutive rows (one 1-D TMA bulk copy per k a stage
+// touches: row q of slab k is contiguous with row q + 1), through a ring
+// of S stages in shared memory (tma.cuh: a full and an empty barrier a
+// stage, reused round after round); the other warps fold, consumer thread
+// t slot t (and t + T past ADJ_BULK_MAX_T slots), over the rows in (k, q)
+// order from 0.0, each product and sum rounded apart: the staged form's
+// bits (panel_adj_contrib_rows_plain in panel_adj.py). The ring keeps a
+// CTA's next stage in flight with no registers spent on addresses; its
+// stages are small (4 to 8 KB, 2 of them: ~20 KB a CTA, 10 or more CTAs
+// an SM), which timed fastest at the fem3d shapes on an H100: small
+// elements need many CTAs resident, and a level of one wave of CTAs
+// (L=4's 512) waits on each CTA's first stage and last fold. It takes an
+// even C (a row of C doubles a multiple of 16 bytes, as a bulk copy
+// needs) and a 16-byte aligned base; by shape it runs levels of at least
+// ADJ_BULK_MIN_N elements of at least ADJ_BULK_MIN_ROWS rows, where it
+// timed faster than the staged form at every C (PERF.md §6): the fem3d
+// Q3 levels (p = 64). Every fem2d level keeps the staged form.
 // Phase B sums each column's slots from the inverse incidence inv (n_J, K),
 // padded with N*C at the end, in one of two forms adjoint_launch picks from
 // K:
@@ -60,6 +81,7 @@
 
 #include "cpasync.cuh"
 #include "pdl.cuh"
+#include "tma.cuh"
 
 #define ADJ_THREADS 128        // phase A threads per block
 #define ADJ_STAGE 4096         // phase A: most doubles of Y staged per block
@@ -76,6 +98,18 @@
 #define ADJ_SUM_BATCH 32       // second level: partials a thread loads at once
 #define ADJ_SPREAD_MAX_N 8     // by shape: levels of fewer elements ...
 #define ADJ_SPREAD_MIN_C 64    // ... with at least this many slots each
+// phase A bulk form: a stage holds ADJ_BULK_STAGE_ROWS rows, or as many as
+// make ADJ_BULK_STAGE_MIN to ADJ_BULK_STAGE_MAX bytes, the ring
+// ADJ_BULK_STAGES stages; none of them moves the order
+// (panel_adj_bulk_tune sets others for a timing run)
+#define ADJ_BULK_STAGE_ROWS 16
+#define ADJ_BULK_STAGE_MIN 4096
+#define ADJ_BULK_STAGE_MAX 8192
+#define ADJ_BULK_STAGES 2
+#define ADJ_BULK_MAX_T 256     // consumer threads at most (past it 2 slots
+#define ADJ_BULK_MAX_C 512     // ... each, to this many slots)
+#define ADJ_BULK_MIN_N 8       // by shape: levels of at least this many
+#define ADJ_BULK_MIN_ROWS 256  // ... elements of at least this many rows
 
 // P > 0: p == P at compile time (7, the P2 element), so a thread's loads
 // of a row k, and of the next rows, go out together
@@ -221,6 +255,114 @@ __global__ void adjoint_slab_sum_kernel(const double* __restrict__ part,
     contrib[f] = acc;
 }
 
+// The bulk form's layout: R rows a stage, S stages (the defaults where
+// rows or stages is 0), T consumer threads of spt slots; shared memory:
+// 2 S barriers (full, then empty), the element's p*nD values of Y, the
+// ring (byte offsets y, ring; total bytes).
+struct AdjBulk {
+    int R, S, T, spt;
+    size_t y, ring, total;
+};
+
+__host__ __device__ inline AdjBulk adj_bulk(int nD, int p, int C, int rows,
+                                            int stages) {
+    AdjBulk b;
+    const int row = C * 8;
+    b.R = ADJ_BULK_STAGE_ROWS;
+    if (b.R * row < ADJ_BULK_STAGE_MIN) b.R = ADJ_BULK_STAGE_MIN / row;
+    if (b.R * row > ADJ_BULK_STAGE_MAX) b.R = ADJ_BULK_STAGE_MAX / row;
+    if (rows > 0) b.R = rows;
+    if (b.R < 1) b.R = 1;
+    b.S = stages > 1 ? stages : ADJ_BULK_STAGES;
+    b.spt = C > ADJ_BULK_MAX_T ? 2 : 1;
+    b.T = ((C + b.spt - 1) / b.spt + 31) & ~31;
+    b.y = (size_t)16 * b.S;
+    b.ring = b.y + (((size_t)p * nD * 8 + 15) & ~(size_t)15);
+    b.total = b.ring + (size_t)b.S * b.R * row;
+    return b;
+}
+
+// Phase A, bulk form: CTA e folds element e (the note at the top); warp 0
+// the producer, the other T threads the consumers, SPT slots each.
+template <int SPT>
+__global__ void __launch_bounds__(32 + ADJ_BULK_MAX_T)
+adjoint_contrib_bulk_kernel(const double* __restrict__ panels,
+                            const double* __restrict__ Y,
+                            double* __restrict__ contrib, int nD, int N,
+                            int p, int C, int R, int S) {
+    extern __shared__ __align__(16) unsigned char smb[];
+    const int pn = p * nD, e = blockIdx.x, tid = threadIdx.x;
+    const int T = blockDim.x - 32;
+    const int stages = (pn + R - 1) / R;
+    uint64_t* full = (uint64_t*)smb;
+    uint64_t* empty = full + S;
+    double* sY = (double*)(smb + (size_t)16 * S);
+    double* ring = sY + ((pn + 1) & ~1);
+    if (tid == 0) {
+        for (int s = 0; s < S; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, T / 32);
+        }
+        mbar_init_fence();
+    }
+    __syncthreads();
+    pdl_wait();
+    pdl_trigger();
+    if (tid < 32) {  // the producer: stage j into ring slot j % S
+        if (tid == 0) {
+            const size_t kstride = (size_t)N * p * C;
+            const double* pe = panels + (size_t)e * p * C;
+            for (int j = 0; j < stages; ++j) {
+                const int s = j % S, i0 = j * R;
+                const int i1 = i0 + R < pn ? i0 + R : pn;
+                if (j >= S) mbar_wait(empty + s, (j / S - 1) & 1);
+                mbar_expect(full + s, (unsigned)(i1 - i0) * C * 8);
+                double* dst = ring + (size_t)s * R * C;
+                for (int i = i0; i < i1;) {  // one copy a slab k
+                    const int k = i / p, q = i - k * p;
+                    const int n = i1 - i < p - q ? i1 - i : p - q;
+                    bulk_copy(dst + (size_t)(i - i0) * C,
+                              pe + k * kstride + (size_t)q * C,
+                              (unsigned)n * C * 8, full + s);
+                    i += n;
+                }
+            }
+        }
+        return;
+    }
+    const int t = tid - 32;
+    const double* Ye = Y + (size_t)e * pn;
+    for (int u = t; u < pn; u += T) sY[u] = Ye[u];
+    asm volatile("bar.sync 1, %0;\n" ::"r"(T) : "memory");  // consumers
+    double acc[SPT];
+#pragma unroll
+    for (int u = 0; u < SPT; ++u) acc[u] = 0.0;
+    int k = 0, q = 0;  // row i = k*p + q
+    for (int j = 0; j < stages; ++j) {
+        const int s = j % S;
+        const int n = pn - j * R < R ? pn - j * R : R;
+        mbar_wait(full + s, (j / S) & 1);
+        const double* st = ring + (size_t)s * R * C + t;
+#pragma unroll 4
+        for (int r = 0; r < n; ++r) {
+            const double y = sY[q * nD + k];
+#pragma unroll
+            for (int u = 0; u < SPT; ++u)
+                if (t + u * T < C)
+                    acc[u] = acc[u] + st[(size_t)r * C + u * T] * y;
+            if (++q == p) {
+                q = 0;
+                ++k;
+            }
+        }
+        __syncwarp();
+        if ((t & 31) == 0) mbar_arrive(empty + s);
+    }
+#pragma unroll
+    for (int u = 0; u < SPT; ++u)
+        if (t + u * T < C) contrib[(size_t)e * C + t + u * T] = acc[u];
+}
+
 __global__ void adjoint_sum_thread_kernel(const double* __restrict__ contrib,
                                           const int64_t* __restrict__ inv,
                                           double* __restrict__ out, int n_J,
@@ -290,19 +432,47 @@ static inline cudaError_t adjoint_sum_launch(const int64_t* inv,
                       pad);
 }
 
-// The phase-A form a launch takes: 1 staged, 3 spread (2 is K1's wide
-// form, which K3 has not); `form` 0 picks by shape (the note at the top),
-// 1 or 3 asks for one. 0 when refused.
+// Shapes the bulk form takes: rows of whole 16-byte pieces (C even), at
+// most ADJ_BULK_MAX_C slots, the element's Y staged as the staged form's.
+__host__ __device__ inline bool adj_bulk_takes(int nD, int N, int p, int C) {
+    return N > 0 && C >= 2 && C % 2 == 0 && C <= ADJ_BULK_MAX_C &&
+           p * nD <= ADJ_STAGE;
+}
+
+// The phase-A form a launch takes: 1 staged, 3 spread, 4 bulk (2 is K1's
+// wide form, which K3 has not); `form` 0 picks by shape (the note at the
+// top), 1, 3 or 4 asks for one. 0 when refused.
 static inline int adjoint_form(int nD, int N, int p, int C, int form) {
     const int pn = p * nD;
     if (form == 0)
         form = (pn > ADJ_STAGE || (N < ADJ_SPREAD_MAX_N &&
-                                   C >= ADJ_SPREAD_MIN_C)) ? 3 : 1;
+                                   C >= ADJ_SPREAD_MIN_C)) ? 3
+               : (adj_bulk_takes(nD, N, p, C) && N >= ADJ_BULK_MIN_N &&
+                  pn >= ADJ_BULK_MIN_ROWS) ? 4 : 1;
     if (form == 1) return pn <= ADJ_STAGE ? 1 : 0;
+    if (form == 4) return adj_bulk_takes(nD, N, p, C) ? 4 : 0;
     if (form != 3) return 0;
     const int rows = adj_split_slab(pn);
     const int slabs = (pn + rows - 1) / rows;
     return slabs <= 65535 && N <= 65535 ? 3 : 0;
+}
+
+// The bulk form's rows a stage and stages (panel_adj_bulk_tune; 0: the
+// rule's).
+static int adj_bulk_rows = 0;
+static int adj_bulk_stages = 0;
+
+// Let the bulk kernel take b.total bytes of shared memory, and the SM give
+// shared memory all it can (~20 KB a CTA at the fem3d shapes).
+template <typename Kern>
+static inline cudaError_t adj_bulk_opt_in(Kern kern, const AdjBulk& b) {
+    if (b.total > 227 * 1024) return cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b.total);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(kern,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
 }
 
 // Phase A alone: the per-slot contributions contrib (N*C,), with `part`
@@ -318,8 +488,22 @@ static inline cudaError_t adjoint_contrib_launch(const double* panels,
                                                  int form,
                                                  cudaStream_t stream) {
     const int pn = p * nD;
+    const int asked = form;
     form = adjoint_form(nD, N, p, C, form);
+    // the bulk copies need a 16-byte aligned base (the staged form, with
+    // the same bits, takes the rest by shape)
+    if (form == 4 && ((uintptr_t)panels & 15)) form = asked == 0 ? 1 : 0;
     if (form == 0) return cudaErrorInvalidValue;
+    if (N > 0 && C > 0 && form == 4) {
+        const AdjBulk b = adj_bulk(nD, p, C, adj_bulk_rows,
+                                   adj_bulk_stages);
+        auto kern = b.spt == 2 ? adjoint_contrib_bulk_kernel<2>
+                               : adjoint_contrib_bulk_kernel<1>;
+        cudaError_t e = adj_bulk_opt_in(kern, b);
+        if (e != cudaSuccess) return e;
+        return launch_pdl(kern, dim3(N), dim3(32 + b.T), b.total, stream,
+                          panels, Y, contrib, nD, N, p, C, b.R, b.S);
+    }
     if (N > 0 && C > 0 && form == 3) {
         if (part == nullptr) return cudaErrorInvalidValue;
         const int rows = adj_split_slab(pn);

@@ -8,9 +8,12 @@
 // phases of adjoint.cuh from one entry: per-slot contributions with the
 // slots on neighbouring threads, then each column's fixed-order sum over
 // its slots, by a thread or a block per column as K asks; phase A splits
-// the sums of a level of few elements over many blocks, in slabs of rows
-// (adjoint.cuh). No atomics, so the result has the same bits on every run.
-// Bound on an H100: bytes (panels read once, 2 flops per 8 bytes).
+// the sums of a level of few elements over many blocks, in slabs of rows,
+// and streams a wide element's panel rows (the fem3d Q3 hexes) into shared
+// memory by TMA bulk copies through a ring of stages, one element a CTA,
+// in the staged form's order (adjoint.cuh). No atomics, so the result has
+// the same bits on every run. Bound on an H100: bytes (panels read once, 2
+// flops per 8 bytes).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -22,9 +25,9 @@ extern "C" int panel_adj_form(int nD, int N, int p, int C, int form) {
     return adjoint_form(nD, N, p, C, form);
 }
 
-// form: 0 by shape, 1 the staged phase A, 3 the spread phase A; part:
-// the spread form's N x slabs x C doubles of slab partials (null for the
-// staged form).
+// form: 0 by shape, 1 the staged phase A, 3 the spread phase A, 4 the
+// bulk phase A; part: the spread form's N x slabs x C doubles of slab
+// partials (null for the others).
 extern "C" int panel_adj_launch(const void* panels, const void* inv,
                                 const void* Y, void* contrib, void* part,
                                 void* out, int nD, int N, int p, int C,
@@ -56,4 +59,32 @@ extern "C" int panel_adj_sum_launch(const void* inv, const void* contrib,
                                        (const double*)contrib, (double*)out,
                                        N, C, n_J, K, (cudaStream_t)stream);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The bulk form's rows a stage and stages from now on (0: the rule's,
+// adj_bulk); neither moves the order. For timing runs
+// (tools/k3_form_times.py).
+extern "C" void panel_adj_bulk_tune(int rows, int stages) {
+    adj_bulk_rows = rows > 0 ? rows : 0;
+    adj_bulk_stages = stages > 1 ? stages : 0;
+}
+
+// The bulk form's layout at (nD, p, C) on the current card: out[0..4] =
+// rows a stage, stages, consumer threads, shared bytes a CTA, and CTAs an
+// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int panel_adj_bulk_layout(int nD, int p, int C, int* out) {
+    const AdjBulk b = adj_bulk(nD, p, C, adj_bulk_rows, adj_bulk_stages);
+    auto kern = b.spt == 2 ? adjoint_contrib_bulk_kernel<2>
+                           : adjoint_contrib_bulk_kernel<1>;
+    cudaError_t e = adj_bulk_opt_in(kern, b);
+    int ctas = 0;
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern,
+                                                          32 + b.T, b.total);
+    out[0] = b.R;
+    out[1] = b.S;
+    out[2] = b.T;
+    out[3] = (int)b.total;
+    out[4] = ctas;
+    return (int)e;
 }

@@ -6,8 +6,12 @@
 // the transaction count of an mbarrier in the destination CTA's shared
 // memory; a thread that announced the bytes (mbar_expect) arrives, and the
 // barrier's phase completes once every byte has landed. A thread that then
-// waits on the phase (mbar_wait) sees the copied data. Each barrier here is
+// waits on the phase (mbar_wait) sees the copied data. K4's barriers are
 // used for one phase (parity 0): initialised, announced, waited on once.
+// K3's bulk form reuses its barriers phase after phase, a ring: a stage's
+// full barrier completes once per round (announced and filled by copies),
+// its empty barrier once per round (mbar_arrive of every consumer warp),
+// and round r waits on parity r & 1.
 #pragma once
 #include <cstdint>
 
@@ -31,6 +35,15 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
         "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
             smem_u32(bar)),
         "r"(bytes)
+        : "memory");
+}
+
+// Arrive on the barrier (no bytes announced).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile(
+        "{\n .reg .b64 st;\n"
+        " mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+            smem_u32(bar))
         : "memory");
 }
 

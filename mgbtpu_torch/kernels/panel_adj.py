@@ -22,6 +22,15 @@ flight) into a partial sum, and a second kernel folds each slot's partials
 in slab order. That order is its own: ``panel_adj_contrib_split_plain``
 computes it in plain PyTorch and gives the kernel's bits; the einsum plain
 version (what the CPU runs) and the staged form agree with it to roundoff.
+A level of wide elements (the fem3d Q3 hexes: p = 64, C = 128, 320 rows
+of 1 KB a slot column) takes phase A's bulk form: one element a CTA, one
+thread copying its panel rows by TMA bulk copies through a ring of stages
+in shared memory, the other threads folding a slot each in the staged
+form's (k, q) row order, so with its bits
+(``panel_adj_contrib_rows_plain``). ``bulk_form_takes`` mirrors the C
+entry's rule for it: an even C (whole 16-byte rows), at least
+``BULK_MIN_N`` elements of at least ``BULK_MIN_ROWS`` rows;
+``bulk_launches`` counts the launches that took it.
 The spread form takes any p*nD (the staged form p*nD <= 4,096) and a
 scratch of N x slabs x C doubles for the partials, which the wrapper
 allocates when the C entry takes the spread form. The C entry picks the
@@ -43,13 +52,21 @@ from ..ops.scatter import scatter_add
 
 NAME = "panel_adj"
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_FORM = 0   # phase A's form: 0 by shape; the card tests set 1 or 3
+_FORM = 0   # phase A's form: 0 by shape; the card tests set 1, 3 or 4
 # The spread form's order (csrc/adjoint.cuh's ADJ_SPLIT_SLAB,
 # ADJ_SPLIT_SLAB_SMALL, ADJ_SPLIT_SMALL): (k, q) rows a slab, each slot's
 # first-level fold
 SPLIT_SLAB = 128
 SPLIT_SLAB_SMALL = 32   # ... in an element of at most
 SPLIT_SMALL = 2048      # ... this many rows
+# the forms by shape (adjoint.cuh's ADJ_STAGE, ADJ_SPREAD_MAX_N,
+# ADJ_SPREAD_MIN_C, ADJ_BULK_MAX_C, ADJ_BULK_MIN_N, ADJ_BULK_MIN_ROWS)
+STAGE = 4096            # the staged and bulk forms: most p*nD
+SPREAD_MAX_N = 8        # the spread form: levels of fewer elements ...
+SPREAD_MIN_C = 64       # ... of at least this many slots
+BULK_MAX_C = 512        # the bulk form: most slots (an even number)
+BULK_MIN_N = 8          # ... by shape: levels of at least this many
+BULK_MIN_ROWS = 256     # ... elements of at least this many rows p*nD
 # phase B's forms (adjoint.cuh's ADJ_THREAD_K, ADJ_COL_THREADS)
 ADJ_THREAD_K = 32       # the most slots a thread sums alone
 ADJ_COL_THREADS = 256   # past it, threads a column
@@ -67,6 +84,33 @@ def panel_adj_contrib_plain(panels, Y):
     nD, N, p, C = panels.shape
     return torch.einsum("kNpc,Npk->Nc", panels,
                         Y.reshape(N, p, nD)).reshape(-1)
+
+
+def panel_adj_contrib_rows_plain(panels, Y):
+    """Phase A in the staged and bulk forms' order, in plain PyTorch: slot
+    (e, c) folds rows i = k*p + q of element e, k outer, from 0.0, each
+    product and sum rounded apart. The card's bits in those forms (built
+    with --fmad=false)."""
+    nD, N, p, C = panels.shape
+    y = Y.reshape(N, p, nD)
+    acc = torch.zeros((N, C), dtype=panels.dtype, device=panels.device)
+    for k in range(nD):
+        for q in range(p):
+            acc = acc + panels[k, :, q, :] * y[:, q, k, None]
+    return acc.reshape(-1)
+
+
+def bulk_form_takes(nD, N, p, C):
+    """Whether phase A takes its bulk form by shape (the C entry's rule,
+    ``adjoint_form`` in ``csrc/adjoint.cuh``; at a 16-byte aligned base,
+    as every allocation has): not a spread level, an even C of at most
+    BULK_MAX_C slots, at least BULK_MIN_N elements of BULK_MIN_ROWS to
+    STAGE rows."""
+    pn = p * nD
+    if pn > STAGE or (N < SPREAD_MAX_N and C >= SPREAD_MIN_C):
+        return False
+    return (C % 2 == 0 and 2 <= C <= BULK_MAX_C and N >= BULK_MIN_N
+            and pn >= BULK_MIN_ROWS)
 
 
 def split_slab(pn):
@@ -172,11 +216,20 @@ def panel_adj(panels, cols, inv, Y, n_J):
              None if part is None else B.ptr(part), B.ptr(out),
              nD, N, p, C, n_J, K, _FORM, B.stream(Y.device))
     B.check(NAME, err)
-    panel_adj.launches += 1
+    _count(panels)
     return out
 
 
+def _count(panels):
+    """One launch of K3 (``bulk_launches`` too where phase A took the
+    bulk form: by the C entry's rule, at a 16-byte aligned base)."""
+    panel_adj.launches += 1
+    if form(*panels.shape, _FORM) == 4 and panels.data_ptr() % 16 == 0:
+        panel_adj.bulk_launches += 1
+
+
 panel_adj.launches = 0
+panel_adj.bulk_launches = 0
 
 
 def panel_adj_contrib(panels, Y):
@@ -194,7 +247,7 @@ def panel_adj_contrib(panels, Y):
     B.check(NAME, fn(B.ptr(panels), B.ptr(Y), B.ptr(contrib),
                      None if part is None else B.ptr(part), nD, N, p, C,
                      _FORM, B.stream(Y.device)))
-    panel_adj.launches += 1
+    _count(panels)
     return contrib
 
 
@@ -219,9 +272,11 @@ def adjoint_sum(cols, inv, contrib, n_J):
 
 
 def form(nD, N, p, C, request=0):
-    """Phase A's form the C entry takes for this shape (1 staged, 3 spread;
-    ``request`` 0 by shape, or the form asked for), 0 when it refuses the
-    shape. Builds the library (a card's machine); the answer is cached."""
+    """Phase A's form the C entry takes for this shape (1 staged, 3 spread,
+    4 bulk; ``request`` 0 by shape, or the form asked for), 0 when it
+    refuses the shape (the bulk form also refuses a base that is not
+    16-byte aligned, which no allocation has). Builds the library (a
+    card's machine); the answer is cached."""
     key = (nD, N, p, C, request)
     f = _FORMS.get(key)
     if f is None:

@@ -3,9 +3,11 @@ on the card, at small ragged shapes and in every mode the wrappers take,
 K1 and K4 at the fem3d Q3 shapes that take their wide forms, K5a and K5b
 at every level of the fem3d L=4 and L=5 plans, which take their large
 forms (1e-12 relative: they sum in other orders and over up to 2,210
-products), and K1 and K3 at the one-element spectral shapes that take
+products), K1 and K3 at the one-element spectral shapes that take
 their spread forms, whose split sum orders are held to the bits of
-``panel_fwd_split_plain`` and ``panel_adj_contrib_split_plain``.
+``panel_fwd_split_plain`` and ``panel_adj_contrib_split_plain``, and K3's
+bulk form (the fem3d levels) to the bits of its staged form and of
+``panel_adj_contrib_rows_plain``, the order both fold in.
 
 Marked ``cuda``: each test skips without a card. The file imports neither
 JAX nor ``mgbtpu``, so it runs on a machine without them:
@@ -500,18 +502,19 @@ def test_spread_forms_agree(dev, p, nD, C, N):
                          n_J)) <= TOL
 
 
-# (nD, N, p, C) -> K1's and K3's forms, by shape: every fem level the card
-# runs keeps its form (K1 element-group 1 or wide 2, K3 staged 1) --
-# fem2d_P2 L=5 and L=3 top levels with their phase-I rows, a coarse level
-# (C = n_J), fem2d_P1 L=5, fem3d k=3 L=4 and L=3 with phase I, the fem1d
-# golden mesh -- and the spectral levels from spectral1d n = 128 and
-# spectral2d n = 16 up take the spread forms (3); the golden spectral1d
-# n = 5 and spectral2d n = 5 levels are small enough to keep the others
+# (nD, N, p, C) -> K1's and K3's forms, by shape: every fem2d level the
+# card runs keeps its form (K1 element-group 1, K3 staged 1) -- fem2d_P2
+# L=5 and L=3 top levels with their phase-I rows, a coarse level (C =
+# n_J), fem2d_P1 L=5, the fem1d golden mesh -- the fem3d k=3 L=4 and L=3
+# top levels with phase I take K1's wide form (2) and K3's bulk form (4),
+# and the spectral levels from spectral1d n = 128 and spectral2d n = 16 up
+# take the spread forms (3); the golden spectral1d n = 5 and spectral2d
+# n = 5 levels are small enough to keep the others
 FORMS = [((4, 512, 7, 14), 1, 1), ((9, 512, 7, 14), 1, 1),
          ((11, 32, 7, 14), 1, 1), ((4, 512, 7, 4), 1, 1),
-         ((4, 512, 3, 6), 1, 1), ((5, 512, 64, 128), 2, 1),
-         ((8, 512, 64, 192), 2, 1), ((5, 64, 64, 128), 2, 1),
-         ((8, 64, 64, 192), 2, 1), ((3, 2, 2, 3), 1, 1),
+         ((4, 512, 3, 6), 1, 1), ((5, 512, 64, 128), 2, 4),
+         ((8, 512, 64, 192), 2, 4), ((5, 64, 64, 128), 2, 4),
+         ((8, 64, 64, 192), 2, 4), ((3, 2, 2, 3), 1, 1),
          ((4, 1, 1024, 1924), 3, 3), ((9, 1, 1024, 3000), 3, 3),
          ((3, 1, 128, 254), 3, 3), ((4, 1, 256, 452), 3, 3),
          ((3, 1, 5, 8), 1, 1), ((4, 1, 25, 34), 1, 1)]
@@ -521,6 +524,119 @@ FORMS = [((4, 512, 7, 14), 1, 1), ((9, 512, 7, 14), 1, 1),
 def test_forms_by_shape(dev, shape, k1, k3):
     assert _form_of(K.panel_fwd)(*shape) == k1
     assert _form_of(K.panel_adj)(*shape) == k3
+
+
+BULK = 4   # K3's bulk phase A (one element a CTA, panels by TMA)
+PA = sys.modules["mgbtpu_torch.kernels.panel_adj"]   # the module
+
+# (N, nD, p, C) for K3's bulk form: the fem3d L=4 top levels (main and
+# phase I), two slots a thread past 256 slots, and stages that cross the
+# slabs of k (p = 13 rows a slab against 29 rows a stage at C = 70)
+BULK_SHAPES = [(512, 5, 64, 128), (512, 8, 64, 192), (9, 2, 64, 300),
+               (37, 3, 13, 70)]
+
+
+def _bulk_inputs(rng, dev, N, nD, p, C):
+    panels, cols, inv, n_J = _panels(rng, dev, nD=nD, N=N, p=p, C=C,
+                                     n_J=N * C // 6 + C)
+    Y = torch.as_tensor(rng.standard_normal((N * p, nD)), device=dev)
+    return panels, cols, inv, n_J, Y
+
+
+@pytest.mark.parametrize("N,nD,p,C", BULK_SHAPES)
+def test_panel_adj_bulk_form(dev, N, nD, p, C):
+    """K3's bulk phase A gives ``panel_adj_contrib_rows_plain``'s bits and
+    the staged form's, a repeat call the same bits; the whole call in the
+    bulk form the bits of that order with phase B's
+    (``adjoint_sum_ordered_plain``) and the einsum plain version's values
+    to TOL; each call one launch of K3, counted in ``bulk_launches`` too;
+    by shape the C entry takes it where ``bulk_form_takes`` says."""
+    rng = np.random.default_rng(N + nD + p + C)
+    panels, cols, inv, n_J, Y = _bulk_inputs(rng, dev, N, nD, p, C)
+    assert PA.form(nD, N, p, C, BULK) == BULK
+    assert PA.form(nD, N, p, C) == (BULK if PA.bulk_form_takes(nD, N, p, C)
+                                    else STAGED)
+    rows = K.panel_adj_contrib_rows_plain(panels, Y)
+    before = (K.panel_adj.launches, K.panel_adj.bulk_launches)
+    bulk = _in_form(K.panel_adj_contrib, BULK, panels, Y)
+    assert _same_bits(bulk, rows)
+    assert _same_bits(bulk, _in_form(K.panel_adj_contrib, BULK, panels, Y))
+    assert _same_bits(bulk, _in_form(K.panel_adj_contrib, STAGED, panels, Y))
+    out = _in_form(K.panel_adj, BULK, panels, cols, inv, Y, n_J)
+    assert _same_bits(out, PA.adjoint_sum_ordered_plain(inv, rows))
+    assert _rel(out, K.panel_adj_plain(panels, cols, inv, Y, n_J)) <= TOL
+    assert (K.panel_adj.launches, K.panel_adj.bulk_launches) == (
+        before[0] + 4, before[1] + 3)
+
+
+def test_panel_adj_bulk_nan(dev):
+    """A NaN in Y at node q of element e, row k, makes every slot of
+    element e NaN (a product with it is NaN, a zero panel entry's too) and
+    no other: the rows plain version's bits."""
+    rng = np.random.default_rng(41)
+    panels, cols, inv, n_J, Y = _bulk_inputs(rng, dev, 512, 5, 64, 128)
+    Y[7 * 64 + 33, 2] = float("nan")
+    bulk = _in_form(K.panel_adj_contrib, BULK, panels, Y)
+    assert _same_bits(bulk, K.panel_adj_contrib_rows_plain(panels, Y))
+    nan = torch.isnan(bulk).reshape(512, 128)
+    assert bool(nan[7].all()) and int(nan.sum()) == 128
+    out = _in_form(K.panel_adj, BULK, panels, cols, inv, Y, n_J)
+    assert _rel(out, K.panel_adj_plain(panels, cols, inv, Y, n_J)) <= TOL
+
+
+def test_panel_adj_bulk_refusals(dev):
+    """The bulk form refuses an odd C (rows of a whole number of 16-byte
+    pieces) and a base 8 bytes off 16: asked for, the launch raises; by
+    shape the odd C takes the staged form, and so does the misaligned base
+    (not counted in ``bulk_launches``), with the same bits."""
+    rng = np.random.default_rng(43)
+    panels, cols, inv, n_J, Y = _bulk_inputs(rng, dev, 64, 5, 64, 91)
+    assert PA.form(5, 64, 64, 91, BULK) == 0
+    assert PA.form(5, 64, 64, 91) == STAGED
+    with pytest.raises(RuntimeError, match="panel_adj launch failed"):
+        _in_form(K.panel_adj, BULK, panels, cols, inv, Y, n_J)
+    assert _same_bits(K.panel_adj_contrib(panels, Y),
+                      K.panel_adj_contrib_rows_plain(panels, Y))
+    panels, cols, inv, n_J, Y = _bulk_inputs(rng, dev, 64, 5, 64, 128)
+    off = torch.empty(panels.numel() + 1, dtype=torch.float64, device=dev)
+    off = off[1:].view(panels.shape)
+    off.copy_(panels)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 8
+    with pytest.raises(RuntimeError, match="panel_adj launch failed"):
+        _in_form(K.panel_adj_contrib, BULK, off, Y)
+    before = K.panel_adj.bulk_launches
+    assert _same_bits(K.panel_adj_contrib(off, Y),
+                      K.panel_adj_contrib_rows_plain(panels, Y))
+    assert K.panel_adj.bulk_launches == before
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_panel_adj_bulk_per_shard(dev, shards):
+    """The mesh rule: phase A per shard of the elements (each in the bulk
+    form), the contributions concatenated in shard order, phase B once,
+    give the bits of one call."""
+    rng = np.random.default_rng(47 + shards)
+    panels, cols, inv, n_J, Y = _bulk_inputs(rng, dev, 512, 5, 64, 128)
+    step = 512 // shards
+    before = K.panel_adj.bulk_launches
+    parts = [K.panel_adj_contrib(panels[:, lo:lo + step].contiguous(),
+                                 Y[lo * 64:(lo + step) * 64])
+             for lo in range(0, 512, step)]
+    assert K.panel_adj.bulk_launches == before + shards
+    assert _same_bits(K.adjoint_sum(cols, inv, torch.cat(parts), n_J),
+                      K.panel_adj(panels, cols, inv, Y, n_J))
+
+
+@pytest.mark.parametrize("L", [2, 3, 4, 5])
+def test_bulk_form_rule_at_fem3d_levels(dev, L):
+    """At every level shape of the fem3d k=3 L systems the C entry takes
+    the bulk form exactly where ``bulk_form_takes`` says, else the staged
+    form."""
+    from chip_smoke import fem3d_k3_shapes
+
+    for shape in fem3d_k3_shapes(L):
+        want = BULK if PA.bulk_form_takes(*shape) else STAGED
+        assert PA.form(*shape) == want, shape
 
 
 # nz -> (nD, idx, m): the main path's cone (nz = 3 over rows 1..3 of 4),
