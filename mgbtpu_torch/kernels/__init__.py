@@ -32,7 +32,9 @@ bulk form in ``bulk_launches``; K2 also counts them by mode in
 ``co_launches``, by mode in ``mode_launches`` and those of a table with a
 wide piece, a runtime-width cone or a wide linear block, in
 ``wide_launches``, and those of a table past its parameter kernels'
-limits in ``table_launches``).
+limits in ``table_launches``). While a profiler records, each also adds
+the host nanoseconds spent inside it to ``utils.trace.ENQUEUE_NS`` under
+its name in ``WRAPPERS``.
 """
 from . import _build, node_barrier as _node_barrier
 from ._build import build_all

@@ -30,6 +30,7 @@ import time
 import torch
 
 from .._config import BUILD_DIR
+from ..utils.trace import built
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NAMES = ("panel_fwd", "power_cone", "panel_adj", "gram_matvec",
@@ -142,6 +143,7 @@ def launcher(name: str, argtypes, entry: str | None = None):
     fn = _LIBS.get(entry)
     if fn is None:
         build_all((name,))
+        built("kernel_entry")
         lib = ctypes.CDLL(library(name))
         cfn = getattr(lib, entry)
         cfn.argtypes = list(argtypes)

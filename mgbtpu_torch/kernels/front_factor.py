@@ -57,6 +57,7 @@ import ctypes
 import torch
 
 from . import _build as B
+from ..utils.trace import enqueue
 
 NAME = "front_factor"
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -94,6 +95,7 @@ def front_factor_plain(F, amax, bmax):
     return Lf, U, C - U @ U.mT
 
 
+@enqueue("front_factor")
 def front_factor(F, amax, bmax):
     """F (nk, ld, ld) fronts, ld >= amax + bmax, eliminated slots first ->
     (Lf (nk, amax, amax), U (nk, bmax, amax), S (nk, bmax, bmax))."""

@@ -59,6 +59,7 @@ from types import SimpleNamespace
 import torch
 
 from . import _build as B
+from ..utils.trace import enqueue
 
 NAME = "front_solve"
 _FWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -143,6 +144,7 @@ def _check_front(Lf, U, adofs, v):
     return nk, a, b, v.shape[0] - 1
 
 
+@enqueue("front_solve")
 def front_forward(Lf, U, adofs, r, rows, inc):
     """One tree level of the forward sweep, on the padded residual r
     (n_J + 1,), in place. Lf (nk, a, a) lower and U (nk, b, a) factors,
@@ -169,6 +171,7 @@ def front_forward(Lf, U, adofs, r, rows, inc):
     return y, upd
 
 
+@enqueue("front_solve")
 def front_backward(Lf, U, adofs, bdofs, y, x):
     """One tree level of the backward sweep, on the padded solution x
     (n_J + 1,), in place: t = y - U' x[bdofs], xA = Lf^-T t, 0 where

@@ -43,6 +43,7 @@ from . import _build as B
 from .panel_adj import adjoint_sum_ordered_plain
 from .panel_fwd import panel_fwd_split_plain
 from ..ops.scatter import scatter_add
+from ..utils.trace import enqueue
 
 NAME = "gram_matvec"
 _ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -133,6 +134,7 @@ def cluster_occupancy(nD, p, C, R):
     return int(fn(nD, p, C, R))
 
 
+@enqueue("gram_matvec")
 def gram_matvec(panels, cols, inv, Lnode, v):
     """panels (nD, N, p, C), cols (N, C) int64, inv (n_J, K) int64 (see
     ``solver.levelops.inverse_incidence``), Lnode (N*p, nD, nD), v (n_J,)
@@ -162,6 +164,7 @@ def gram_matvec(panels, cols, inv, Lnode, v):
 gram_matvec.launches = 0
 
 
+@enqueue("gram_matvec")
 def gram_matvec_contrib(panels, cols, Lnode, v):
     """The per-slot contributions (N*C,) of H v alone, for one shard of a
     mesh (K4 without its phase B: the first device sums every shard's with

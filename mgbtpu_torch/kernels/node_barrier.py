@@ -92,6 +92,7 @@ from . import _build as B
 from . import power_cone as K2
 from ..convex._common import gather, mat_cols, scatter_mat, scatter_vec, ssum
 from ..utils.log import Log, barrier_floor
+from ..utils.trace import enqueue
 
 NAME = "node_barrier"
 POWER, LINEAR = 0, 1
@@ -567,6 +568,7 @@ def _check_grids(pc, grids, m):
         B.cuda_f64(NAME, t, shape, label)
 
 
+@enqueue("node_barrier")
 def node_barrier(mode, Dz, pieces, args, sel, bw, wc, co=None, box=None):
     """Dz (m, ny) rows, ``pieces`` a tuple of ``Piece`` whose grids lie in
     ``args``, ``sel`` the (m, pieces) select grid or None (all active), bw

@@ -49,6 +49,7 @@ import torch
 
 from . import _build as B
 from ..ops.scatter import scatter_add
+from ..utils.trace import enqueue
 
 NAME = "panel_adj"
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -198,6 +199,7 @@ def adjoint_sum_ordered_plain(inv, contrib):
     return _tree(torch.nn.functional.pad(acc, (0, 32 - T // 32)))
 
 
+@enqueue("panel_adj")
 def panel_adj(panels, cols, inv, Y, n_J):
     """panels (nD, N, p, C), cols (N, C) int64, inv (n_J, K) int64 (see
     ``solver.levelops.inverse_incidence``), Y (N*p, nD) -> (n_J,)."""
@@ -232,6 +234,7 @@ panel_adj.launches = 0
 panel_adj.bulk_launches = 0
 
 
+@enqueue("panel_adj")
 def panel_adj_contrib(panels, Y):
     """Phase A alone (one shard of a mesh): panels (nD, N, p, C), Y (N*p,
     nD) -> the per-slot contributions (N*C,); a launch of K3."""
@@ -251,6 +254,7 @@ def panel_adj_contrib(panels, Y):
     return contrib
 
 
+@enqueue("panel_adj")
 def adjoint_sum(cols, inv, contrib, n_J):
     """Phase B alone: the (n_J,) column sums of a level's per-slot
     contributions (N*C,), each column's slots in increasing order (``inv``

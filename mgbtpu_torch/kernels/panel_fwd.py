@@ -41,6 +41,7 @@ import ctypes
 import torch
 
 from . import _build as B
+from ..utils.trace import enqueue
 
 NAME = "panel_fwd"
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -85,6 +86,7 @@ def panel_fwd_split_plain(panels, cols, s, dz0=None):
     return out if dz0 is None else dz0 + out
 
 
+@enqueue("panel_fwd")
 def panel_fwd(panels, cols, s, dz0=None):
     """panels (nD, N, p, C) f64, cols (N, C) int64, s (n_J,), dz0 optional
     (N*p, nD) -> (N*p, nD). The plain version on CPU tensors, the CUDA

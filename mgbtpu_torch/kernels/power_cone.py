@@ -44,6 +44,7 @@ import torch
 from . import _build as B
 from ..convex._common import gather, scatter_mat, scatter_vec, ssum
 from ..utils.log import Log, barrier_floor, safe_pow
+from ..utils.trace import enqueue
 
 NAME = "power_cone"
 MAX_NZ, MAX_ROWS = 5, 12    # the kernel's limits (K6 takes wider cones)
@@ -198,6 +199,7 @@ def takes(nz: int, nD: int) -> bool:
     return 2 <= nz <= MAX_NZ and nD <= MAX_ROWS
 
 
+@enqueue("power_cone")
 def power_cone_eval(mode, Dz, A, b, p, mu, bw, wc, idx, spec):
     """Dz (m, nD), A (m, nz*nz), b (m, nz), p/mu/bw (m,), wc (m, nD); ``idx``
     the nz input rows (tuple of ints), ``spec`` in {0, 1, 2}. Returns the

@@ -49,6 +49,7 @@ import torch
 
 from ..kernels import front_backward, front_factor, front_forward
 from ..parallel.sharding import Mesh, shard_ranges
+from ..utils.trace import span, spanned
 from .scatter import scatter_add
 
 ND_LEAF_ELEMS = 8
@@ -428,6 +429,10 @@ class NDDev:
 # numeric phase (device)
 # ---------------------------------------------------------------------------
 
+FRONTS = "linsolve.nd_factor.fronts"
+
+
+@spanned("linsolve.nd_factor")
 def nd_factor(dp: NDDev, He, diag_shift, factor=front_factor):
     """Batched multifrontal factorization of sum-of-element-blocks + shift.
 
@@ -476,6 +481,7 @@ def nd_factor(dp: NDDev, He, diag_shift, factor=front_factor):
     return tuple(fact)
 
 
+@spanned(FRONTS)
 def _leaf_fronts(He, flat, L):
     """The leaf fronts (nk, f+1, f+1): one scatter-add of the element
     blocks He at their flat positions."""
@@ -484,6 +490,7 @@ def _leaf_fronts(He, flat, L):
     return scatter_add(F, flat, He.reshape(-1)).reshape(L.nk, f1, f1)
 
 
+@spanned(FRONTS)
 def _child_fronts(S_prev, invL, invR, nk):
     """The fronts of nk parents from their children's Schur complements,
     gathered through the parent-slot maps."""
@@ -499,17 +506,18 @@ def _factor_level(F, L, n_J, diag_shift, factor):
     shift on real assigned slots, then K5a; returns (Lf, U, S)."""
     amax, bmax = L.amax, L.bmax
     dtype, device = F.dtype, F.device
-    apad = L.adofs >= n_J
-    bpad = L.bdofs >= n_J
-    one = torch.ones((), dtype=dtype, device=device)
-    zero = torch.zeros((), dtype=dtype, device=device)
-    diag_a = torch.where(apad, one,
-                         torch.full(L.adofs.shape, float(diag_shift),
-                                    dtype=dtype, device=device))
-    ii = torch.arange(amax, device=device)
-    F[:, ii, ii] += diag_a
-    jjb = amax + torch.arange(bmax, device=device)
-    F[:, jjb, jjb] += torch.where(bpad, one, zero)
+    with span(FRONTS):
+        apad = L.adofs >= n_J
+        bpad = L.bdofs >= n_J
+        one = torch.ones((), dtype=dtype, device=device)
+        zero = torch.zeros((), dtype=dtype, device=device)
+        diag_a = torch.where(apad, one,
+                             torch.full(L.adofs.shape, float(diag_shift),
+                                        dtype=dtype, device=device))
+        ii = torch.arange(amax, device=device)
+        F[:, ii, ii] += diag_a
+        jjb = amax + torch.arange(bmax, device=device)
+        F[:, jjb, jjb] += torch.where(bpad, one, zero)
     return factor(F, amax, bmax)
 
 
@@ -531,6 +539,7 @@ def nd_finite(fact) -> bool:
     return bool(flags.all())
 
 
+@spanned("linsolve.nd_solve")
 def nd_solve(dp: NDDev, fact, rhs):
     """Solve H x = rhs with the factors from nd_factor (one rhs): one call of
     the kernel K5b per tree level and sweep, each updating the padded

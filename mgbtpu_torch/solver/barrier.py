@@ -28,6 +28,7 @@ import torch
 
 from .levelops import GramHessian
 from ..kernels import cholesky_nan
+from ..utils.trace import spanned
 
 
 def make_level_fns(barrier):
@@ -37,12 +38,15 @@ def make_level_fns(barrier):
         return [barrier(mode, a, z, b, w) for a, z, b, w in
                 zip(args, ops.shard_G(s, Dz0), bw, wc)]
 
+    @spanned("levelfn.f0")
     def f0(s, ops, Dz0, wc, bw, args):
         return ops.gather(per_shard(0, s, ops, Dz0, wc, bw, args)).sum()
 
+    @spanned("levelfn.f1")
     def f1(s, ops, Dz0, wc, bw, args):
         return ops.adjoint(per_shard(1, s, ops, Dz0, wc, bw, args))
 
+    @spanned("levelfn.f2")
     def f2(s, ops, Dz0, wc, bw, args):
         Ys = per_shard(2, s, ops, Dz0, wc, bw, args)
         if ops.pcg_ctx is not None:
@@ -55,6 +59,7 @@ def make_level_fns(barrier):
     return f0, f1, f2
 
 
+@spanned("levelfn.f2.node_factors")
 def node_factors(Y):
     """Per-node lower Cholesky factors of the (PSD) barrier Hessian blocks,
     with a jitter ladder sized to each block's own evaluation noise; a

@@ -11,6 +11,7 @@ mgb_solve :798-843).
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 
@@ -20,6 +21,7 @@ import torch
 from .._config import EPS, check_dtype, resolve_device
 from ..convex.convex import Convex, validate_convex_inputs
 from ..hierarchy.multigrid import AMGSystem, prepare_amg
+from ..utils import trace
 from ..utils.errors import MGBConvergenceFailure
 from ..utils.log import Logger
 from .barrier import make_level_fns
@@ -146,6 +148,7 @@ class ProblemKernels:
     def _plain_ops(self, l):
         """Level l's panel operators, with no large-level context."""
         if l not in self._plain:
+            trace.built("panel_ops")
             self._plain[l] = build_panel_ops(
                 self.M.D_fine, self.M.nu, self.M.R_fine[l], self.p,
                 self.device, mesh=self.mesh)
@@ -158,9 +161,10 @@ class ProblemKernels:
         ``newton.BIG_PRE`` picks, built once (reference
         ``mgbtpu/solver/mgb.py:247-340``)."""
         if l not in self._ops:
-            ops = self._plain_ops(l)
-            if ops.n_J > self.DENSE_MAX and ops.N >= 4:
-                ops.pcg_ctx = self._large_context(l, ops)
+            with trace.span("setup.plans"):
+                ops = self._plain_ops(l)
+                if ops.n_J > self.DENSE_MAX and ops.N >= 4:
+                    ops.pcg_ctx = self._large_context(l, ops)
             self._ops[l] = ops
         return self._ops[l]
 
@@ -179,6 +183,7 @@ class ProblemKernels:
         and the start vectors live on the first device."""
         from . import newton
 
+        trace.built("large_context")
         if newton.BIG_PRE == "nd":
             return PCGContext(nd=nd_plan(self.M, ops, self.ND_LEAF_ELEMS,
                                          self.device, self.mesh))
@@ -231,9 +236,12 @@ class ProblemKernels:
 
     def _fargs(self, l, z, wc, bw, args):
         ops = self.ops(l)
-        Dz0 = self.tensor(self.M.apply_D_full(z))
-        return (ops, ops.split(Dz0), ops.split(self.tensor(wc)),
-                ops.split(self.tensor(bw)), self._shard_args(ops, args))
+        with trace.span("driver.apply_D"):
+            Dz = self.M.apply_D_full(z)
+        with trace.span("driver.to_device"):
+            Dz0, wc, bw = self.tensor(Dz), self.tensor(wc), self.tensor(bw)
+        return (ops, ops.split(Dz0), ops.split(wc), ops.split(bw),
+                self._shard_args(ops, args))
 
     def run_newton(self, l, z, wc, bw, args, *, maxit, stopping,
                    pred_r=None):
@@ -246,7 +254,9 @@ class ProblemKernels:
             x0, self._fargs(l, z, wc, bw, args), int(maxit),
             lambda_tol if kind == "inexact" else -1.0, theta,
             pred_r=pred_r)
-        return x.cpu().numpy(), float(y), int(k), int(status), int(cg)
+        with trace.span("driver.to_host"):
+            x = x.cpu().numpy()
+        return x, float(y), int(k), int(status), int(cg)
 
     def matched(self, z, wc0, wcc, bw, args):
         """(g_c' n_c, g_phi' n_c + g_c' n_phi) at the finest level, for
@@ -305,6 +315,7 @@ def _kernels_for(M: AMGSystem, Q: Convex, NC, line_search,
         M._torch_kernel_cache = cache
     key = (id(Q), NC, line_search, str(device), id(mesh))
     if key not in cache:
+        trace.built("problem_kernels")
         barrier = Q.barrier_terms if NC is None else make_feasibility_fs(Q, NC)
         cache[key] = ProblemKernels(M, barrier, line_search, device, mesh)
     return cache[key]
@@ -353,7 +364,8 @@ def mgb_step(kern: ProblemKernels, z, wc, bw, args, *, maxit, max_newton,
         cg_tot[0] += cg
         conv = status == CONVERGED
         if conv or np.all(np.isfinite(x)):
-            state["z"] = state["z"] + M.R_fine[J - 1] @ x
+            with trace.span("driver.prolong"):
+                state["z"] = state["z"] + M.R_fine[J - 1] @ x
         if not conv:
             log("mgb_step", f"level {J} newton status={status} k={k}")
         return conv
@@ -416,7 +428,8 @@ def mgb_core(kern: ProblemKernels, z, c, args, *, w, bw, tol, t, maxit=10000,
         kappa_hist.append(kv)
         time_hist.append(time.time())
         cg_hist.append(int(cg))
-        Dz = kern.M.apply_D_full(zv)
+        with trace.span("driver.apply_D"):
+            Dz = kern.M.apply_D_full(zv)
         cdz_hist.append(float(np.sum(w[:, None] * c * Dz)))
 
     initial_finalize = finalize if t >= target else None
@@ -588,11 +601,13 @@ def mgb_driver(Mpair, f_grid, g_grid, Q: Convex, *, device, tol=None, t=0.1,
     z2 = z0.T.reshape(-1).copy()            # stacked (nu*m,), component-major
 
     kern1 = _kernels_for(M1, Q, None, line_search, device, mesh)
-    q_args = tuple(kern1.tensor(a) for a in Q.args)
+    with trace.span("driver.to_device"):
+        q_args = tuple(kern1.tensor(a) for a in Q.args)
 
     SOL_feasibility = None
     pbarfeas = 0.0
-    Dz = M1.apply_D_full(z2)
+    with trace.span("driver.apply_D"):
+        Dz = M1.apply_D_full(z2)
     vals = kern1.node_f0(q_args, Dz)
     if not np.all(np.isfinite(vals)):
         pbarfeas = 0.1
@@ -618,13 +633,14 @@ def mgb_driver(Mpair, f_grid, g_grid, Q: Convex, *, device, tol=None, t=0.1,
             feas_stop = ("feasibility", (nu * m, (nu + 1) * m))
             failure = None
             try:
-                SOL_feasibility = mgb_core(
-                    kern2, z1, c1, args_feas, w=w, bw=bw_flat, tol=tol,
-                    t=t_feasibility, maxit=maxit, kappa=kappa,
-                    early_stop=feas_stop,
-                    progress=lambda x: progress(pbarfeas * x),
-                    max_newton=max_newton, stopping=stopping_criterion,
-                    finalize=finalize, log=log)
+                with trace.span("driver.phase1"):
+                    SOL_feasibility = mgb_core(
+                        kern2, z1, c1, args_feas, w=w, bw=bw_flat, tol=tol,
+                        t=t_feasibility, maxit=maxit, kappa=kappa,
+                        early_stop=feas_stop,
+                        progress=lambda x: progress(pbarfeas * x),
+                        max_newton=max_newton, stopping=stopping_criterion,
+                        finalize=finalize, log=log)
             except MGBConvergenceFailure as e:
                 failure = e
             if failure is None:
@@ -657,14 +673,17 @@ def mgb_driver(Mpair, f_grid, g_grid, Q: Convex, *, device, tol=None, t=0.1,
                     "feasibility_Rmax")
             Rbox = Rnext
         z2 = SOL_feasibility["z"][:nu * m].copy()
-        t = min(t, _matched_t(kern1, z2, c0, t, q_args, w=w, bw=bw_main,
-                              log=log))
+        with trace.span("driver.matched_t"):
+            t = min(t, _matched_t(kern1, z2, c0, t, q_args, w=w, bw=bw_main,
+                                  log=log))
 
-    SOL_main = mgb_core(kern1, z2, c0, q_args, w=w, bw=bw_main, tol=tol,
-                        t=t, maxit=maxit, kappa=kappa, early_stop=early_stop,
-                        progress=lambda x: progress((1 - pbarfeas) * x + pbarfeas),
-                        max_newton=max_newton, stopping=stopping_criterion,
-                        finalize=finalize, log=log)
+    with trace.span("driver.main"):
+        SOL_main = mgb_core(
+            kern1, z2, c0, q_args, w=w, bw=bw_main, tol=tol, t=t,
+            maxit=maxit, kappa=kappa, early_stop=early_stop,
+            progress=lambda x: progress((1 - pbarfeas) * x + pbarfeas),
+            max_newton=max_newton, stopping=stopping_criterion,
+            finalize=finalize, log=log)
     z = SOL_main["z"].reshape(nu, m).T
     return dict(z=z, SOL_feasibility=SOL_feasibility, SOL_main=SOL_main)
 
@@ -698,6 +717,7 @@ class MGBSOL:
         self.geometry = geometry
 
 
+@trace.spanned("setup.assemble")
 def assemble(mg, *, dim=None, state_variables=None, D=None, x=None, p=1.0,
              f=None, g=None, f_grid=None, g_grid=None, Q=None, M=None,
              device=None, dtype=None, **solver_kwargs):
@@ -750,7 +770,27 @@ def mgb_solve(prob: MGBProblem, *, verbose=False, logfile=None, device=None,
     ``mesh``: a ``make_mesh`` mesh to shard the solve over; the device is
     then the mesh's first, and a ``device`` that names another raises.
     ``profile_dir``: write a ``torch.profiler`` trace of the solve there
-    (a Chrome trace, ``mgb_solve.<pid>.<ns>.pt.trace.json``).
+    (a Chrome trace, ``mgb_solve.<pid>.<ns>.pt.trace.json``) and beside it
+    the solve's record, ``mgb_solve.<pid>.<ns>.records.json``.
+
+    Under a profiler (``profile_dir``, or one the caller runs) the solve
+    names its layers with spans (``utils/trace.py``): ``driver.solve``,
+    whose args are the solve's number, around ``driver.main`` and
+    ``driver.phase1`` (the t-ramps), whose host work between Newton
+    solves is ``driver.apply_D``, ``driver.prolong``, ``driver.to_device``
+    and ``driver.to_host`` (``driver.matched_t`` between the phases),
+    and ``setup.plans`` where a level's plans are built on first use;
+    ``newton``, ``newton.linesearch``, ``newton.sync``;
+    ``linsolve.precondition``, ``linsolve.cg``, ``linsolve.dense``,
+    ``linsolve.nd_factor`` (``linsolve.nd_factor.fronts`` its front
+    assembly), ``linsolve.nd_solve``; ``levelfn.f0``/``f1``/``f2``
+    (``levelfn.f2.node_factors``). The record holds ``seq`` and the
+    deltas over the solve of ``launches`` (``kernels.launches()``),
+    ``syncs`` (``newton.SYNCS``), ``transfers`` (``sharding.TRANSFERS``:
+    gathers, broadcasts, bytes), ``enqueue_ns`` (host nanoseconds inside
+    each kernel's wrapper) and ``builds`` (what the solve had to build);
+    ``trace.solves()`` keeps the records of traced solves. With no
+    profiler the spans cost a flag test and nothing is recorded.
     """
     device = _solve_device(device, mesh)
     logger = Logger(stream=logfile)
@@ -766,7 +806,7 @@ def mgb_solve(prob: MGBProblem, *, verbose=False, logfile=None, device=None,
     try:
         logger("mgb_solve", "device = ", device,
                "" if mesh is None else f", mesh of {mesh.size}")
-        with _profiling(profile_dir, device):
+        with _profiling(profile_dir, device), trace.solve(_counters):
             SOL = mgb_driver(prob.M, prob.f_grid, prob.g_grid, prob.Q,
                              device=device, progress=progress, log=logger,
                              mesh=mesh, **kwargs)
@@ -793,10 +833,25 @@ def _solve_device(device, mesh):
     return mesh.first
 
 
+def _counters():
+    """The counters a solve's record takes the deltas of (``trace.solve``).
+    """
+    from .. import kernels
+    from ..parallel.sharding import TRANSFERS
+    from .newton import SYNCS
+
+    return {"launches": kernels.launches(), "syncs": SYNCS["n"],
+            "transfers": {k: TRANSFERS[k]
+                          for k in ("gathers", "broadcasts", "bytes")},
+            "enqueue_ns": dict(trace.ENQUEUE_NS),
+            "builds": dict(trace.BUILDS)}
+
+
 @contextlib.contextmanager
 def _profiling(profile_dir, device):
-    """A torch.profiler trace of the block written to ``profile_dir``
-    (nothing when it is None)."""
+    """A torch.profiler trace of the block written to ``profile_dir``, and
+    beside it the record of the solve that ran in it (nothing when
+    ``profile_dir`` is None)."""
     if not profile_dir:
         yield
         return
@@ -804,12 +859,17 @@ def _profiling(profile_dir, device):
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if device.type == "cuda" else [])
+    seq0 = trace.SEQ["n"]
     with profile(activities=acts) as prof:
         yield
     os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(
-        profile_dir, f"mgb_solve.{os.getpid()}.{time.time_ns()}"
-        ".pt.trace.json"))
+    stem = os.path.join(profile_dir,
+                        f"mgb_solve.{os.getpid()}.{time.time_ns()}")
+    prof.export_chrome_trace(stem + ".pt.trace.json")
+    mine = [r for r in trace.solves() if r["seq"] > seq0]
+    if mine:
+        with open(stem + ".records.json", "w") as fh:
+            json.dump(mine[-1], fh, indent=1)
 
 
 def mgb_cleanup(obj=None):

@@ -22,6 +22,7 @@ import os as _os
 
 import torch
 
+from ..utils.trace import span, spanned
 from .levelops import GramHessian
 
 RUNNING, CONVERGED, DIVERGED, BAD_INIT, BAD_HESSIAN, BAD_DIRECTION = range(6)
@@ -64,18 +65,21 @@ SYNCS = {"n": 0}
 
 def _item(t) -> float:
     SYNCS["n"] += 1
-    return t.item()
+    with span("newton.sync"):
+        return t.item()
 
 
 def _all_finite(t) -> bool:
     SYNCS["n"] += 1
-    return bool(torch.isfinite(t).all())
+    with span("newton.sync"):
+        return bool(torch.isfinite(t).all())
 
 
 # ---------------------------------------------------------------------------
 # linear solves
 # ---------------------------------------------------------------------------
 
+@spanned("linsolve.dense")
 def equilibrated_solve(H, g):
     """Dense symmetric solve: Jacobi equilibration + LU + two iterative
     refinement sweeps (reference ``newton.py:143``)."""
@@ -91,6 +95,7 @@ def equilibrated_solve(H, g):
     return dinv * x
 
 
+@spanned("linsolve.dense")
 def regularized_direction(H, g):
     """Fallback direction when the Newton solve fails (lambda^2 <= 0 away
     from the optimum): shifted Cholesky on the equilibrated system with a
@@ -111,6 +116,7 @@ def regularized_direction(H, g):
     return x
 
 
+@spanned("linsolve.precondition")
 def make_nd_pre(H: GramHessian):
     """Nested-dissection direct factorization of the equilibrated Gram
     Hessian, f64 branch of the reference (``newton.py:646-650``): factor with
@@ -137,6 +143,7 @@ def _refresh_at(H):
     return PRE_REFRESH_ND_AT if H.ctx.nd is not None else PRE_REFRESH_AT
 
 
+@spanned("linsolve.precondition")
 def make_pcg_pre(H: GramHessian):
     """Preconditioner data of one centering of a V-cycle or FSAI level
     (``BIG_PRE``; reference ``make_pcg_pre``, ``newton.py:653-716``):
@@ -305,6 +312,7 @@ def pcg_operators(H: GramHessian, pre, smooth_omega=0.7):
     return M_s, mv_s, dt
 
 
+@spanned("linsolve.cg")
 def pcg_solve(H: GramHessian, g, pre=None, rel_tol=None, maxiter=None,
               smooth_omega=0.7):
     """CG in equilibrated coordinates on a V-cycle or FSAI level, the
@@ -341,6 +349,7 @@ def pcg_solve(H: GramHessian, g, pre=None, rel_tol=None, maxiter=None,
     return x / dt, k
 
 
+@spanned("linsolve.cg")
 def dense_ir_solve(H: GramHessian, g, pre, rtol):
     """Preconditioned-CG iterative refinement of the Newton system (the
     ``plain64`` branch of the reference ``dense_ir_solve``, ``newton.py:
@@ -425,6 +434,7 @@ def _finite(v: float) -> bool:
     return math.isfinite(v)
 
 
+@spanned("newton.linesearch")
 def _backtracking(f0, f1, x, y, g, n_dir, inc, beta, c1):
     """Armijo backtracking; returns the last finite trial if the sufficient-
     decrease test never passes before s underflows. Trials evaluate the
@@ -471,6 +481,7 @@ def _illinois_root(phi, a, b, fa, fb, maxit=128):
     return b
 
 
+@spanned("newton.linesearch")
 def _illinois_ls(f0, f1, x, y, g, n_dir, inc, beta):
     """Exact line search: root of phi(s) = <grad f(x - s n), n>; falls back
     to shrinking s when the trial is rejected (non-finite)."""
@@ -559,6 +570,7 @@ def make_newton_core(f0, f1, f2, *, line_search=("backtracking", 0.5, 0.1)):
             k += 1
         return x0 - (s if accepted else 0.0) * step
 
+    @spanned("newton")
     def newton(x0, fargs, maxit, lambda_tol, theta, pred_r=None):
         epsT = torch.finfo(x0.dtype).eps
         H0 = f2(x0, *fargs)

@@ -20,9 +20,10 @@ here runs a sharded JAX solve.
   unsharded solve and of the port's; the ND-CG branch under a mesh (L=3,
   ``DENSE_MAX`` low) within 5e-12 of the unsharded solve; ``parabolic_solve``
   and ``Model.solve`` pass ``mesh`` on; ``make_mesh()`` raises without a
-  card; ``profile_dir`` writes a trace; L=5 over 8 shards against the x64
+  card; ``profile_dir`` writes a trace and the solve's record; L=5 over 8 shards against the x64
   record (``slow``).
 """
+import json
 import os
 
 import jax
@@ -302,9 +303,15 @@ def test_profile_dir_writes_a_trace(tmp_path):
                        device="cpu")
     sol = mt.mgb_solve(prob, device="cpu", profile_dir=str(tmp_path))
     assert np.all(np.isfinite(sol.z))
-    (trace,) = os.listdir(tmp_path)
+    trace, records = sorted(os.listdir(tmp_path))
     assert trace.endswith(".pt.trace.json")
     assert os.path.getsize(tmp_path / trace) > 0
+    # beside it, the solve's record (utils/trace.py)
+    assert records == trace.replace(".pt.trace.json", ".records.json")
+    with open(tmp_path / records) as fh:
+        rec = json.load(fh)
+    assert {"seq", "launches", "syncs", "transfers", "enqueue_ns",
+            "builds"} <= set(rec) and rec["syncs"] > 0
 
 
 @pytest.mark.slow
